@@ -1,0 +1,287 @@
+"""Block-allocated paged KV-cache accounting with copy-on-write sharing.
+
+The manager half of the paged cache (the physical pool lives in
+``models/llama.py`` ``init_kv_pages``): a fixed population of
+``block_size``-token blocks handed out on demand, one logical page table
+per live sequence. Capacity is the admission signal — a full pool QUEUES
+new work (the engine keeps it waiting) instead of OOMing a growing dense
+cache, and freeing on completion/cancellation returns blocks for the next
+admission. Physical block 0 is reserved as the trash block padding lanes
+write into, so it is never allocated.
+
+Prefix sharing: every physical block carries a
+REFCOUNT, and full prompt blocks are content-hashed into a shared index.
+The hash of block ``i`` chains over everything before it
+(``hash(prev_hash, block_tokens)``), because a block's K/V values depend
+on its entire causal prefix, not just its own tokens — two blocks are
+interchangeable iff their chains match. A new sequence whose prompt
+chain-matches the index *references* the existing blocks instead of
+allocating and recomputing them (the engine then prefills only the
+unshared suffix). Copy-on-write discipline: a shared block is never
+written in place and never reclaimed while ``refcount > 1`` — writers
+always target fresh blocks (:meth:`extend` never returns a shared
+block), and :meth:`free` only returns a block to the pool when its LAST
+reference drops, unpublishing it from the index in the same breath
+(refcount==0 means reclaimed, nothing lingers).
+
+Pure bookkeeping: no clocks, no tensors, single-owner (the engine's step
+loop) — no locks.
+"""
+
+import hashlib
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+from client_tpu_torch.utils import InferenceServerException
+
+# Reserved physical block: bucketed-batch padding lanes and padded
+# prompt tails scatter their K/V here; page-table entries of 0 mean
+# "unallocated" and are masked out of attention.
+TRASH_BLOCK = 0
+
+# chain seed: makes the empty-prefix digest explicit
+_CHAIN_SEED = b"kv-block-chain"
+
+
+class CacheCapacityError(InferenceServerException):
+    """A block demand exceeded the pool's free (or total) capacity."""
+
+    def __init__(self, msg: str):
+        super().__init__(msg, status="RESOURCE_EXHAUSTED")
+
+
+class BlockAllocator:
+    """Fixed-size-block pool accounting for the paged KV cache.
+
+    ``num_blocks`` counts PHYSICAL blocks including the reserved trash
+    block; :attr:`capacity` (= ``num_blocks - 1``) is what sequences can
+    actually hold. Blocks are identified by pool index; a block may be
+    referenced by several sequences at once (shared prefix), and returns
+    to the pool only when the last reference is freed.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # LIFO free stack: recently-freed blocks are re-issued first
+        # (their pages are hot in cache)
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._owned: Dict[object, List[int]] = {}
+        self._ref: Dict[int, int] = {}  # phys -> live reference count
+        self._index: Dict[bytes, int] = {}  # chain digest -> phys
+        self._hash_of: Dict[int, bytes] = {}  # phys -> its published digest
+        # cumulative sharing counters (the engine mirrors them to metrics)
+        self.prefix_hits = 0  # blocks whose prefill was skipped
+        self.prefix_queries = 0  # allocations that consulted the index
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable blocks (the trash block excluded)."""
+        return self.num_blocks - 1
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def blocks_in_use(self) -> int:
+        """Distinct PHYSICAL blocks allocated — sharing keeps this low."""
+        return self.capacity - len(self._free)
+
+    @property
+    def blocks_shared(self) -> int:
+        """Physical blocks currently referenced by more than one
+        sequence (each is at least one whole prefill-block of compute
+        and memory saved)."""
+        return sum(1 for count in self._ref.values() if count >= 2)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks needed to hold ``n_tokens`` of context."""
+        return (max(0, n_tokens) + self.block_size - 1) // self.block_size
+
+    def refcount(self, phys: int) -> int:
+        """Live references to a physical block (0 = free/unallocated)."""
+        return self._ref.get(phys, 0)
+
+    def owned(self, seq_id) -> List[int]:
+        """The sequence's block list (allocation order = logical order)."""
+        return self._owned.get(seq_id, [])
+
+    # -- prefix hashing / matching ------------------------------------------
+
+    def chain_hashes(self, tokens: Sequence[int]) -> List[bytes]:
+        """Chained sha256 digests of every FULL block of ``tokens``
+        (block ``i``'s digest covers tokens ``0 .. (i+1)*block_size``).
+
+        Cryptographic on purpose: a collision here would silently serve
+        one prompt's K/V to a DIFFERENT prompt (wrong completions +
+        cross-request prompt influence), so a 64-bit ``hash()`` chain is
+        not acceptable identity for content-addressed cache blocks."""
+        digest = hashlib.sha256(
+            _CHAIN_SEED + self.block_size.to_bytes(4, "little")
+        ).digest()
+        out: List[bytes] = []
+        for i in range(len(tokens) // self.block_size):
+            block = tokens[i * self.block_size:(i + 1) * self.block_size]
+            h = hashlib.sha256(digest)
+            h.update(
+                b"".join(
+                    int(t).to_bytes(8, "little", signed=True) for t in block
+                )
+            )
+            digest = h.digest()
+            out.append(digest)
+        return out
+
+    def match_count(self, hashes: Iterable[bytes]) -> int:
+        """Longest indexed prefix (in blocks) — a side-effect-free probe
+        for admission math; no references are taken."""
+        n = 0
+        for h in hashes:
+            if h not in self._index:
+                break
+            n += 1
+        return n
+
+    # -- allocation ----------------------------------------------------------
+
+    def allocate(self, seq_id, n_blocks: int) -> List[int]:
+        """Claim ``n_blocks`` for a new sequence; all-or-nothing."""
+        blocks, _ = self.allocate_shared(seq_id, n_blocks, ())
+        return blocks
+
+    def allocate_shared(
+        self, seq_id, n_blocks: int, prefix_hashes: Sequence[bytes]
+    ) -> Tuple[List[int], int]:
+        """Claim ``n_blocks``, referencing indexed blocks for the longest
+        matching prefix of ``prefix_hashes`` and allocating the rest
+        fresh. All-or-nothing: on :class:`CacheCapacityError` no
+        reference has been taken. Returns ``(blocks, n_matched)`` —
+        ``blocks[:n_matched]`` are shared (read-only for this sequence),
+        the rest are exclusively owned. The returned list never aliases
+        the ownership record."""
+        if seq_id in self._owned:
+            raise CacheCapacityError(
+                f"sequence {seq_id!r} already owns blocks"
+            )
+        matched: List[int] = []
+        for h in prefix_hashes:
+            if len(matched) >= n_blocks:
+                break
+            phys = self._index.get(h)
+            if phys is None:
+                break
+            matched.append(phys)
+        need_new = n_blocks - len(matched)
+        if need_new > len(self._free):
+            raise CacheCapacityError(
+                f"KV cache exhausted: need {need_new} blocks "
+                f"({n_blocks} minus {len(matched)} shared), "
+                f"{len(self._free)} of {self.capacity} free"
+            )
+        if prefix_hashes:
+            self.prefix_queries += 1
+            self.prefix_hits += len(matched)
+        for phys in matched:
+            self._ref[phys] += 1
+        fresh = [self._free.pop() for _ in range(need_new)]
+        for phys in fresh:
+            self._ref[phys] = 1
+        blocks = matched + fresh
+        self._owned[seq_id] = blocks
+        # a copy: callers keep their own page-table mirror, and a caller
+        # appending to the returned list must not alias the ownership
+        # record (a block listed twice would be freed twice)
+        return list(blocks), len(matched)
+
+    def extend(self, seq_id) -> int:
+        """Claim ONE more block for a growing sequence (decode entering a
+        new block); raises :class:`CacheCapacityError` when the pool is
+        dry — the engine's preemption signal. Always a FRESH block with
+        refcount 1: growth never writes into shared storage."""
+        if seq_id not in self._owned:
+            raise CacheCapacityError(f"sequence {seq_id!r} owns no blocks")
+        if not self._free:
+            raise CacheCapacityError(
+                f"KV cache exhausted: 0 of {self.capacity} blocks free"
+            )
+        block = self._free.pop()
+        self._ref[block] = 1
+        self._owned[seq_id].append(block)
+        return block
+
+    def truncate(self, seq_id, keep: int) -> int:
+        """Give back a sequence's TRAILING blocks beyond its first
+        ``keep`` (speculative-decode rollback: lookahead blocks claimed
+        for draft-token writes that verification then rejected).
+
+        Only ever legal on exclusively-owned tail blocks — growth never
+        lands in shared storage, so a truncated block with ``refcount !=
+        1`` (or a published hash) means the allocator's COW discipline
+        was violated upstream: that raises instead of freeing, the same
+        engine-fatal posture as the step loop's write assertion.
+        Returns the number of blocks reclaimed."""
+        blocks = self._owned.get(seq_id)
+        if blocks is None:
+            raise CacheCapacityError(f"sequence {seq_id!r} owns no blocks")
+        keep = max(0, int(keep))
+        if keep >= len(blocks):
+            return 0
+        tail = blocks[keep:]
+        for phys in tail:
+            if self._ref.get(phys, 0) != 1 or phys in self._hash_of:
+                raise InferenceServerException(
+                    f"COW violation: speculative rollback of block "
+                    f"{phys} (refcount {self._ref.get(phys, 0)}, "
+                    f"published={phys in self._hash_of})"
+                )
+        for phys in reversed(tail):
+            del self._ref[phys]
+            self._free.append(phys)
+        del blocks[keep:]
+        return len(tail)
+
+    def free(self, seq_id) -> int:
+        """Drop a sequence's references (idempotent); returns the number
+        of blocks actually RECLAIMED into the pool. A block another
+        sequence still references survives with its index entry; the
+        last reference unpublishes and reclaims it."""
+        blocks = self._owned.pop(seq_id, None)
+        if not blocks:
+            return 0
+        reclaimed = 0
+        for phys in reversed(blocks):
+            self._ref[phys] -= 1
+            if self._ref[phys] > 0:
+                continue
+            del self._ref[phys]
+            published = self._hash_of.pop(phys, None)
+            if published is not None and self._index.get(published) == phys:
+                del self._index[published]
+            self._free.append(phys)
+            reclaimed += 1
+        return reclaimed
+
+    # -- publication ---------------------------------------------------------
+
+    def publish(self, seq_id, hashes: Sequence[bytes]) -> int:
+        """Register a sequence's first ``len(hashes)`` blocks (its full,
+        prefilled prompt blocks) in the shared index so later sequences
+        can reference them. Blocks whose hash is already indexed (or that
+        were themselves matched from the index) are skipped — first
+        publisher wins, duplicates keep serving their own copy until
+        freed. Returns the number of newly indexed blocks."""
+        owned = self._owned.get(seq_id)
+        if owned is None:
+            return 0
+        published = 0
+        for phys, h in zip(owned, hashes):
+            if phys in self._hash_of or h in self._index:
+                continue
+            self._index[h] = phys
+            self._hash_of[phys] = h
+            published += 1
+        return published

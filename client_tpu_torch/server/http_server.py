@@ -1,0 +1,284 @@
+"""HTTP/1.1 front-end on stdlib asyncio streams.
+
+Serves the health and model-config routes of the KServe v2 REST protocol
+and the OpenAI-compatible routes (``server/openai_frontend.py``), with
+Server-Sent Events over a chunked response when a request asks to
+stream. Connections are kept alive between requests unless the client
+sends ``Connection: close``. Request bodies need a ``Content-Length``.
+"""
+
+import asyncio
+import json
+import logging
+import re
+from dataclasses import dataclass, field
+from http import HTTPStatus
+from typing import Any, Dict, Optional
+
+from client_tpu_torch.server.core import ServerCore
+from client_tpu_torch.utils import InferenceServerException
+
+MAX_HEADER_BYTES = 64 * 1024
+MAX_BODY_BYTES = 64 * 1024 * 1024
+
+_log = logging.getLogger(__name__)
+
+
+class HttpError(Exception):
+    """A request the server cannot parse; answered, then the connection
+    closes."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+@dataclass
+class Response:
+    status: int = 200
+    body: bytes = b""
+    headers: Dict[str, str] = field(default_factory=dict)
+
+
+def json_response(doc: Any, status: int = 200,
+                  headers: Optional[Dict[str, str]] = None) -> Response:
+    out = {"Content-Type": "application/json"}
+    out.update(headers or {})
+    return Response(status, json.dumps(doc).encode(), out)
+
+
+def error_response(e: InferenceServerException) -> Response:
+    """An exception's own wire face (``http_status``, ``Retry-After``
+    from ``retry_after_s``), 400 when it carries none."""
+    headers = {}
+    retry_after_s = getattr(e, "retry_after_s", None)
+    if retry_after_s:
+        headers["Retry-After"] = str(max(1, int(round(retry_after_s))))
+    return json_response({"error": e.message()},
+                         status=getattr(e, "http_status", None) or 400,
+                         headers=headers)
+
+
+def _head(status: int, headers: Dict[str, str]) -> bytes:
+    lines = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}"]
+    lines += [f"{name}: {value}" for name, value in headers.items()]
+    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+
+
+class StreamResponse:
+    """A response written piece by piece as a chunked body."""
+
+    def __init__(self, writer: asyncio.StreamWriter, status: int,
+                 headers: Dict[str, str]):
+        self._writer = writer
+        self._status = status
+        self._headers = dict(headers)
+        self._headers["Transfer-Encoding"] = "chunked"
+
+    async def prepare(self) -> None:
+        self._writer.write(_head(self._status, self._headers))
+        await self._writer.drain()
+
+    async def write(self, data: bytes) -> None:
+        if self._writer.is_closing():
+            raise ConnectionResetError("client went away mid-stream")
+        self._writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+        await self._writer.drain()
+
+    async def write_eof(self) -> None:
+        self._writer.write(b"0\r\n\r\n")
+        await self._writer.drain()
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    headers: Dict[str, str]  # lower-case names
+    body: bytes
+    params: Dict[str, str]  # path parameters of the matched route
+    writer: asyncio.StreamWriter
+    streamed: bool = False
+
+    def json(self) -> Any:
+        return json.loads(self.body or b"null")
+
+    async def stream(self, status: int = 200,
+                     headers: Optional[Dict[str, str]] = None) -> StreamResponse:
+        """Commit the status and headers and return the body writer; the
+        handler then returns None."""
+        self.streamed = True
+        response = StreamResponse(self.writer, status, headers or {})
+        await response.prepare()
+        return response
+
+
+async def _read_request(reader: asyncio.StreamReader):
+    """(method, path, version, headers, body) of the next request, or
+    None at a clean end of stream."""
+    try:
+        head = await reader.readuntil(b"\r\n\r\n")
+    except asyncio.IncompleteReadError as e:
+        if not e.partial.strip():
+            return None
+        raise HttpError(400, "truncated request head") from None
+    except asyncio.LimitOverrunError:
+        raise HttpError(431, "request head too large") from None
+    lines = head.decode("latin-1").split("\r\n")
+    parts = lines[0].split(" ")
+    if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
+        raise HttpError(400, f"bad request line {lines[0]!r}")
+    method, target, version = parts
+    headers = {}
+    for line in lines[1:]:
+        if not line:
+            continue
+        name, sep, value = line.partition(":")
+        if not sep:
+            raise HttpError(400, f"bad header line {line!r}")
+        headers[name.strip().lower()] = value.strip()
+    if "chunked" in headers.get("transfer-encoding", "").lower():
+        raise HttpError(501, "chunked request bodies are not supported")
+    try:
+        length = int(headers.get("content-length", "0"))
+    except ValueError:
+        raise HttpError(400, "bad Content-Length") from None
+    if length < 0 or length > MAX_BODY_BYTES:
+        raise HttpError(413, f"body of {length} bytes refused")
+    try:
+        body = await reader.readexactly(length) if length else b""
+    except asyncio.IncompleteReadError:
+        raise HttpError(400, "truncated request body") from None
+    path = target.split("?", 1)[0]
+    return method, path, version, headers, body
+
+
+class HttpServer:
+    """The port's HTTP front-end over a :class:`ServerCore`."""
+
+    def __init__(self, core: ServerCore):
+        from client_tpu_torch.server.openai_frontend import OpenAiFrontend
+
+        self.core = core
+        self._server: Optional[asyncio.base_events.Server] = None
+        self._writers: set = set()  # open connections, closed by close()
+        openai = OpenAiFrontend(core)
+        self._routes = [
+            ("GET", re.compile(r"/v2/health/live"), self.handle_live),
+            ("GET", re.compile(r"/v2/health/ready"), self.handle_ready),
+            ("GET", re.compile(r"/v2/models/(?P<model>[^/]+)"
+                               r"(/versions/(?P<version>[^/]+))?/config"),
+             self.handle_model_config),
+            ("GET", re.compile(r"/v1/models"), openai.handle_models),
+            ("POST", re.compile(r"/v1/chat/completions"), openai.handle_chat),
+            ("POST", re.compile(r"/v1/completions"), openai.handle_chat),
+        ]
+
+    @property
+    def port(self) -> int:
+        return self._server.sockets[0].getsockname()[1]
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Listen on ``host:port`` (0 = any free port); returns the port."""
+        self._server = await asyncio.start_server(
+            self._serve_connection, host, port, limit=MAX_HEADER_BYTES
+        )
+        return self.port
+
+    async def close(self) -> None:
+        """Stop listening and close every open connection."""
+        if self._server is not None:
+            self._server.close()
+            for writer in list(self._writers):
+                writer.close()
+            await self._server.wait_closed()
+            self._server = None
+
+    async def _serve_connection(self, reader: asyncio.StreamReader,
+                                writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        try:
+            while True:
+                try:
+                    parsed = await _read_request(reader)
+                except HttpError as e:
+                    response = json_response({"error": str(e)}, status=e.status)
+                    response.headers["Connection"] = "close"
+                    await self._write(writer, response)
+                    return
+                if parsed is None:
+                    return
+                method, path, version, headers, body = parsed
+                request = Request(method, path, headers, body, {}, writer)
+                response = await self._dispatch(request)
+                if response is not None:
+                    await self._write(writer, response)
+                connection = headers.get("connection", "").lower()
+                if connection == "close" or (
+                    version == "HTTP/1.0" and connection != "keep-alive"
+                ):
+                    return
+        except ConnectionError:
+            pass  # the client went away
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+
+    @staticmethod
+    async def _write(writer: asyncio.StreamWriter, response: Response) -> None:
+        headers = dict(response.headers)
+        headers["Content-Length"] = str(len(response.body))
+        writer.write(_head(response.status, headers) + response.body)
+        await writer.drain()
+
+    async def _dispatch(self, request: Request) -> Optional[Response]:
+        allowed = []
+        for method, pattern, handler in self._routes:
+            match = pattern.fullmatch(request.path)
+            if match is None:
+                continue
+            if method != request.method:
+                allowed.append(method)
+                continue
+            request.params = {k: v for k, v in match.groupdict().items() if v}
+            try:
+                return await handler(request)
+            except ConnectionError:
+                raise
+            except Exception as e:  # noqa: BLE001 - answer, keep serving
+                if request.streamed:
+                    # the status is committed: all that is left is to
+                    # cut the stream, which the client sees as truncated
+                    _log.exception("stream failed on %s", request.path)
+                    raise ConnectionResetError("stream failed") from e
+                if isinstance(e, InferenceServerException):
+                    return error_response(e)
+                _log.exception("internal error on %s %s", request.method,
+                               request.path)
+                return json_response({"error": f"internal error: {e}"}, status=500)
+        if allowed:
+            return json_response({"error": "method not allowed"}, status=405,
+                                 headers={"Allow": ", ".join(allowed)})
+        return json_response({"error": f"no route {request.path}"}, status=404)
+
+    # -- KServe v2 routes ----------------------------------------------------
+
+    async def handle_live(self, request: Request) -> Response:
+        return Response(200 if self.core.live else 400)
+
+    async def handle_ready(self, request: Request) -> Response:
+        return Response(200 if self.core.ready else 503)
+
+    async def handle_model_config(self, request: Request) -> Response:
+        model = self.core.repository.get(
+            request.params["model"], request.params.get("version", "")
+        )
+        return json_response(model.config())
+
+
+async def serve_http(core: ServerCore, host: str = "127.0.0.1",
+                     port: int = 0) -> HttpServer:
+    """Start the HTTP front-end; ``server.port`` is the bound port."""
+    server = HttpServer(core)
+    await server.start(host, port)
+    return server

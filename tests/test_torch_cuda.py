@@ -1,0 +1,123 @@
+"""The port's kernels on the card, against their plain PyTorch versions.
+
+Every test here carries the ``cuda`` marker and skips without a card: a
+CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
+so it runs on the machine with the card, where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: the suite's conftest pins JAX to the CPU.)
+"""
+
+import asyncio
+
+import numpy as np
+import pytest
+import torch
+
+from client_tpu_torch.llm.engine import EngineConfig
+from client_tpu_torch.llm.serving import LlmEngineModel
+from client_tpu_torch.models import llama
+from client_tpu_torch.models import paged_attention as pa
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU or interpret mode")
+    # full-precision fp32 matmuls in the plain versions the kernel is held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _ragged_case(seed, b, nb, bs, g, kv, d, device):
+    """Random pages, a ragged layout and an all-zero padding lane last."""
+    rng = np.random.default_rng(seed)
+    num_blocks = 1 + b * nb
+    k_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    v_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    tables = np.zeros((b, nb), dtype=np.int32)
+    positions = np.zeros((b,), dtype=np.int32)
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    for i in range(b - 1):
+        n_ctx = int(rng.integers(1, nb * bs + 1))
+        positions[i] = n_ctx - 1
+        for j in range((n_ctx + bs - 1) // bs):
+            tables[i, j] = free.pop()
+    q = rng.normal(size=(b, kv * g, d)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (q, k_pages, v_pages, tables, positions)]
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_kernel_matches_plain_version_fp32(cuda, bs, g, d):
+    q, k, v, tables, positions = _ragged_case(bs * 100 + g * 10 + d, 8, 4, bs, g, 2, d, cuda)
+    before = pa.paged_attention_cuda.launches
+    out = pa.paged_attention_cuda(q, k, v, tables, positions)
+    ref = pa.paged_attention_standin(q, k, v, tables, positions)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches == before + 1
+    assert (out - ref).abs().max().item() <= TOL
+
+
+def test_kernel_matches_plain_version_bf16(cuda):
+    case = _ragged_case(1, 8, 16, 16, 1, 32, 128, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in case[:3])
+    out = pa.paged_attention_cuda(q, k, v, *case[3:])
+    ref = pa.paged_attention_standin(q, k, v, *case[3:])
+    torch.cuda.synchronize()
+    # both round an fp32 result once to bf16: at most one bf16 ulp apart
+    tol = 2.0 ** -7 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_kernel_raises_on_what_it_does_not_take(cuda):
+    q, k, v, tables, positions = _ragged_case(2, 2, 2, 8, 1, 2, 128, cuda)
+    with pytest.raises(TypeError):
+        pa.paged_attention_cuda(q.half(), k.half(), v.half(), tables, positions)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pa.paged_attention_cuda(q, k.cpu(), v, tables, positions)
+
+
+def test_engine_on_the_card_equals_the_dense_oracle(cuda):
+    """The tiny fp32 Llama through the engine (prefill, shared-prefix
+    suffix prefill, K1 decode at head_dim 16) gives the dense oracle's
+    greedy streams token for token, and K1 launches once per layer and
+    decode step."""
+    config = llama.LlamaConfig.tiny(max_seq_len=64, dtype=torch.float32)
+    params = llama.init_params(torch.Generator(device=cuda).manual_seed(0), config, cuda)
+    model = LlmEngineModel(
+        config=config, params=params, device=cuda,
+        engine_config=EngineConfig(block_size=8, num_blocks=65, max_seq_len=64),
+    )
+    model.warmup()
+    assert model.decode_kernel == "cuda"
+    prefix = [9, 3, 7, 1, 5, 2, 8, 4, 6, 1, 2, 3, 4, 5, 6, 7]
+    prompts = [prefix + [10 + i, 20 + i] for i in range(3)] + [[5, 9, 17]]
+
+    async def generate(prompt):
+        out = []
+        async for item in model.execute_decoupled(
+            {"INPUT_IDS": np.array(prompt, dtype=np.int32)}, {"max_tokens": 12}
+        ):
+            out.append(int(item["OUTPUT_IDS"][0]))
+        return out
+
+    async def run_all():
+        return await asyncio.gather(*(generate(p) for p in prompts))
+
+    launches, steps = pa.paged_attention_cuda.launches, model.engine.steps
+    streams = asyncio.run(run_all())
+    assert pa.paged_attention_cuda.launches - launches == (
+        config.n_layers * (model.engine.steps - steps)
+    )
+    assert model.engine.allocator.prefix_hits >= 2
+    model.shutdown()
+    for prompt, stream in zip(prompts, streams):
+        dense = llama.generate(params, torch.tensor([prompt], device=cuda), config, 12)
+        assert stream == dense[0].tolist()
