@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_library: Optional[ctypes.CDLL] = None
+_libraries: Dict[str, ctypes.CDLL] = {}
 #: what ``nvcc`` printed for each built source (ptxas registers and spills)
 build_logs: Dict[str, str] = {}
 
@@ -91,9 +91,8 @@ def build_all() -> List[Path]:
         return list(pool.map(build, sources))
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """argtypes/restype of the library's C entry points: each pointer
-    and the stream as ``c_void_p`` (a bare int would be cut to 32 bits)."""
+def _declare_decode(lib: ctypes.CDLL) -> None:
+    """``csrc/paged_attention.cu``: K1, the single-query decode."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rpa_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_pages, v_pages, tables, positions, out
@@ -103,14 +102,36 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rpa_decode.restype = i32
     lib.rpa_error_string.argtypes = [i32]
     lib.rpa_error_string.restype = ctypes.c_char_p
-    return lib
 
 
-def load() -> ctypes.CDLL:
-    """The paged-attention kernels' library (``csrc/paged_attention.cu``),
-    built and loaded on first use."""
-    global _library
+def _declare_verify(lib: ctypes.CDLL) -> None:
+    """``csrc/paged_attention_mq.cu``: K2, the multi-query verify."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rpa_decode_mq.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_pages, v_pages, tables, positions, out
+        i32, i32, i32, i32, i32, i32, i32, i32,  # B, T, H, KV, D, N, bs, NB
+        i32, ctypes.c_float, ptr,  # dtype, scale, stream
+    ]
+    lib.rpa_decode_mq.restype = i32
+    lib.rpa_mq_error_string.argtypes = [i32]
+    lib.rpa_mq_error_string.restype = ctypes.c_char_p
+
+
+# argtypes/restype of each library's C entry points: each pointer and the
+# stream as ``c_void_p`` (a bare int would be cut to 32 bits)
+_DECLARATIONS = {
+    "paged_attention.cu": _declare_decode,
+    "paged_attention_mq.cu": _declare_verify,
+}
+
+
+def load(source: str = "paged_attention.cu") -> ctypes.CDLL:
+    """The library built from ``csrc/<source>`` (K1's by default), built
+    and loaded on first use."""
     with _lock:
-        if _library is None:
-            _library = _declare(ctypes.CDLL(str(build("paged_attention.cu"))))
-        return _library
+        lib = _libraries.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            _DECLARATIONS[source](lib)
+            _libraries[source] = lib
+        return lib

@@ -7,12 +7,14 @@ sequence in the engine's running batch, so N concurrent streams cost one
 batched decode step per token.
 """
 
+import json
 from typing import Any, AsyncIterator, Dict, Optional
 
 import numpy as np
 import torch
 
 from client_tpu_torch.llm.engine import EngineConfig, LlmEngine, block_bucket
+from client_tpu_torch.llm.speculation import build_proposer
 from client_tpu_torch.models import llama, paged_attention
 from client_tpu_torch.server.model_repository import Model
 from client_tpu_torch.utils import InferenceServerException, resolve_device
@@ -25,7 +27,15 @@ class LlmEngineModel(Model):
     ``params`` (the dict :func:`llama.init_params` or
     :func:`llama.params_from_jax` returns) must already live on
     ``device``; without them warmup draws random weights from seed 0.
-    Tensor parallelism and speculative decoding are not ported yet.
+
+    ``speculation`` (``{"mode": "draft" | "ngram", "k": N, ...}``, the
+    knobs of :func:`~client_tpu_torch.llm.speculation.build_proposer`;
+    ``"draft": "self"`` drafts with the target itself) turns on
+    speculative decoding: each step verifies every lane's draft tokens
+    and its next position in one ``decode_step_paged_multi`` call, whose
+    attention is the multi-query twin of the decode kernel (K2 on a
+    card). ``draft_config``/``draft_params`` name a draft model.
+    Tensor parallelism is not ported yet.
     """
 
     decoupled = True
@@ -43,14 +53,12 @@ class LlmEngineModel(Model):
         engine_config: Optional[EngineConfig] = None,
         tp: int = 1,
         speculation: Optional[Dict[str, Any]] = None,
+        draft_config: Optional[llama.LlamaConfig] = None,
+        draft_params: Optional[Dict[str, Any]] = None,
         device=None,
     ):
         if int(tp) != 1:
             raise InferenceServerException("tp > 1 is not yet ported")
-        if speculation is not None:
-            raise InferenceServerException(
-                "speculative decoding is not yet ported"
-            )
         self.name = name
         self.tp = 1
         self.device = resolve_device(device)
@@ -66,6 +74,13 @@ class LlmEngineModel(Model):
                 max_queue=64,
                 max_seq_len=self._config.max_seq_len,
             )
+        self.speculation = dict(speculation) if speculation is not None else None
+        self._draft_config = draft_config
+        self._draft_params = draft_params
+        # admission math must see the speculative lookahead the engine
+        # will use (worst-case K+1 growth per sequence)
+        if self.speculation is not None:
+            engine_config.spec_k = max(1, int(self.speculation.get("k", 4)))
         self.engine_config = engine_config
         self._params = params
         self.engine: Optional[LlmEngine] = None
@@ -78,15 +93,17 @@ class LlmEngineModel(Model):
     def vocab_size(self) -> int:
         return self._config.vocab_size
 
-    def _build_device_fns(self, params, config, engine_config, attn):
-        """The engine's device callables (prefill, decode). They take the
-        engine's host int arrays, run on ``self.device`` and hand back
-        host fp32 logits: one device-to-host copy per call, which is also
-        the call's only synchronisation. ``prefill`` routes start == 0
-        through the full-prompt path and block-aligned suffixes through
-        ``prefill_suffix_into_pages`` with a power-of-two prefix bucket.
-        Each enters inference mode itself: the engine calls them from an
-        executor thread, and the mode is per thread."""
+    def _build_device_fns(self, params, config, engine_config, attn, attn_mq):
+        """The engine's device callables (prefill, decode, decode_multi).
+        They take the engine's host int arrays, run on ``self.device`` and
+        hand back host fp32 logits: one device-to-host copy per call,
+        which is also the call's only synchronisation. ``prefill`` routes
+        start == 0 through the full-prompt path and block-aligned suffixes
+        through ``prefill_suffix_into_pages`` with a power-of-two prefix
+        bucket. ``decode_multi`` (the speculative verify step; None when
+        ``attn_mq`` is None) rides the multi-query twin of the decode
+        attention. Each enters inference mode itself: the engine calls
+        them from an executor thread, and the mode is per thread."""
         device = self.device
         block_size = engine_config.block_size
 
@@ -122,15 +139,28 @@ class LlmEngineModel(Model):
             )
             return to_host(logits), pages
 
-        return prefill, decode
+        decode_multi = None
+        if attn_mq is not None:
+            @torch.inference_mode()
+            def decode_multi(tokens, positions, lengths, page_tables, pages):
+                logits, pages = llama.decode_step_paged_multi(
+                    params, to_device(tokens), to_device(positions),
+                    to_device(lengths), to_device(page_tables), pages, config,
+                    attn_mq,
+                )
+                return to_host(logits), pages
+
+        return prefill, decode, decode_multi
 
     def warmup(self) -> None:
         """Build the pool and the device callables and probe them at the
         shapes the engine serves: prefill at the smallest bucket, one
-        suffix prefill, and decode at table widths 1 and
-        ``min(8, max_blocks)`` (all writes land in the trash block). One
-        kernel is picked for the device — the CUDA kernel on a card — and
-        a probe that fails fails the load with its error."""
+        suffix prefill, decode at table widths 1 and ``min(8,
+        max_blocks)``, and with speculation the verify step at T=2 (width
+        1) and at T = spec_k + 1 (all writes land in the trash block).
+        One kernel is picked for the device — the CUDA kernels on a card —
+        and a probe that fails fails the load with its error, as does a
+        malformed speculation declaration."""
         config = self._config
         engine_config = self.engine_config
         if self.engine is not None:
@@ -141,9 +171,27 @@ class LlmEngineModel(Model):
             if self._params is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
                 self._params = llama.init_params(generator, config, self.device)
+            proposer = None
+            if self.speculation is not None:
+                draft_params, draft_config = self._draft_params, self._draft_config
+                if self.speculation.get("draft") == "self":
+                    # the draft is the target: near-full acceptance, which
+                    # measures the verify machinery's ceiling
+                    draft_params, draft_config = self._params, config
+                try:
+                    proposer = build_proposer(
+                        self.speculation, target_config=config,
+                        draft_params=draft_params, draft_config=draft_config,
+                        device=self.device,
+                    )
+                except ValueError as e:
+                    raise InferenceServerException(f"speculative decoding: {e}") from e
             name, attn = paged_attention.resolve_decode_attention(self.device)
-            prefill, decode = self._build_device_fns(
-                self._params, config, engine_config, attn
+            attn_mq = None
+            if proposer is not None:
+                _, attn_mq = paged_attention.resolve_verify_attention(self.device)
+            prefill, decode, decode_multi = self._build_device_fns(
+                self._params, config, engine_config, attn, attn_mq
             )
             pages = llama.init_kv_pages(
                 config, engine_config.num_blocks, engine_config.block_size,
@@ -162,14 +210,25 @@ class LlmEngineModel(Model):
                 np.zeros([1], dtype=np.int32), np.zeros([1], dtype=np.int32),
                 table[None, :nb], pages,
             )
+        if decode_multi is not None:
+            for rows, nb in ((2, 1), (engine_config.spec_k + 1, min(8, max_blocks))):
+                _, pages = decode_multi(
+                    np.zeros([1, rows], dtype=np.int32),
+                    np.zeros([1, rows], dtype=np.int32),
+                    np.zeros([1], dtype=np.int32), table[None, :nb], pages,
+                )
         self.decode_kernel = name
         self.engine = LlmEngine(prefill, decode, pages, engine_config,
-                                model_name=self.name)
+                                model_name=self.name,
+                                decode_multi_fn=decode_multi, proposer=proposer)
         self._core = None  # rebind the executor after a reload
 
     def config(self) -> Dict[str, Any]:
         """Model config with the warmup-selected decode kernel, the tp
-        width and the prefix-sharing mode in the parameters map."""
+        width, the prefix-sharing mode and the speculation declaration in
+        the parameters map. ``speculation_stats`` carries the engine's
+        live speculation counters as a JSON string, which a harness can
+        difference before and after a run."""
         doc = super().config()
         parameters = doc.setdefault("parameters", {})
         parameters["decode_kernel"] = {
@@ -179,6 +238,21 @@ class LlmEngineModel(Model):
         parameters["prefix_sharing"] = {
             "string_value": "cow" if self.engine_config.prefix_sharing else "off"
         }
+        if self.speculation is None:
+            parameters["speculation"] = {"string_value": "off"}
+        else:
+            parameters["speculation"] = {
+                "string_value": json.dumps(self.speculation, sort_keys=True)
+            }
+            if self.engine is not None:
+                stats = self.engine.stats()
+                keys = ("steps", "lane_steps", "step_tokens", "spec_steps",
+                        "spec_proposed", "spec_accepted")
+                parameters["speculation_stats"] = {
+                    "string_value": json.dumps(
+                        {key: stats[key] for key in keys}, sort_keys=True
+                    )
+                }
         return doc
 
     def shutdown(self) -> None:

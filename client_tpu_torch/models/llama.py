@@ -4,7 +4,7 @@ The port of ``client_tpu/models/llama.py``'s serving half: the dense
 KV-cache oracle (``prefill_with_cache`` / ``decode_step`` / ``generate``)
 and the paged-pool functions the continuous-batching engine drives
 (``prefill_into_pages``, ``decode_step_paged``, ``decode_step_paged_attn``,
-``prefill_suffix_into_pages``).
+``decode_step_paged_multi``, ``prefill_suffix_into_pages``).
 
 Parameters are a plain dict of tensors in the JAX package's layouts, so
 each of its einsums ports one for one:
@@ -207,7 +207,7 @@ def _mlp_block(layer, x):
 
 
 def _logits(params, x, config: LlamaConfig):
-    """Final norm and LM head over rows ``x [B, d]``; fp32 logits."""
+    """Final norm and LM head over rows ``x [..., d]``; fp32 logits."""
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return (x @ params["lm_head"]).float()
 
@@ -339,11 +339,13 @@ def init_kv_pages(config: LlamaConfig, num_blocks: int, block_size: int,
 
 
 def _table_lookup(page_table, logical_blocks):
-    """``page_table[logical_blocks]`` with XLA's clamp on an index past
-    the table's end (the masked positions that produce one go to the
-    trash block anyway)."""
+    """``page_table[..., logical_blocks]`` along the table's last axis
+    (one table ``[NB]``, or one per lane ``[B, NB]`` with
+    ``logical_blocks [B, T]``), with XLA's clamp on an index past the
+    table's end (the masked positions that produce one go to the trash
+    block anyway)."""
     index = logical_blocks.clamp(max=page_table.shape[-1] - 1).long()
-    return page_table[index].long()
+    return torch.take_along_dim(page_table, index, dim=-1).long()
 
 
 def prefill_into_pages(params, tokens, page_table, pages: Pages,
@@ -435,6 +437,41 @@ def decode_step_paged_attn(params, tokens, positions, page_tables,
         x = x + _merge_heads(out, layer["wo"])[:, None, :]
         x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
     return _logits(params, x[:, 0], config), pages
+
+
+def decode_step_paged_multi(params, tokens, positions, lengths, page_tables,
+                            pages: Pages, config: LlamaConfig, attn_mq):
+    """The speculative verify step: T query positions per sequence in one
+    multi-query ragged paged-attention call per layer.
+
+    ``tokens [B, T]`` (row 0 each lane's last real token, rows ``1..``
+    its draft tokens), ``positions [B, T]`` every row's absolute context
+    position, ``lengths [B]`` how many leading rows of each lane are real:
+    rows at ``t >= lengths[b]`` are padding, write their K/V to the trash
+    slot (block 0, offset 0) and give logits the caller discards. All T
+    rows' K/V are written on the same stream before ``attn_mq(q[B, T, H,
+    D], k_pages, v_pages, page_tables, positions) -> [B, T, H, D]`` reads
+    the pool, and its per-row mask (slot <= positions[b, t]) gives row t
+    exactly its own speculative prefix, so the T logits rows equal T
+    sequential :func:`decode_step_paged` calls feeding the draft tokens
+    one at a time. Returns (logits [B, T, V] fp32, pages)."""
+    t = tokens.shape[1]
+    block_size = pages[0][0].shape[1]
+    row_valid = torch.arange(t, device=tokens.device)[None, :] < lengths[:, None]
+    phys = torch.where(row_valid, _table_lookup(page_tables, positions // block_size), 0)
+    off = torch.where(row_valid, positions % block_size, 0).long()
+    x = params["embed"][tokens.long()].to(config.dtype)  # [B, T, d]
+    for layer, (k_pages, v_pages) in zip(params["layers"], pages):
+        normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
+        q, k, v = _qkv(layer, normed, positions, config)
+        # write every verify row's K/V, THEN attend: row t's prefix rows
+        # 0..t-1 must be visible to it (the per-row mask hides t+1..)
+        k_pages.index_put_((phys, off), k)
+        v_pages.index_put_((phys, off), v)
+        out = attn_mq(q.contiguous(), k_pages, v_pages, page_tables, positions)
+        x = x + _merge_heads(out, layer["wo"])
+        x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
+    return _logits(params, x, config), pages
 
 
 def prefill_suffix_into_pages(params, tokens, page_table, pages: Pages,

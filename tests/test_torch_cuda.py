@@ -1,4 +1,6 @@
-"""The port's kernels on the card, against their plain PyTorch versions.
+"""The port's kernels on the card, against their plain PyTorch versions:
+K1 (decode) and K2 (the speculative verify), and the tiny engine through
+both against the dense oracle.
 
 Every test here carries the ``cuda`` marker and skips without a card: a
 CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
@@ -117,6 +119,80 @@ def test_engine_on_the_card_equals_the_dense_oracle(cuda):
         config.n_layers * (model.engine.steps - steps)
     )
     assert model.engine.allocator.prefix_hits >= 2
+    model.shutdown()
+    for prompt, stream in zip(prompts, streams):
+        dense = llama.generate(params, torch.tensor([prompt], device=cuda), config, 12)
+        assert stream == dense[0].tolist()
+
+
+def _ragged_mq_case(seed, b, nb, bs, g, t, kv, d, device):
+    """Random pages, a ragged verify layout (each lane a random context
+    and a random number of real rows, its padding rows clamped to the
+    last real one) and an all-zero padding lane last."""
+    rng = np.random.default_rng(seed)
+    num_blocks = 1 + b * nb
+    k_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    v_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    tables = np.zeros((b, nb), dtype=np.int32)
+    positions = np.zeros((b, t), dtype=np.int32)
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    for i in range(b - 1):
+        n_ctx = int(rng.integers(0, nb * bs - t + 1))
+        length = int(rng.integers(1, t + 1))
+        positions[i] = n_ctx + np.minimum(np.arange(t), length - 1)
+        for j in range((n_ctx + length + bs - 1) // bs):
+            tables[i, j] = free.pop()
+    q = rng.normal(size=(b, t, kv * g, d)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (q, k_pages, v_pages, tables, positions)]
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("t", [1, 2, 3, 5])
+def test_verify_kernel_matches_plain_version_fp32(cuda, t, g, d):
+    """K2 within 1e-5 of the multi-query stand-in, including row counts
+    T*g past one block's rows (split over the grid's third axis)."""
+    q, k, v, tables, positions = _ragged_mq_case(t * 100 + g * 10 + d, 6, 4, 8, g, t, 2, d, cuda)
+    before = pa.paged_attention_cuda_mq.launches
+    out = pa.paged_attention_cuda_mq(q, k, v, tables, positions)
+    ref = pa.paged_attention_standin_mq(q, k, v, tables, positions)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda_mq.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+
+
+def test_engine_with_speculation_on_the_card_equals_the_dense_oracle(cuda):
+    """The tiny fp32 Llama with self-draft speculation: verify steps go
+    through K2 (once per layer and verify step), and the greedy streams
+    equal the dense oracle's token for token."""
+    config = llama.LlamaConfig.tiny(max_seq_len=64, dtype=torch.float32)
+    params = llama.init_params(torch.Generator(device=cuda).manual_seed(0), config, cuda)
+    model = LlmEngineModel(
+        config=config, params=params, device=cuda,
+        speculation={"mode": "draft", "draft": "self", "k": 3},
+        engine_config=EngineConfig(block_size=8, num_blocks=65, max_seq_len=64),
+    )
+    model.warmup()
+    prompts = [[9, 3, 7, 1, 5, 2, 8, 4, 6, 1, 2, 3, 10], [5, 9, 17, 3, 8], [7]]
+
+    async def generate(prompt):
+        out = []
+        async for item in model.execute_decoupled(
+            {"INPUT_IDS": np.array(prompt, dtype=np.int32)}, {"max_tokens": 12}
+        ):
+            out.append(int(item["OUTPUT_IDS"][0]))
+        return out
+
+    async def run_all():
+        return await asyncio.gather(*(generate(p) for p in prompts))
+
+    launches, spec_steps = pa.paged_attention_cuda_mq.launches, model.engine.spec_steps
+    streams = asyncio.run(run_all())
+    verify_steps = model.engine.spec_steps - spec_steps
+    assert verify_steps > 0
+    assert pa.paged_attention_cuda_mq.launches - launches == config.n_layers * verify_steps
+    assert model.engine.allocator.blocks_in_use == 0
     model.shutdown()
     for prompt, stream in zip(prompts, streams):
         dense = llama.generate(params, torch.tensor([prompt], device=cuda), config, 12)

@@ -38,7 +38,7 @@ def weights():
     return jax_params, params
 
 
-def _tiny_model(params, name="llm_engine"):
+def _tiny_model(params, name="llm_engine", **kwargs):
     return LlmEngineModel(
         name=name,
         config=llama.LlamaConfig.tiny(max_seq_len=64, dtype=torch.float32),
@@ -48,6 +48,7 @@ def _tiny_model(params, name="llm_engine"):
             max_seq_len=64,
         ),
         device="cpu",
+        **kwargs,
     )
 
 
@@ -120,11 +121,22 @@ def test_out_of_vocabulary_ids_are_refused(model):
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [({"tp": 2}, "tp > 1"), ({"speculation": {"mode": "ngram"}}, "speculative")],
+    [({"tp": 2}, "tp > 1"), ({"speculation": {"mode": "bogus"}}, "speculative")],
 )
-def test_unported_options_raise(kwargs, match):
-    with pytest.raises(InferenceServerException, match=match):
-        LlmEngineModel(device="cpu", **kwargs)
+def test_unported_options_raise(weights, kwargs, match):
+    """``tp > 1`` is refused when the model is made. Speculation is
+    ported; a declaration it cannot build (an unknown mode) fails the
+    load: the repository entry is UNAVAILABLE with the reason."""
+    if "tp" in kwargs:
+        with pytest.raises(InferenceServerException, match=match):
+            LlmEngineModel(device="cpu", **kwargs)
+        return
+    repository = ModelRepository()
+    repository.add_model(_tiny_model(weights[1], name="bad_spec", **kwargs))
+    (entry,) = repository.index()
+    assert entry["state"] == "UNAVAILABLE"
+    assert match in entry["reason"] and "unknown speculation mode 'bogus'" in entry["reason"]
+    assert not repository.is_ready("bad_spec")
 
 
 def test_a_failing_warmup_probe_fails_the_load(weights, monkeypatch):
