@@ -6,15 +6,18 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
 1. build every kernel under ``client_tpu_torch/csrc`` with ``nvcc`` (one
-   process per source, all started together);
-2. hold K1 (decode attention) against its plain PyTorch version on the
-   card, and time kernel, plain version, bound and library yardstick at
-   the main path's shapes (Llama-7B decode: B=8, H=KV=32, D=128, bs=16,
-   ragged contexts up to 4096);
-2b. the same for K2 (the speculative verify's multi-query attention):
-   fp32 ragged layouts with padding rows, then bf16 at the 7B verify
-   shapes (T=5 rows per sequence), timed beside its plain versions,
-   gather + SDPA with a per-row mask, and T sequential K1 launches;
+   process per source, all started together) and print each instance's
+   registers, spills, shared memory and resident blocks an SM;
+2. hold K1 (decode attention) against its plain PyTorch versions on the
+   card (fp32 within 1e-5 on random ragged layouts and on layouts that
+   straddle its split-KV partitions, bf16 within one bf16 ulp), and time
+   kernel, plain versions, bound and library yardstick at the main path's
+   shapes (``attention_bench.py``: Llama-7B decode, B=8, H=KV=32, D=128,
+   bs=16, ragged contexts up to 4096) and at the serve contexts phase 4
+   decodes;
+2b. the same for K2 (the speculative verify's multi-query attention, T=5
+   rows per sequence at the 7B shapes), with padding rows, verify rows
+   that see nothing of the last partition, and T sequential K1 launches;
 3. run the tiny fp32 Llama through the engine on the card and check its
    greedy streams token for token against the dense oracle;
 3b. the same with speculative decoding on (self-draft at K = 1, 2, 4 and
@@ -37,7 +40,7 @@ import gc
 import http.client
 import json
 import math
-import subprocess
+import re
 import sys
 import threading
 import time
@@ -47,41 +50,14 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
 
+import attention_bench as bench  # noqa: E402
+from attention_bench import BF16_ULP, card, cuda_ms  # noqa: E402
 from client_tpu_torch import kernels  # noqa: E402
+from client_tpu_torch.llm.engine import block_bucket  # noqa: E402
 from client_tpu_torch.models import llama  # noqa: E402
 from client_tpu_torch.models import paged_attention as pa  # noqa: E402
 
 DEVICE = torch.device("cuda")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-# the kernel's bf16 result is acc / l rounded once to bf16, like the
-# plain version's: two fp32 values a few ulps apart can round to
-# neighbouring bf16 values, so the two may differ by one bf16 ulp
-# (2^-7 relative) of the largest output
-BF16_ULP = 2.0 ** -7
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls after a warm-up,
-    from CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def ragged_layout(gen, contexts, bs, table_width, num_blocks):
@@ -105,13 +81,45 @@ def ragged_layout(gen, contexts, bs, table_width, num_blocks):
 
 
 def build() -> None:
+    """Build both kernels; print each instance's registers and spills (from
+    ptxas) and its dynamic shared memory and resident blocks an SM at the
+    default partition (from the runtime)."""
+    import ctypes
+
     t0 = time.perf_counter()
     paths = kernels.build_all()
     print(f"build: {len(paths)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
+    describe = {"paged_attention.cu": "rpa_describe", "paged_attention_mq.cu": "rpa_mq_describe"}
     for source, log in kernels.build_logs.items():
-        spills = [line.strip() for line in log.splitlines() if "spill" in line]
-        heavy = [s for s in spills if not s.startswith("0 bytes stack frame, 0 bytes spill")]
-        print(f"build: {source}: {len(spills)} instances, {len(heavy)} with spills", flush=True)
+        instances = {}
+        name = None
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                name = entry.group(1)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and name:
+                instances.setdefault(name, {})["spills"] = int(spill.group(1)) + int(spill.group(2))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and name:
+                instances.setdefault(name, {})["registers"] = int(regs.group(1))
+        lib = kernels.load(source)
+        for mangled, info in sorted(instances.items()):
+            shape = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
+            dtype, d, rows = ("fp32" if shape.group(1) == "f" else "bf16"), int(shape.group(2)), \
+                int(shape.group(3))
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            code = getattr(lib, describe[source])(0 if dtype == "fp32" else 1, d, rows,
+                                                  pa.PARTITION_SLOTS, ctypes.byref(smem),
+                                                  ctypes.byref(blocks))
+            if code != 0:
+                raise AssertionError(f"{source} {dtype} D={d} rows={rows}: describe failed "
+                                     f"({code})")
+            print(f"build: {source} {dtype} D={d} rows={rows}: {info.get('registers')} registers, "
+                  f"{info.get('spills')} bytes spilled, {smem.value} bytes shared memory, "
+                  f"{blocks.value} blocks ({4 * blocks.value} warps) an SM", flush=True)
+        heavy = [n for n, info in instances.items() if info.get("spills")]
+        print(f"build: {source}: {len(instances)} instances, {len(heavy)} with spills", flush=True)
 
 
 def check_fp32() -> float:
@@ -140,65 +148,98 @@ def check_fp32() -> float:
     return worst
 
 
-def measure_7b() -> dict:
-    """bf16 at Llama-7B decode shapes: hold the kernel against the
-    stand-in, then time kernel, stand-in and gather + SDPA."""
-    gen = torch.Generator().manual_seed(2)
-    b, kv, d, bs, nb = 8, 32, 128, 16, 256
-    contexts = [4096, 3001, 2048, 1500, 1024, 700, 333, 100]
-    num_blocks = 1 + b * nb
-    tables, positions = ragged_layout(gen, contexts, bs, nb, num_blocks)
-    k = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    v = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    q = torch.randn(b, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    args = (q, k, v, tables, positions)
+def check_edges(rows=None) -> float:
+    """K1 (``rows`` None) or K2 (T = ``rows``) on layouts that straddle
+    the split-KV partitions, at the default partition P and at P = 32:
+    contexts of P - 1, P, P + 1 and 2P + 1 slots, a 1-slot context, a lane
+    whose verify rows start at P - 2 (its first rows see nothing of the
+    second partition) and a padding lane. fp32 (g 1 and 4) within 1e-5 of
+    the stand-in and of the plain split version; bf16 (D = 128, the
+    tensor-core scores) within one bf16 ulp of the largest output."""
+    gen = torch.Generator().manual_seed(6)
+    kernel = pa.paged_attention_cuda if rows is None else pa.paged_attention_cuda_mq
+    standin = pa.paged_attention_standin if rows is None else pa.paged_attention_standin_mq
+    split = pa.paged_attention_split if rows is None else pa.paged_attention_split_mq
+    label = "k1" if rows is None else f"k2 T={rows}"
+    worst = 0.0
+    for partition in (pa.PARTITION_SLOTS, 32):
+        bs, kv, d = 16, 4, 128
+        contexts = [partition - 1, partition, partition + 1, 2 * partition + 1, 1,
+                    partition - 2 + (rows or 1), 0]
+        nb = max(-(-c // bs) for c in contexts) + 1
+        num_blocks = 1 + sum(-(-c // bs) for c in contexts)
+        if rows is None:
+            tables, positions = ragged_layout(gen, contexts, bs, nb, num_blocks)
+        else:
+            tables, positions = verify_layout(gen, contexts, rows, bs, nb, num_blocks,
+                                              [min(c, rows) for c in contexts])
+        k = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE)
+        v = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE)
+        for g in (1, 4):
+            q_shape = (len(contexts), kv * g, d) if rows is None else (len(contexts), rows, kv * g, d)
+            q = torch.randn(*q_shape, generator=gen).to(DEVICE)
+            args = (q, k, v, tables, positions)
+            out = kernel(*args, partition=partition)
+            err = max((out - standin(*args)).abs().max().item(),
+                      (out - split(*args, partition)).abs().max().item())
+            torch.cuda.synchronize()
+            if not (err <= 1e-5 and torch.isfinite(out).all()):
+                raise AssertionError(f"{label} fp32 edges P={partition} g={g}: {err} > 1e-5")
+            worst = max(worst, err)
+        q = torch.randn(*q_shape[:-2], kv, d, generator=gen).to(DEVICE, torch.bfloat16)
+        args = (q, k.to(torch.bfloat16), v.to(torch.bfloat16), tables, positions)
+        out = kernel(*args, partition=partition)
+        ref = standin(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = BF16_ULP * ref.float().abs().max().item()
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"{label} bf16 edges P={partition}: {err} > {tol}")
+        print(f"{label} edges P={partition} (contexts {contexts}): bf16 max_abs_err {err:.3g} "
+              f"(tolerance {tol:.3g})", flush=True)
+    print(f"{label} fp32 edges: worst max_abs_err {worst:.3g} (limit 1e-5)", flush=True)
+    return worst
 
-    out = pa.paged_attention_cuda(*args)
-    ref = pa.paged_attention_standin(*args)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = BF16_ULP * ref.float().abs().max().item()
-    print(f"k1 bf16 7B shapes: max_abs_err {err:.3g} (tolerance {tol:.3g}: one bf16 ulp "
-          f"of the largest output)", flush=True)
-    if not (err <= tol and torch.isfinite(out).all()):
-        raise AssertionError(f"K1 bf16 at 7B shapes: {err} > {tol}")
 
-    s = nb * bs
-    slots = torch.arange(s, device=DEVICE)
-    mask = (slots[None, :] <= positions[:, None])[:, None, None, :]  # [B, 1, 1, S]
+def measure_kernel(rows=None) -> dict:
+    """K1 (``rows`` None) or K2 (T = ``rows``) in bf16 at the long Llama-7B
+    shapes and at the serve contexts (``attention_bench.py``): held to the
+    stand-in, timed beside its stand-in and fused plain versions, its
+    bound and gather + SDPA; K2 also beside T sequential K1 launches."""
+    label = "k1" if rows is None else "k2"
+    standin = pa.paged_attention_standin if rows is None else pa.paged_attention_standin_mq
+    fused = pa.paged_attention_fused if rows is None else pa.paged_attention_fused_mq
+    times, cases = bench.measure(pa, rows, bench.LONG_CONTEXTS, bench.LONG_TABLE_WIDTH, seed=1)
+    q, k, v, tables, positions = cases[0]
+    times["plain_ms"] = cuda_ms(lambda: standin(*cases[0]))
+    times["fused_ms"] = cuda_ms(lambda: fused(*cases[0]))
+    extra = ""
+    if rows is not None:
+        split = [(q[:, r].contiguous(), positions[:, r].contiguous()) for r in range(rows)]
 
-    def library():
-        k_ctx = k[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
-        v_ctx = v[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], k_ctx, v_ctx, attn_mask=mask
-        )[:, :, 0, :]
+        def sequential_k1():
+            for q_row, pos_row in split:
+                pa.paged_attention_cuda(q_row, k, v, tables, pos_row)
 
-    lib_err = (library().float() - ref.float()).abs().max().item()
-    times = {
-        "ms": cuda_ms(lambda: pa.paged_attention_cuda(*args)),
-        "plain_ms": cuda_ms(lambda: pa.paged_attention_standin(*args)),
-        "fused_ms": cuda_ms(lambda: pa.paged_attention_fused(*args)),
-        "library_ms": cuda_ms(library),
-    }
-    # the least the card could take: every valid K/V row read once, q
-    # read, out written, tables and positions read; 4 flops per element
-    # of a valid row (q.k and p.v) against the bf16 peak
-    valid_rows = sum(contexts)
-    row_bytes = kv * d * 2
-    moved = (2 * valid_rows * row_bytes + 2 * q.numel() * 2
-             + tables.numel() * 4 + positions.numel() * 4)
-    flops = 4 * valid_rows * kv * d
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOPS * 1e3
-    times["bound_ms"] = max(bytes_ms, flops_ms)
-    times["bound_by"] = "bytes" if bytes_ms >= flops_ms else "operations"
-    times["max_abs_err"] = err
-    print(f"k1 bf16 7B shapes: kernel {times['ms']:.4f} ms, stand-in {times['plain_ms']:.4f} ms, "
-          f"fused {times['fused_ms']:.4f} ms, gather+sdpa {times['library_ms']:.4f} ms "
-          f"(err {lib_err:.3g}), bound {times['bound_ms']:.4f} ms ({moved} bytes, "
-          f"{times['bound_by']}), {times['bound_ms'] / times['ms']:.1%} of bound "
-          f"[{card()}]", flush=True)
+        times["k1_x_t_ms"] = cuda_ms(sequential_k1)
+        extra = f", {rows} sequential K1 {times['k1_x_t_ms']:.4f} ms"
+    print(f"{label} bf16 7B shapes: max_abs_err {times['max_abs_err']:.3g} (tolerance "
+          f"{times['tolerance']:.3g}: one bf16 ulp of the largest output); kernel "
+          f"{times['ms']:.4f} ms, stand-in {times['plain_ms']:.4f} ms, fused "
+          f"{times['fused_ms']:.4f} ms, gather+sdpa {times['library_ms']:.4f} ms{extra}, wrapper "
+          f"issue {times['host_us']:.1f} us, bound "
+          f"{times['bound_ms']:.4f} ms ({times['bound_by']}), "
+          f"{times['bound_ms'] / times['ms']:.1%} of bound [{card()}]", flush=True)
+    contexts = bench.serve_contexts()
+    width = block_bucket(max(-(-c // bench.BLOCK_SIZE) for c in contexts))
+    serve, _ = bench.measure(pa, rows, contexts, width, bench.SERVE_COPIES, seed=2)
+    times.update(serve_ms=serve["ms"], serve_bound_ms=serve["bound_ms"],
+                 serve_library_ms=serve["library_ms"])
+    print(f"{label} bf16 serve contexts {contexts} (table width {width}, "
+          f"{bench.SERVE_COPIES} copies in turn): max_abs_err {serve['max_abs_err']:.3g}; kernel "
+          f"{serve['ms']:.4f} ms, gather+sdpa {serve['library_ms']:.4f} ms, bound "
+          f"{serve['bound_ms']:.4f} ms ({serve['bound_by']}), "
+          f"{serve['bound_ms'] / serve['ms']:.1%} of bound [{card()}]", flush=True)
     return times
 
 
@@ -245,79 +286,6 @@ def check_verify_fp32() -> float:
     print(f"k2 fp32 (bs 8/16 x g 1/2/4 x T 2/3/5, padding rows and lane): worst "
           f"max_abs_err {worst:.3g}", flush=True)
     return worst
-
-
-def measure_verify_7b() -> dict:
-    """bf16 at Llama-7B verify shapes (B=8, T=5, K1's contexts, the last
-    5 slots of each the verify rows): hold K2 against the stand-in, then
-    time K2, stand-in, fused plain version, gather + SDPA with a
-    ``[B, 1, T, S]`` mask, and T sequential K1 launches."""
-    gen = torch.Generator().manual_seed(4)
-    b, t, kv, d, bs, nb = 8, 5, 32, 128, 16, 256
-    contexts = [4096, 3001, 2048, 1500, 1024, 700, 333, 100]
-    num_blocks = 1 + b * nb
-    tables, positions = verify_layout(gen, contexts, t, bs, nb, num_blocks)
-    k = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    v = torch.randn(num_blocks, bs, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    q = torch.randn(b, t, kv, d, generator=gen).to(DEVICE, torch.bfloat16)
-    args = (q, k, v, tables, positions)
-
-    out = pa.paged_attention_cuda_mq(*args)
-    ref = pa.paged_attention_standin_mq(*args)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = BF16_ULP * ref.float().abs().max().item()
-    print(f"k2 bf16 7B verify shapes: max_abs_err {err:.3g} (tolerance {tol:.3g}: one bf16 "
-          f"ulp of the largest output)", flush=True)
-    if not (err <= tol and torch.isfinite(out).all()):
-        raise AssertionError(f"K2 bf16 at 7B verify shapes: {err} > {tol}")
-
-    s = nb * bs
-    slots = torch.arange(s, device=DEVICE)
-    mask = (slots[None, None, :] <= positions[:, :, None])[:, None]  # [B, 1, T, S]
-    rows = [(q[:, r].contiguous(), positions[:, r].contiguous()) for r in range(t)]
-
-    def library():
-        k_ctx = k[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
-        v_ctx = v[tables.long()].reshape(b, s, kv, d).transpose(1, 2)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k_ctx, v_ctx, attn_mask=mask
-        ).transpose(1, 2)
-
-    def sequential_k1():
-        for q_row, pos_row in rows:
-            pa.paged_attention_cuda(q_row, k, v, tables, pos_row)
-
-    lib_err = (library().float() - ref.float()).abs().max().item()
-    times = {
-        "ms": cuda_ms(lambda: pa.paged_attention_cuda_mq(*args)),
-        "plain_ms": cuda_ms(lambda: pa.paged_attention_standin_mq(*args)),
-        "fused_ms": cuda_ms(lambda: pa.paged_attention_fused_mq(*args)),
-        "library_ms": cuda_ms(library),
-        "k1_x_t_ms": cuda_ms(sequential_k1),
-    }
-    # the least the card could take: the valid K/V rows up to each
-    # sequence's last verify position read once, q read, out written,
-    # tables and positions read; 4 flops per element of every row's
-    # visible slots (q.k and p.v) against the bf16 peak
-    valid_rows = sum(contexts)
-    row_bytes = kv * d * 2
-    moved = (2 * valid_rows * row_bytes + 2 * q.numel() * 2
-             + tables.numel() * 4 + positions.numel() * 4)
-    visible = int((positions.long() + 1).sum())
-    flops = 4 * visible * kv * d
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOPS * 1e3
-    times["bound_ms"] = max(bytes_ms, flops_ms)
-    times["bound_by"] = "bytes" if bytes_ms >= flops_ms else "operations"
-    times["max_abs_err"] = err
-    print(f"k2 bf16 7B verify shapes: kernel {times['ms']:.4f} ms, stand-in "
-          f"{times['plain_ms']:.4f} ms, fused {times['fused_ms']:.4f} ms, gather+sdpa "
-          f"{times['library_ms']:.4f} ms (err {lib_err:.3g}), {t} sequential K1 "
-          f"{times['k1_x_t_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms ({moved} bytes, "
-          f"{times['bound_by']}), {times['bound_ms'] / times['ms']:.1%} of bound "
-          f"[{card()}]", flush=True)
-    return times
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +369,8 @@ def check_tiny_engine_speculation() -> None:
 
 
 def _prompts(vocab_words: int = 400):
-    """Eight prompts of a few hundred words (one token each); prompts 0
-    and 1 share their first 128 words."""
+    """Eight prompts of ``attention_bench.PROMPT_WORDS`` words (one token
+    each); prompts 0 and 1 share their first 128 words."""
     import random
 
     rnd = random.Random(7)
@@ -411,8 +379,9 @@ def _prompts(vocab_words: int = 400):
         return " ".join(f"w{rnd.randrange(vocab_words)}" for _ in range(n))
 
     shared = words(128)
-    prompts = [shared + " " + words(120), shared + " " + words(200)]
-    prompts += [words(150 + 40 * i) for i in range(6)]
+    first, second, *rest = bench.PROMPT_WORDS
+    prompts = [shared + " " + words(first - 128), shared + " " + words(second - 128)]
+    prompts += [words(n) for n in rest]
     return prompts
 
 
@@ -490,10 +459,12 @@ def profile_step(engine, contexts, rows: int = 1) -> dict:
     for _ in range(3):
         step()
     iters = 10
-    t0 = time.perf_counter()
+    step_ms = []
     for _ in range(iters):
-        step()
-    host_ms = (time.perf_counter() - t0) / iters * 1e3
+        t0 = time.perf_counter()
+        step()  # ends in the device-to-host copy of the logits
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms = sum(step_ms) / iters
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         for _ in range(iters):
@@ -519,6 +490,9 @@ def profile_step(engine, contexts, rows: int = 1) -> dict:
         "rows": rows,
         "table_width": nb,
         "host_ms_per_step": host_ms,
+        # the host's clock is shared with other work on the machine: the
+        # median resists the outliers the mean takes in
+        "host_ms_per_step_median": sorted(step_ms)[iters // 2],
         "device_ms_per_step": device_ms if measured else "not measured",
         "device_ms_by_kind": kinds if measured else "not measured",
         "device_idle_share": 1.0 - device_ms / host_ms if measured else "not measured",
@@ -772,10 +746,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card()}", flush=True)
     build()
-    fp32_err = check_fp32()
-    k1 = measure_7b()
+    fp32_err = max(check_fp32(), check_edges())
+    k1 = measure_kernel()
     check_verify_fp32()
-    k2 = measure_verify_7b()
+    check_edges(rows=5)
+    k2 = measure_kernel(rows=bench.VERIFY_ROWS)
     check_tiny_engine()
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
@@ -794,6 +769,9 @@ def main() -> int:
                 "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"],
                 "library_ms": k1["library_ms"],
+                "serve_ms": k1["serve_ms"],
+                "serve_bound_ms": k1["serve_bound_ms"],
+                "serve_library_ms": k1["serve_library_ms"],
             },
             {
                 "name": "paged_attention_decode_mq",
@@ -807,6 +785,9 @@ def main() -> int:
                 "bound_ms": k2["bound_ms"],
                 "bound_by": k2["bound_by"],
                 "library_ms": k2["library_ms"],
+                "serve_ms": k2["serve_ms"],
+                "serve_bound_ms": k2["serve_bound_ms"],
+                "serve_library_ms": k2["serve_library_ms"],
             },
         ]
     }

@@ -4,8 +4,9 @@ Every kernel source under ``csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and bound with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds). The build happens on first use, into
 ``build/client_tpu_torch/`` at the root of the checkout, and is keyed by a
-hash of the source and the flags: a changed source builds anew, an
-unchanged one loads the library already there.
+hash of the source, every header under ``csrc/`` and the flags: a changed
+source or shared header builds anew, an unchanged one loads the library
+already there.
 
 Nothing here runs at import time; the CPU tests import this module on a
 host with no ``nvcc`` and no card.
@@ -51,10 +52,14 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+    """Where the library built from ``csrc/<source>`` lives: the key
+    covers the source, every ``csrc/*.cuh`` (the sources share one) and
+    the flags."""
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:
@@ -91,29 +96,42 @@ def build_all() -> List[Path]:
         return list(pool.map(build, sources))
 
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the split-KV arguments both entry points end with: partition, workspace,
+# its size in floats, counters, their count
+_SPLIT_ARGS = [_I32, _PTR, ctypes.c_longlong, _PTR, _I32]
+# dtype, head_dim, rows a block (K1: the group size), partition,
+# *smem_bytes, *blocks_per_sm
+_DESCRIBE_ARGS = [_I32, _I32, _I32, _I32, ctypes.POINTER(_I32), ctypes.POINTER(_I32)]
+
+
 def _declare_decode(lib: ctypes.CDLL) -> None:
     """``csrc/paged_attention.cu``: K1, the single-query decode."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rpa_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_pages, v_pages, tables, positions, out
-        i32, i32, i32, i32, i32, i32, i32,  # B, H, KV, D, N, bs, NB
-        i32, ctypes.c_float, ptr,  # dtype, scale, stream
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k_pages, v_pages, tables, positions, out
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, H, KV, D, N, bs, NB
+        _I32, ctypes.c_float, _PTR,  # dtype, scale, stream
+        *_SPLIT_ARGS,
     ]
-    lib.rpa_decode.restype = i32
-    lib.rpa_error_string.argtypes = [i32]
+    lib.rpa_decode.restype = _I32
+    lib.rpa_describe.argtypes = _DESCRIBE_ARGS
+    lib.rpa_describe.restype = _I32
+    lib.rpa_error_string.argtypes = [_I32]
     lib.rpa_error_string.restype = ctypes.c_char_p
 
 
 def _declare_verify(lib: ctypes.CDLL) -> None:
     """``csrc/paged_attention_mq.cu``: K2, the multi-query verify."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rpa_decode_mq.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_pages, v_pages, tables, positions, out
-        i32, i32, i32, i32, i32, i32, i32, i32,  # B, T, H, KV, D, N, bs, NB
-        i32, ctypes.c_float, ptr,  # dtype, scale, stream
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k_pages, v_pages, tables, positions, out
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # B, T, H, KV, D, N, bs, NB
+        _I32, ctypes.c_float, _PTR,  # dtype, scale, stream
+        *_SPLIT_ARGS,
     ]
-    lib.rpa_decode_mq.restype = i32
-    lib.rpa_mq_error_string.argtypes = [i32]
+    lib.rpa_decode_mq.restype = _I32
+    lib.rpa_mq_describe.argtypes = _DESCRIBE_ARGS
+    lib.rpa_mq_describe.restype = _I32
+    lib.rpa_mq_error_string.argtypes = [_I32]
     lib.rpa_mq_error_string.restype = ctypes.c_char_p
 
 

@@ -1,6 +1,8 @@
 """The port's kernels on the card, against their plain PyTorch versions:
-K1 (decode) and K2 (the speculative verify), and the tiny engine through
-both against the dense oracle.
+K1 (decode) and K2 (the speculative verify) on random ragged layouts and
+on layouts that straddle their split-KV partitions (held to the plain
+split-and-merge version), and the tiny engine through both against the
+dense oracle.
 
 Every test here carries the ``cuda`` marker and skips without a card: a
 CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
@@ -197,3 +199,77 @@ def test_engine_with_speculation_on_the_card_equals_the_dense_oracle(cuda):
     for prompt, stream in zip(prompts, streams):
         dense = llama.generate(params, torch.tensor([prompt], device=cuda), config, 12)
         assert stream == dense[0].tolist()
+
+
+def _edge_case(seed, partition, bs, g, t, kv, d, device):
+    """Contexts of P - 1, P, P + 1 and 2P + 1 slots, a 1-slot context, a
+    lane whose T verify rows sit at P - 2 .. (rows 0 and 1 see nothing of
+    the second partition) and a padding lane; each lane's rows are the
+    last T slots of its context. ``t`` None gives K1's shapes."""
+    rows = t or 1
+    contexts = [partition - 1, partition, partition + 1, 2 * partition + 1, 1,
+                partition - 2 + rows, 0]
+    rng = np.random.default_rng(seed)
+    nb = max(-(-c // bs) for c in contexts) + 1
+    num_blocks = 1 + sum(-(-c // bs) for c in contexts)
+    tables = np.zeros((len(contexts), nb), dtype=np.int32)
+    positions = np.zeros((len(contexts), rows), dtype=np.int32)
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    for i, n_ctx in enumerate(contexts):
+        for j in range(-(-n_ctx // bs)):
+            tables[i, j] = free.pop()
+        if n_ctx:
+            positions[i] = max(n_ctx - rows, 0) + np.minimum(np.arange(rows), n_ctx - 1)
+    k_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    v_pages = rng.normal(size=(num_blocks, bs, kv, d)).astype(np.float32)
+    q = rng.normal(size=(len(contexts), rows, kv * g, d)).astype(np.float32)
+    if t is None:
+        q, positions = q[:, 0], positions[:, 0]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (q, k_pages, v_pages, tables, positions)]
+
+
+def _split_reference(kernel, case, partition):
+    """The kernel's output and the plain split version's at the same
+    partition, after a sync."""
+    span = case[3].shape[1] * case[1].shape[1]
+    p = pa.partition_slots(span) if partition is None else partition
+    if kernel is pa.paged_attention_cuda:
+        ref = pa.paged_attention_split(*case, p)
+    else:
+        ref = pa.paged_attention_split_mq(*case, p)
+    out = kernel(*case, partition=partition)
+    torch.cuda.synchronize()
+    return out, ref
+
+
+@pytest.mark.parametrize("partition", [None, 32, 16])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("t", [None, 5])
+def test_kernels_match_the_split_version_at_partition_edges_fp32(cuda, t, g, d, partition):
+    """K1 (t None) and K2 (T = 5) within 1e-5 of the plain split version
+    at the default partition and at small ones (many partials to merge);
+    every merge leaves its counter at zero for the next launch."""
+    kernel = pa.paged_attention_cuda if t is None else pa.paged_attention_cuda_mq
+    case = _edge_case(d + g + (t or 0), partition or pa.PARTITION_SLOTS, 8, g, t, 2, d, cuda)
+    out, ref = _split_reference(kernel, case, partition)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+    assert (out - pa.paged_attention_standin(*case) if t is None else
+            out - pa.paged_attention_standin_mq(*case)).abs().max().item() <= TOL
+    assert not pa._scratch[case[0].device][1].any()
+
+
+@pytest.mark.parametrize("partition", [None, 32])
+@pytest.mark.parametrize("t", [None, 5])
+def test_kernels_match_the_split_version_at_partition_edges_bf16(cuda, t, partition):
+    """bf16 at D = 128 (the tensor-core scores) within one bf16 ulp of the
+    largest output."""
+    kernel = pa.paged_attention_cuda if t is None else pa.paged_attention_cuda_mq
+    case = _edge_case(7, partition or pa.PARTITION_SLOTS, 16, 1, t, 4, 128, cuda)
+    case[:3] = [x.to(torch.bfloat16) for x in case[:3]]
+    out, ref = _split_reference(kernel, case, partition)
+    tol = 2.0 ** -7 * ref.float().abs().max().item()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of ``client_tpu``, no silent CPU.
 
-- An AST scan of ``client_tpu_torch/`` and ``chip_smoke.py`` finds no
+- An AST scan of ``client_tpu_torch/``, ``chip_smoke.py`` and
+  ``attention_bench.py`` (which ``chip_smoke.py`` imports) finds no
   import of ``jax``, ``flax``, ``optax`` or ``client_tpu``.
 - A subprocess in which importing ``jax`` (or ``client_tpu``) fails
   imports every module of the port.
@@ -25,7 +26,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "client_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "attention_bench.py"]
 
 
 def _imported_modules(path):
