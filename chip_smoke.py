@@ -29,7 +29,19 @@ result line:
    before and read just after;
 5. serve the same 8 prompts again from a second model on the same weights
    with n-gram speculation (K = 4), 128 tokens a stream: its verify steps
-   run K2, whose launch counter is zeroed just before and read just after.
+   run K2, whose launch counter is zeroed just before and read just after;
+6. the KServe v2 infer route (``POST /v2/models/<m>/infer``) through the
+   dynamic batcher: (a) ``simple``, the identities and a tiny fp32
+   ``text_encoder`` from one ``ServerCore`` — AddSub exact and the
+   identities bit for bit in JSON and binary, 16 concurrent encoder
+   requests within 1e-5 of the plain forward on the CPU and merged into
+   fewer executions; (b) ``text_encoder`` at BERT-large's widths (24
+   layers, bf16, random weights from seed 0): 128 binary requests from 16
+   client threads, lengths 16-512, each held to the model's unbatched
+   forward on the card (2 % of the answer's largest value), the
+   ``kserve:`` line (requests/s, latency p50/p99, rows per execution,
+   load and warmup), and one 16 x 512 execution profiled against its
+   FLOP bound (``kserve execution:``). This path has no TPU kernel.
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -503,9 +515,9 @@ def profile_step(engine, contexts, rows: int = 1) -> dict:
 
 
 @contextlib.contextmanager
-def http_server(model):
+def http_server(*models):
     """``ServerCore`` + the HTTP front-end on a loopback port serving
-    ``model`` (loaded here); yields the port, and stops the server, the
+    ``models`` (loaded here); yields the port, and stops the server, the
     engine and the event loop on the way out."""
     import asyncio
 
@@ -514,11 +526,12 @@ def http_server(model):
     from client_tpu_torch.server.model_repository import ModelRepository
 
     repository = ModelRepository()
-    repository.add_model(model)
+    for model in models:
+        repository.add_model(model)
     torch.cuda.synchronize()
-    entry = repository.index()[0]
-    if entry["state"] != "READY":
-        raise AssertionError(f"{model.name} did not load: {entry['reason']}")
+    for entry in repository.index():
+        if entry["state"] != "READY":
+            raise AssertionError(f"{entry['name']} did not load: {entry['reason']}")
     core = ServerCore(repository, max_workers=4)
     loop = asyncio.new_event_loop()
     started = threading.Event()
@@ -741,6 +754,354 @@ def serve_7b_speculative(params, plain_streams) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the KServe v2 infer route on the card
+# ---------------------------------------------------------------------------
+
+
+def kserve_infer(conn, model, inputs, binary=True, outputs=()):
+    """One ``POST /v2/models/<model>/infer`` on ``conn``: ``inputs`` are
+    (name, datatype, array); JSON or the binary-tensor extension (BF16 is
+    always binary). Returns {output name: array}; raises on a non-200."""
+    import numpy as np
+
+    from client_tpu_torch import utils
+
+    tensors, chunks = [], []
+    for name, datatype, array in inputs:
+        entry = {"name": name, "datatype": datatype, "shape": list(array.shape)}
+        if binary or datatype == "BF16":
+            raw = (utils.serialize_byte_tensor(array) if datatype == "BYTES"
+                   else np.ascontiguousarray(array)).tobytes()
+            entry["parameters"] = {"binary_data_size": len(raw)}
+            chunks.append(raw)
+        elif datatype == "BYTES":
+            entry["data"] = [b.decode() for b in array.reshape(-1)]
+        else:
+            entry["data"] = array.reshape(-1).tolist()
+        tensors.append(entry)
+    payload = {"inputs": tensors,
+               "outputs": [{"name": n, "parameters": {"binary_data": binary}} for n in outputs]}
+    header = json.dumps(payload).encode()
+    headers = {"Content-Type": "application/octet-stream"}
+    if chunks:
+        headers["Inference-Header-Content-Length"] = str(len(header))
+    conn.request("POST", f"/v2/models/{model}/infer", body=header + b"".join(chunks),
+                 headers=headers)
+    response = conn.getresponse()
+    body = response.read()
+    if response.status != 200:
+        raise AssertionError(f"{model}: HTTP {response.status} {body[:300]!r}")
+    header_len = response.getheader("Inference-Header-Content-Length")
+    split = int(header_len) if header_len else len(body)
+    doc, tail, offset, out = json.loads(body[:split]), body[split:], 0, {}
+    for o in doc["outputs"]:
+        size = o.get("parameters", {}).get("binary_data_size")
+        if size is None:
+            data = o["data"]
+            if o["datatype"] == "BYTES":
+                array = np.array([d.encode() for d in data], dtype=object)
+            else:
+                array = np.array(data, dtype=utils.triton_to_np_dtype(o["datatype"]))
+        else:
+            raw = tail[offset:offset + size]
+            offset += size
+            array = (utils.deserialize_bytes_tensor(raw) if o["datatype"] == "BYTES"
+                     else np.frombuffer(raw, dtype=utils.triton_to_np_dtype(o["datatype"])))
+        out[o["name"]] = array.reshape(o["shape"])
+    return out
+
+
+def _stats(port, model):
+    """``model``'s entry of the statistics route."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", f"/v2/models/{model}/stats")
+        response = conn.getresponse()
+        body = response.read()
+        if response.status != 200:
+            raise AssertionError(f"{model} stats: HTTP {response.status}")
+        return json.loads(body)["model_stats"][0]
+    finally:
+        conn.close()
+
+
+def _concurrently(port, work, threads):
+    """Run ``work(conn, i)`` for i in range(len) on ``threads`` client
+    threads (one keep-alive connection each), started together; returns
+    the results and each call's latency in seconds."""
+    n = len(work)
+    results, latencies, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(threads)
+
+    def client(worker):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            barrier.wait(60)
+            for i in range(worker, n, threads):
+                t0 = time.perf_counter()
+                results[i] = work[i](conn)
+                latencies[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - re-raised by the caller
+            errors.append(e)
+        finally:
+            conn.close()
+
+    pool = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
+    t_start = time.perf_counter()
+    for thread in pool:
+        thread.start()
+    for thread in pool:
+        thread.join(900)
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise errors[0]
+    if any(thread.is_alive() for thread in pool) or None in latencies:
+        raise AssertionError("a client thread did not finish")
+    return results, latencies, wall
+
+
+def kserve_tiny() -> None:
+    """Phase 6a: the built-ins and a tiny fp32 ``text_encoder`` on the
+    card, one ``ServerCore``: AddSub exact, the identities bit for bit
+    (JSON and binary), 16 concurrent encoder requests within 1e-5 of the
+    plain forward on the CPU one at a time, merged by the batcher."""
+    import numpy as np
+
+    from client_tpu_torch import utils
+    from client_tpu_torch.models import bert
+    from client_tpu_torch.models.serving import TextEncoderModel
+    from client_tpu_torch.server import models
+
+    config = bert.BertConfig.tiny(dtype=torch.float32)
+    cpu_params = bert.init_params(torch.Generator().manual_seed(4), config, "cpu")
+    card_params = {k: v.to(DEVICE) for k, v in cpu_params.items() if k != "layers"}
+    card_params["layers"] = [{k: v.to(DEVICE) for k, v in layer.items()}
+                             for layer in cpu_params["layers"]]
+    served = [models.AddSubModel(device=DEVICE),
+              models.IdentityModel("identity_fp32", "FP32", device=DEVICE),
+              models.IdentityModel("identity_bf16", "BF16", device=DEVICE),
+              models.BytesIdentityModel(device=DEVICE),
+              TextEncoderModel(config=config, params=card_params, device=DEVICE)]
+    rng = np.random.default_rng(0)
+    with http_server(*served) as port:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        a = rng.integers(-2**20, 2**20, [5, 16], dtype=np.int32)
+        b = rng.integers(-2**20, 2**20, [5, 16], dtype=np.int32)
+        fp32 = rng.normal(size=[33]).astype(np.float32)
+        bf16 = utils.deserialize_bf16_tensor(
+            utils.serialize_bf16_tensor(rng.normal(size=[64]).astype(np.float32)))
+        strings = np.array([b"alpha", b"", "été".encode()], dtype=object)
+        for binary in (False, True):
+            out = kserve_infer(conn, "simple", [("INPUT0", "INT32", a), ("INPUT1", "INT32", b)],
+                               binary, ("OUTPUT0", "OUTPUT1"))
+            if not (np.array_equal(out["OUTPUT0"], a + b) and np.array_equal(out["OUTPUT1"], a - b)):
+                raise AssertionError(f"simple (binary={binary}) is not a+b, a-b")
+            for model, datatype, array in (("identity_fp32", "FP32", fp32),
+                                           ("identity_bf16", "BF16", bf16),
+                                           ("identity_bytes", "BYTES", strings)):
+                got = kserve_infer(conn, model, [("INPUT0", datatype, array)], binary,
+                                   ("OUTPUT0",))["OUTPUT0"]
+                same = (list(got) == list(array) if datatype == "BYTES"
+                        else got.tobytes() == array.tobytes())
+                if not same:
+                    raise AssertionError(f"{model} (binary={binary}) did not round-trip")
+        conn.close()
+
+        lengths = rng.integers(3, 201, 16)
+        seqs = [rng.integers(1, config.vocab_size, n, dtype=np.int32) for n in lengths]
+        before = _stats(port, "text_encoder")
+        work = [lambda c, s=s: kserve_infer(c, "text_encoder", [("INPUT_IDS", "INT32", s[None])],
+                                            outputs=("EMBEDDING",))["EMBEDDING"][0]
+                for s in seqs]
+        answers, _, _ = _concurrently(port, work, 16)
+        after = _stats(port, "text_encoder")
+    worst = 0.0
+    with torch.inference_mode():
+        for seq, got in zip(seqs, answers):
+            want = bert.forward(cpu_params, torch.from_numpy(seq[None]), config)[1][0].numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"text_encoder on the card vs the CPU: {worst} > 1e-5")
+    requests = after["inference_count"] - before["inference_count"]
+    executions = after["execution_count"] - before["execution_count"]
+    if requests != 16 or not executions < requests:
+        raise AssertionError(f"text_encoder: {requests} requests in {executions} executions")
+    print(f"kserve tiny: simple exact, identity_fp32/bf16/bytes bit-exact (JSON and binary); "
+          f"16 concurrent text_encoder requests (lengths {int(lengths.min())}-"
+          f"{int(lengths.max())}) within {worst:.3g} of the CPU forward (limit 1e-5) in "
+          f"{executions} executions", flush=True)
+
+
+KSERVE_REQUESTS = 128
+KSERVE_CLIENTS = 16
+
+
+def bert_large_bound_ms(config, rows: int, length: int) -> dict:
+    """The least time one execution of ``rows`` x ``length`` tokens could
+    take on the card: weight and attention products at the dense bf16 peak
+    (989 TFLOP/s) against the weights' bytes at 3.35 TB/s."""
+    d, f, layers = config.d_model, config.d_ff, config.n_layers
+    tokens = rows * length
+    weight_flops = 2 * layers * (4 * d * d + 2 * d * f) * tokens
+    attention_flops = 2 * 2 * layers * rows * length * length * d
+    weight_bytes = 2 * (layers * (4 * d * d + 2 * d * f) + (config.vocab_size + config.max_seq_len) * d)
+    ops_ms = (weight_flops + attention_flops) / 989e12 * 1e3
+    bytes_ms = weight_bytes / 3.35e12 * 1e3
+    return {"tflop": (weight_flops + attention_flops) / 1e12,
+            "weight_tflop": weight_flops / 1e12, "attention_tflop": attention_flops / 1e12,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def profile_execution(model, rows: int = 16, length: int = 512) -> dict:
+    """Where one ``text_encoder`` execution's time goes at ``rows`` x
+    ``length``: host wall time of ``execute`` (its host read included)
+    and, from ``torch.profiler``, device time by kind."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = np.random.default_rng(9).integers(1, model._config.vocab_size, [rows, length],
+                                            dtype=np.int32)
+
+    def step():
+        model.execute({"INPUT_IDS": ids}, {})
+
+    for _ in range(3):
+        step()
+    iters = 10
+    wall = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        step()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            step()
+    kinds = {"matmul": 0.0, "other": 0.0}
+    by_kernel = {}
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        name = event.key.lower()
+        matmul = any(tag in name for tag in ("gemm", "gemv", "cutlass", "nvjet", "xmma"))
+        ms = event.self_device_time_total / 1e3 / iters
+        kinds["matmul" if matmul else "other"] += ms
+        by_kernel[event.key[:80]] = by_kernel.get(event.key[:80], 0.0) + ms
+    device_ms = sum(kinds.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    measured = device_ms > 0
+    host_ms = sorted(wall)[iters // 2]
+    bound = bert_large_bound_ms(model._config, rows, length)
+    result = {
+        "rows": rows,
+        "length": length,
+        "host_ms_median": host_ms,
+        "host_ms_mean": sum(wall) / iters,
+        "device_ms": device_ms if measured else "not measured",
+        "device_ms_by_kind": kinds if measured else "not measured",
+        "device_idle_share": 1.0 - device_ms / host_ms if measured else "not measured",
+        "tflop": bound["tflop"],
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "share_of_bound": bound["bound_ms"] / device_ms if measured else "not measured",
+        "top_kernels_ms": top if measured else "not measured",
+    }
+    print("kserve execution: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def kserve_bert_large() -> dict:
+    """Phase 6b: ``text_encoder`` at BERT-large's widths (24 layers, bf16,
+    random weights from seed 0) behind the KServe v2 route: 128 binary
+    requests from 16 client threads, lengths drawn from seed 0 in
+    16-512; every answer held to the same model's unbatched forward on
+    the card (max abs difference within 2 % of the answer's largest
+    absolute value, no NaN)."""
+    import numpy as np
+
+    from client_tpu_torch.models import bert
+    from client_tpu_torch.models.serving import TextEncoderModel
+    from client_tpu_torch.server.models import pad_batch_bucket
+
+    config = bert.BertConfig()
+    t0 = time.perf_counter()
+    model = TextEncoderModel(config=config, device=DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(0)
+    model._params = bert.init_params(generator, config, DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.warmup()
+    # every (row bucket, length bucket) the run can meet, once
+    rng_warm = np.random.default_rng(1)
+    for length in (16, 32, 64, 128, 256, 512):
+        for rows in (1, 2, 4, 8, 16):
+            model.execute({"INPUT_IDS": rng_warm.integers(
+                1, config.vocab_size, [rows, length], dtype=np.int32)}, {})
+    warmup_s = time.perf_counter() - t0
+    params = sum(t.numel() for t in [model._params["tok_emb"], model._params["pos_emb"]]) + sum(
+        t.numel() for layer in model._params["layers"] for t in layer.values())
+    print(f"kserve: text_encoder BERT-large ({params / 1e6:.1f} M parameters, bf16) loaded in "
+          f"{load_s:.2f} s, warmed up in {warmup_s:.2f} s", flush=True)
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(16, 513, KSERVE_REQUESTS)
+    seqs = [rng.integers(1, config.vocab_size, n, dtype=np.int32) for n in lengths]
+    with http_server(model) as port:
+        before = _stats(port, "text_encoder")
+        work = [lambda c, s=s: kserve_infer(c, "text_encoder", [("INPUT_IDS", "INT32", s[None])],
+                                            outputs=("EMBEDDING",))["EMBEDDING"][0]
+                for s in seqs]
+        answers, latencies, wall = _concurrently(port, work, KSERVE_CLIENTS)
+        after = _stats(port, "text_encoder")
+    worst = 0.0
+    with torch.inference_mode():
+        for seq, got in zip(seqs, answers):
+            want = bert.forward(model._params, torch.from_numpy(seq[None]).to(DEVICE),
+                                config)[1][0].cpu().numpy()
+            err = float(np.abs(got - want).max())
+            tol = 2e-2 * float(np.abs(want).max())
+            if not (np.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"BERT-large length {len(seq)}: {err} > {tol}")
+            worst = max(worst, err / tol)
+    requests = after["inference_count"] - before["inference_count"]
+    executions = after["execution_count"] - before["execution_count"]
+    if requests != KSERVE_REQUESTS or executions < 1:
+        raise AssertionError(f"stats: {requests} requests in {executions} executions")
+    stats = after["inference_stats"]
+    ordered = sorted(latencies)
+    result = {
+        "model": f"text_encoder (d {config.d_model}, {config.n_layers} layers, "
+                 f"{config.n_heads} heads, d_ff {config.d_ff}, {config.dtype})",
+        "requests": KSERVE_REQUESTS,
+        "clients": KSERVE_CLIENTS,
+        "wall_s": wall,
+        "requests_per_s": KSERVE_REQUESTS / wall,
+        "sequences_per_s": KSERVE_REQUESTS / wall,
+        "tokens_per_s": int(lengths.sum()) / wall,
+        "latency_ms_p50": 1e3 * ordered[len(ordered) // 2],
+        "latency_ms_p99": 1e3 * ordered[min(len(ordered) - 1, math.ceil(0.99 * len(ordered)) - 1)],
+        "executions": executions,
+        "rows_per_execution": requests / executions,
+        "queue_ms_mean": (stats["queue"]["ns"] - before["inference_stats"]["queue"]["ns"])
+        / 1e6 / requests,
+        "compute_infer_ms_mean_per_request": (stats["compute_infer"]["ns"]
+                                              - before["inference_stats"]["compute_infer"]["ns"])
+        / 1e6 / requests,
+        "max_err_share_of_limit": worst,
+        "length_buckets": sorted({min(pad_batch_bucket(int(n), 8), 512) for n in lengths}),
+        "load_s": load_s,
+        "warmup_s": warmup_s,
+        "card": card(),
+    }
+    print("kserve: " + json.dumps(result), flush=True)
+    result["profile"] = profile_execution(model)
+    return result
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -755,6 +1116,11 @@ def main() -> int:
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
     served_spec = serve_7b_speculative(params, plain_streams)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    kserve_tiny()
+    kserve_bert_large()
     line = {
         "kernels": [
             {

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from client_tpu_torch.utils import resolve_device
+from client_tpu_torch.utils import numpy_to_tensor, resolve_device
 
 NEG_INF = -1e30
 
@@ -121,15 +121,6 @@ def init_params(generator: torch.Generator, config: LlamaConfig,
     }
 
 
-def _array_to_tensor(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    array = np.array(array, order="C")  # a writable copy torch may own
-    if array.dtype.name == "bfloat16":
-        # numpy has no bfloat16 of its own: carry the 16 bits as int16
-        bits = torch.from_numpy(array.view(np.int16))
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(array).to(device)
-
-
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The JAX package's parameter pytree, given as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as torch tensors on ``device``
@@ -141,7 +132,7 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
             return {key: convert(value) for key, value in node.items()}
         if isinstance(node, (list, tuple)):
             return [convert(value) for value in node]
-        return _array_to_tensor(np.asarray(node), device)
+        return numpy_to_tensor(np.asarray(node), device)
 
     return convert(tree)
 

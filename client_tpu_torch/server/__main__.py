@@ -1,8 +1,11 @@
 """CLI entry point: ``python -m client_tpu_torch.server``.
 
-Starts the HTTP front-end over a model repository; ``--zoo-models``
-registers the ``llm_engine`` model (the tiny Llama, random weights from
-seed 0) on ``--device`` (default ``cuda``).
+Starts the HTTP front-end over a model repository holding the built-in
+models (``simple``, ``identity_fp32``, ``identity_bf16``,
+``identity_bytes``; ``--no-builtin-models`` leaves them out);
+``--zoo-models`` adds ``llm_engine`` (the tiny Llama) and ``text_encoder``
+(the tiny BERT), random weights from seed 0. Every model runs on
+``--device`` (default ``cuda``).
 """
 
 import argparse
@@ -18,9 +21,14 @@ def main(argv=None) -> int:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--http-port", type=int, default=8000)
     parser.add_argument(
+        "--no-builtin-models",
+        action="store_true",
+        help="skip the built-in models (simple, identity_*)",
+    )
+    parser.add_argument(
         "--zoo-models",
         action="store_true",
-        help="register the model-zoo adapters (llm_engine)",
+        help="also register the model-zoo adapters (llm_engine, text_encoder)",
     )
     parser.add_argument(
         "--device",
@@ -35,10 +43,14 @@ def main(argv=None) -> int:
     from client_tpu_torch.server.model_repository import ModelRepository
 
     repository = ModelRepository()
-    if args.zoo_models:
-        from client_tpu_torch.llm.serving import LlmEngineModel
+    if not args.no_builtin_models:
+        from client_tpu_torch.server.models import register_builtin_models
 
-        repository.add_model(LlmEngineModel(device=args.device))
+        register_builtin_models(repository, device=args.device)
+    if args.zoo_models:
+        from client_tpu_torch.models.serving import register_zoo_models
+
+        register_zoo_models(repository, device=args.device)
     for entry in repository.index():
         print(f"model {entry['name']}: {entry['state']} {entry['reason']}".rstrip(),
               flush=True)

@@ -1,25 +1,43 @@
 """HTTP/1.1 front-end on stdlib asyncio streams.
 
-Serves the health and model-config routes of the KServe v2 REST protocol
-and the OpenAI-compatible routes (``server/openai_frontend.py``), with
-Server-Sent Events over a chunked response when a request asks to
-stream. Connections are kept alive between requests unless the client
-sends ``Connection: close``. Request bodies need a ``Content-Length``.
+Serves the KServe v2 REST protocol — health, server and model metadata,
+model config, statistics, and inference with the binary-tensor extension
+(a JSON header followed by raw tensor buffers, its size in the
+``Inference-Header-Content-Length`` header) — and the OpenAI-compatible
+routes (``server/openai_frontend.py``), with Server-Sent Events over a
+chunked response when a request asks to stream. Connections are kept
+alive between requests unless the client sends ``Connection: close``.
+Request bodies need a ``Content-Length``; gzip and deflate request bodies
+are inflated, and responses are compressed when the client's
+``Accept-Encoding`` asks for it.
 """
 
 import asyncio
+import gzip
 import json
 import logging
 import re
+import zlib
 from dataclasses import dataclass, field
 from http import HTTPStatus
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
-from client_tpu_torch.server.core import ServerCore
-from client_tpu_torch.utils import InferenceServerException
+import numpy as np
+
+from client_tpu_torch.server.core import (
+    SERVER_EXTENSIONS,
+    SERVER_NAME,
+    SERVER_VERSION,
+    CoreRequest,
+    CoreRequestedOutput,
+    CoreResponse,
+    ServerCore,
+)
+from client_tpu_torch.utils import InferenceServerException, serialize_byte_tensor
 
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 64 * 1024 * 1024
+HEADER_CONTENT_LENGTH = "Inference-Header-Content-Length"
 
 _log = logging.getLogger(__name__)
 
@@ -163,12 +181,17 @@ class HttpServer:
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by close()
         openai = OpenAiFrontend(core)
+        model = r"/v2/models/(?P<model>[^/]+)(/versions/(?P<version>[^/]+))?"
         self._routes = [
             ("GET", re.compile(r"/v2/health/live"), self.handle_live),
             ("GET", re.compile(r"/v2/health/ready"), self.handle_ready),
-            ("GET", re.compile(r"/v2/models/(?P<model>[^/]+)"
-                               r"(/versions/(?P<version>[^/]+))?/config"),
-             self.handle_model_config),
+            ("GET", re.compile(r"/v2/?"), self.handle_server_metadata),
+            ("GET", re.compile(r"/v2/models/stats"), self.handle_stats),
+            ("GET", re.compile(model + "/stats"), self.handle_stats),
+            ("GET", re.compile(model + "/ready"), self.handle_model_ready),
+            ("GET", re.compile(model + "/config"), self.handle_model_config),
+            ("POST", re.compile(model + "/infer"), self.handle_infer),
+            ("GET", re.compile(model), self.handle_model_metadata),
             ("GET", re.compile(r"/v1/models"), openai.handle_models),
             ("POST", re.compile(r"/v1/chat/completions"), openai.handle_chat),
             ("POST", re.compile(r"/v1/completions"), openai.handle_chat),
@@ -269,11 +292,187 @@ class HttpServer:
     async def handle_ready(self, request: Request) -> Response:
         return Response(200 if self.core.ready else 503)
 
-    async def handle_model_config(self, request: Request) -> Response:
-        model = self.core.repository.get(
+    async def handle_model_ready(self, request: Request) -> Response:
+        ready = self.core.repository.is_ready(
             request.params["model"], request.params.get("version", "")
         )
-        return json_response(model.config())
+        return Response(200 if ready else 400)
+
+    async def handle_server_metadata(self, request: Request) -> Response:
+        return json_response({
+            "name": SERVER_NAME,
+            "version": SERVER_VERSION,
+            "extensions": SERVER_EXTENSIONS,
+        })
+
+    def _model(self, request: Request):
+        return self.core.repository.get(
+            request.params["model"], request.params.get("version", "")
+        )
+
+    async def handle_model_metadata(self, request: Request) -> Response:
+        return json_response(self._model(request).metadata())
+
+    async def handle_model_config(self, request: Request) -> Response:
+        return json_response(self._model(request).config())
+
+    async def handle_stats(self, request: Request) -> Response:
+        return json_response(self.core.statistics(
+            request.params.get("model", ""), request.params.get("version", "")
+        ))
+
+    # -- inference -----------------------------------------------------------
+
+    async def handle_infer(self, request: Request) -> Response:
+        body = _inflate(request.body, request.headers.get("content-encoding", ""))
+        header_len = request.headers.get(HEADER_CONTENT_LENGTH.lower())
+        try:
+            if header_len is not None:
+                header_len = int(header_len)
+                if not 0 <= header_len <= len(body):
+                    raise ValueError(f"{HEADER_CONTENT_LENGTH} {header_len} is outside "
+                                     f"the body of {len(body)} bytes")
+                payload = json.loads(body[:header_len].decode("utf-8"))
+                binary = body[header_len:]
+            else:
+                payload = json.loads(body.decode("utf-8"))
+                binary = b""
+            if not isinstance(payload, dict):
+                raise ValueError("the inference header is not a JSON object")
+        except (UnicodeDecodeError, ValueError) as e:
+            raise InferenceServerException(
+                f"malformed inference request: {e}"
+            ) from None
+        try:
+            core_request = self._build_core_request(
+                request.params["model"], request.params.get("version", ""), payload,
+                binary,
+            )
+        except (AttributeError, KeyError, TypeError, ValueError) as e:
+            raise InferenceServerException(
+                f"malformed inference request: {e!r}"
+            ) from None
+        core_response = await self.core.infer(core_request)
+        return self._build_response(
+            payload, core_response, request.headers.get("accept-encoding", "")
+        )
+
+    def _build_core_request(self, model_name: str, model_version: str,
+                            payload: Dict[str, Any], binary: bytes) -> CoreRequest:
+        parameters = dict(payload.get("parameters", {}))
+        parameters.pop("binary_data_output", None)  # an encoding choice, read by _build_response
+        request = CoreRequest(
+            model_name=model_name,
+            model_version=model_version,
+            id=payload.get("id", ""),
+            parameters=parameters,
+        )
+        offset = 0
+        for tensor in payload.get("inputs", []):
+            params = tensor.get("parameters", {})
+            name = tensor.get("name")
+            datatype = tensor.get("datatype")
+            if name is None or datatype is None:
+                raise InferenceServerException(
+                    "inference input must have 'name' and 'datatype'"
+                )
+            shape = [int(s) for s in tensor.get("shape", [])]
+            raw = None
+            json_data = None
+            if "binary_data_size" in params:
+                size = int(params["binary_data_size"])
+                if size < 0 or offset + size > len(binary):
+                    raise InferenceServerException(
+                        f"binary section truncated for input '{name}'"
+                    )
+                raw = binary[offset:offset + size]
+                offset += size
+            else:
+                json_data = tensor.get("data")
+            request.inputs.append(
+                self.core.decode_input(name, datatype, shape, raw=raw, json_data=json_data)
+            )
+        for out in payload.get("outputs", []):
+            request.outputs.append(CoreRequestedOutput(
+                name=out["name"],
+                classification=int(out.get("parameters", {}).get("classification", 0)),
+            ))
+        return request
+
+    @staticmethod
+    def _build_response(payload: Dict[str, Any], core_response: CoreResponse,
+                        accept: str) -> Response:
+        requested = {
+            o.get("name"): o.get("parameters", {}) for o in payload.get("outputs", [])
+        }
+        # JSON is the spec default; only the explicit binary_data_output
+        # request parameter flips unlisted outputs to binary
+        want_binary_default = bool(
+            payload.get("parameters", {}).get("binary_data_output", False)
+        )
+        header: Dict[str, Any] = {
+            "model_name": core_response.model_name,
+            "model_version": core_response.model_version,
+            "outputs": [],
+        }
+        if core_response.id:
+            header["id"] = core_response.id
+        if core_response.parameters:
+            header["parameters"] = core_response.parameters
+        chunks: List[bytes] = []
+        for tensor in core_response.outputs:
+            out_json: Dict[str, Any] = {
+                "name": tensor.name,
+                "datatype": tensor.datatype,
+                "shape": tensor.shape,
+            }
+            binary = bool(requested.get(tensor.name, {}).get("binary_data",
+                                                              want_binary_default))
+            if binary or tensor.datatype == "BF16":  # BF16 has no JSON form
+                if tensor.datatype == "BYTES":
+                    raw = serialize_byte_tensor(tensor.data).tobytes()
+                else:
+                    raw = np.ascontiguousarray(tensor.data).tobytes()
+                chunks.append(raw)
+                out_json["parameters"] = {"binary_data_size": len(raw)}
+            elif tensor.datatype == "BYTES":
+                out_json["data"] = [
+                    b.decode("utf-8", errors="replace") for b in tensor.data.reshape(-1)
+                ]
+            else:
+                out_json["data"] = tensor.data.reshape(-1).tolist()
+            header["outputs"].append(out_json)
+
+        header_bytes = json.dumps(header).encode("utf-8")
+        headers = {"Content-Type": "application/json"}
+        body = header_bytes
+        if chunks:
+            body = b"".join([header_bytes] + chunks)
+            headers = {"Content-Type": "application/octet-stream",
+                       HEADER_CONTENT_LENGTH: str(len(header_bytes))}
+        accept = accept.lower()
+        if "gzip" in accept:
+            body = gzip.compress(body)
+            headers["Content-Encoding"] = "gzip"
+        elif "deflate" in accept:
+            body = zlib.compress(body)
+            headers["Content-Encoding"] = "deflate"
+        return Response(200, body, headers)
+
+
+def _inflate(body: bytes, encoding: str) -> bytes:
+    """A request body as sent, inflated per its ``Content-Encoding``."""
+    encoding = encoding.strip().lower()
+    try:
+        if encoding == "gzip":
+            return gzip.decompress(body)
+        if encoding == "deflate":
+            return zlib.decompress(body)
+    except (OSError, EOFError, zlib.error) as e:
+        raise InferenceServerException(f"malformed {encoding} body: {e}") from None
+    if encoding not in ("", "identity"):
+        raise InferenceServerException(f"unsupported Content-Encoding '{encoding}'")
+    return body
 
 
 async def serve_http(core: ServerCore, host: str = "127.0.0.1",

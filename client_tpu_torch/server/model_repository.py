@@ -1,8 +1,8 @@
 """Model abstraction + repository for the port's server.
 
-A model exposes its KServe v2 config and a streaming execute over
-name->ndarray dicts: decoupled models yield multiple responses per request
-via an async generator (Triton's decoupled transaction policy).
+A model exposes its KServe v2 metadata and config and an execute over
+name->ndarray dicts; decoupled models yield multiple responses per
+request via an async generator (Triton's decoupled transaction policy).
 """
 
 import threading
@@ -33,8 +33,8 @@ class Model:
     """Base class for served models.
 
     Subclasses define ``inputs``/``outputs`` metadata and implement
-    :meth:`execute_decoupled` (a stream of responses; ``decoupled =
-    True``).
+    :meth:`execute` (one response) or :meth:`execute_decoupled` (a stream
+    of responses; set ``decoupled = True``).
     """
 
     name: str = "model"
@@ -47,6 +47,41 @@ class Model:
     # max_batch_size > 0, matching Triton config conventions.
     inputs: List[Dict[str, Any]] = []
     outputs: List[Dict[str, Any]] = []
+    # Mixed-shape dynamic batching (the server-side half of Triton's
+    # ragged batching): when True, concurrent requests whose shapes differ
+    # ONLY in dims the model declares as -1 share one execution — the
+    # batcher pads those dims with ``ragged_pad_value`` to a shared
+    # power-of-two bucket, clamped to ``ragged_dim_cap``, before
+    # concatenating. The model must tolerate padding (e.g. mask pad
+    # tokens).
+    allow_ragged_batch: bool = False
+    ragged_pad_value: int = 0
+    ragged_dim_cap: Optional[int] = None
+    # Admission control (the ModelDynamicBatching priority /
+    # ModelQueuePolicy surface, resolved by scheduling.QueuePolicy):
+    # priority_levels N declares queue levels 1..N (1 = highest);
+    # queue_policy keys: max_queue_size, default_timeout_us,
+    # timeout_action ("reject"), allow_timeout_override.
+    priority_levels: int = 0
+    default_priority_level: int = 0
+    queue_policy: Optional[Dict[str, Any]] = None
+
+    def metadata(self) -> Dict[str, Any]:
+        def entry(tensor):
+            batch = [-1] if self.max_batch_size > 0 else []
+            return {
+                "name": tensor["name"],
+                "datatype": tensor["datatype"],
+                "shape": batch + list(tensor["shape"]),
+            }
+
+        return {
+            "name": self.name,
+            "versions": [self.version],
+            "platform": self.platform,
+            "inputs": [entry(i) for i in self.inputs],
+            "outputs": [entry(o) for o in self.outputs],
+        }
 
     def config(self) -> Dict[str, Any]:
         def entry(tensor):
@@ -56,7 +91,7 @@ class Model:
                 "dims": list(tensor["shape"]),
             }
 
-        return {
+        config = {
             "name": self.name,
             "platform": self.platform,
             "backend": self.backend,
@@ -65,6 +100,37 @@ class Model:
             "output": [entry(o) for o in self.outputs],
             "model_transaction_policy": {"decoupled": self.decoupled},
         }
+        if self.max_batch_size > 1:
+            # batchable models ride the core's dynamic batcher; declare it
+            # the way Triton configs do so clients can see the scheduler
+            dynamic_batching: Dict[str, Any] = {}
+            if self.priority_levels:
+                dynamic_batching["priority_levels"] = self.priority_levels
+                dynamic_batching["default_priority_level"] = self.default_priority_level
+            if self.queue_policy:
+                qp = self.queue_policy
+                # Triton wire names (ModelQueuePolicy)
+                dynamic_batching["default_queue_policy"] = {
+                    "timeout_action": "REJECT",
+                    "default_timeout_microseconds": int(qp.get("default_timeout_us", 0)),
+                    "allow_timeout_override": bool(qp.get("allow_timeout_override", True)),
+                    "max_queue_size": int(qp.get("max_queue_size", 0)),
+                }
+            config["dynamic_batching"] = dynamic_batching
+        return config
+
+    def labels(self, output_name: str) -> Optional[List[str]]:
+        """Classification labels for an output (None if unlabeled)."""
+        return None
+
+    def execute(
+        self, inputs: Dict[str, np.ndarray], parameters: Dict[str, Any]
+    ) -> Dict[str, Any]:
+        """One response: output name -> numpy array or torch tensor (the
+        core reads tensors back to the host in one transfer)."""
+        raise InferenceServerException(
+            f"model '{self.name}' does not implement execute"
+        )
 
     async def execute_decoupled(
         self, inputs: Dict[str, np.ndarray], parameters: Dict[str, Any]

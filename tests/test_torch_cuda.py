@@ -2,7 +2,9 @@
 K1 (decode) and K2 (the speculative verify) on random ragged layouts and
 on layouts that straddle their split-KV partitions (held to the plain
 split-and-merge version), and the tiny engine through both against the
-dense oracle.
+dense oracle. Then the KServe v2 path's models on the card: the tiny fp32
+text encoder against its CPU run, BERT-large widths batched against
+unbatched in bf16, and ``run_bucketed``'s host arrays.
 
 Every test here carries the ``cuda`` marker and skips without a card: a
 CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
@@ -273,3 +275,80 @@ def test_kernels_match_the_split_version_at_partition_edges_bf16(cuda, t, partit
     tol = 2.0 ** -7 * ref.float().abs().max().item()
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the KServe v2 path: text encoder and built-ins on the card
+# ---------------------------------------------------------------------------
+
+
+def _random_ids(seed, lengths, vocab):
+    rng = np.random.default_rng(seed)
+    width = max(lengths)
+    ids = np.zeros([len(lengths), width], dtype=np.int32)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = rng.integers(1, vocab, n)
+    return ids
+
+
+def test_tiny_text_encoder_on_the_card_equals_its_cpu_run(cuda):
+    """fp32 (TF32 off) within 1e-5 of the same weights on the CPU."""
+    from client_tpu_torch.models import bert
+    from client_tpu_torch.models.serving import TextEncoderModel
+
+    config = bert.BertConfig.tiny(dtype=torch.float32)
+    params = bert.init_params(torch.Generator().manual_seed(0), config, "cpu")
+    on_card = {k: v for k, v in params.items() if k != "layers"}
+    on_card = {k: v.to(cuda) for k, v in on_card.items()}
+    on_card["layers"] = [{k: v.to(cuda) for k, v in layer.items()} for layer in params["layers"]]
+    card_model = TextEncoderModel(config=config, params=on_card, device=cuda)
+    cpu_model = TextEncoderModel(config=config, params=params, device="cpu")
+    ids = _random_ids(1, [3, 200, 17, 64, 1], config.vocab_size)
+    got = card_model.execute({"INPUT_IDS": ids}, {})["EMBEDDING"]
+    want = cpu_model.execute({"INPUT_IDS": ids}, {})["EMBEDDING"]
+    assert isinstance(got, np.ndarray) and got.shape == (5, config.d_model)
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_bert_large_bf16_batched_equals_unbatched(cuda):
+    """BERT-large widths (2 of 24 layers, bf16, random weights): a ragged
+    batch is finite, and each row is within 2 % of its largest absolute
+    value of the same sequence run alone (other M, other cuBLAS tiles)."""
+    import dataclasses
+
+    from client_tpu_torch.models import bert
+
+    config = dataclasses.replace(bert.BertConfig(), n_layers=2)
+    params = bert.init_params(torch.Generator(device=cuda).manual_seed(0), config, cuda)
+    ids = _random_ids(2, [512, 16, 300, 77], config.vocab_size)
+    with torch.inference_mode():
+        _, batched = bert.forward(params, torch.from_numpy(ids).to(cuda), config)
+        assert torch.isfinite(batched).all()
+        for row, n in enumerate([512, 16, 300, 77]):
+            alone = bert.forward(params, torch.from_numpy(ids[row:row + 1, :n]).to(cuda),
+                                 config)[1][0]
+            err = (batched[row] - alone).abs().max().item()
+            assert err <= 2e-2 * alone.abs().max().item(), (row, err)
+
+
+def test_run_bucketed_on_the_card_returns_host_arrays_of_the_true_rows(cuda):
+    from client_tpu_torch.server import models
+
+    a = np.arange(5 * 16, dtype=np.int32).reshape(5, 16)
+    b = np.ones([5, 16], dtype=np.int32)
+    seen = []
+
+    def fn(x, y):
+        seen.append((x.device.type, tuple(x.shape)))
+        return x + y, (x - y).float()
+
+    out0, out1 = models.run_bucketed(fn, a, b, device=cuda)
+    assert seen == [("cuda", (8, 16))]
+    assert isinstance(out0, np.ndarray) and out0.shape == (5, 16)
+    assert np.array_equal(out0, a + b)
+    assert out1.dtype == np.float32 and np.array_equal(out1, (a - b).astype(np.float32))
+    model = models.AddSubModel(device=cuda)
+    model.warmup()
+    result = model.execute({"INPUT0": a, "INPUT1": b}, {})
+    assert np.array_equal(result["OUTPUT0"], a + b)
+    assert np.array_equal(result["OUTPUT1"], a - b)

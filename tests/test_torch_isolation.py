@@ -6,7 +6,8 @@
 - A subprocess in which importing ``jax`` (or ``client_tpu``) fails
   imports every module of the port.
 - On a host with no card, an entry point called without
-  ``device="cpu"`` raises instead of running on the CPU.
+  ``device="cpu"`` (the LLM engine, the text encoder, the built-in
+  models, the server CLI) raises instead of running on the CPU.
 """
 
 import ast
@@ -14,6 +15,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,6 +97,38 @@ def test_entry_points_raise_without_a_card(no_card):
     # asking for the CPU is the one way onto it
     assert resolve_device("cpu") == torch.device("cpu")
     assert llama.init_kv_pages(config, 4, 8, device="cpu")[0][0].device.type == "cpu"
+
+
+def test_kserve_entry_points_raise_without_a_card(no_card):
+    from client_tpu_torch.models import bert
+    from client_tpu_torch.models.serving import TextEncoderModel, register_zoo_models
+    from client_tpu_torch.server import models
+    from client_tpu_torch.server.__main__ import main
+    from client_tpu_torch.server.model_repository import ModelRepository
+
+    config = bert.BertConfig.tiny(dtype=torch.float32)
+    for make in (
+        lambda: TextEncoderModel(),
+        lambda: TextEncoderModel(device="cuda"),
+        lambda: bert.init_params(torch.Generator().manual_seed(0), config),
+        lambda: bert.params_from_jax({}, config),
+        lambda: models.AddSubModel(),
+        lambda: models.IdentityModel(),
+        lambda: models.BytesIdentityModel(),
+        lambda: models.register_builtin_models(ModelRepository()),
+        lambda: register_zoo_models(ModelRepository()),
+        lambda: models.run_bucketed(lambda x: (x,), np.zeros([1, 2]),
+                                    device=resolve_device(None)),
+        lambda: main(["--http-port", "0"]),
+        lambda: main(["--http-port", "0", "--no-builtin-models", "--zoo-models"]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # the CPU is there when asked for
+    assert TextEncoderModel(device="cpu").device.type == "cpu"
+    repository = ModelRepository()
+    models.register_builtin_models(repository, device="cpu")
+    assert [m["state"] for m in repository.index()] == ["READY"] * 4
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
