@@ -954,7 +954,7 @@ def bert_large_bound_ms(config, rows: int, length: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def profile_execution(model, rows: int = 16, length: int = 512) -> dict:
+def profile_execution(model, config, rows: int = 16, length: int = 512) -> dict:
     """Where one ``text_encoder`` execution's time goes at ``rows`` x
     ``length``: host wall time of ``execute`` (its host read included)
     and, from ``torch.profiler``, device time by kind."""
@@ -962,7 +962,7 @@ def profile_execution(model, rows: int = 16, length: int = 512) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ids = np.random.default_rng(9).integers(1, model._config.vocab_size, [rows, length],
+    ids = np.random.default_rng(9).integers(1, config.vocab_size, [rows, length],
                                             dtype=np.int32)
 
     def step():
@@ -994,7 +994,7 @@ def profile_execution(model, rows: int = 16, length: int = 512) -> dict:
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     measured = device_ms > 0
     host_ms = sorted(wall)[iters // 2]
-    bound = bert_large_bound_ms(model._config, rows, length)
+    bound = bert_large_bound_ms(config, rows, length)
     result = {
         "rows": rows,
         "length": length,
@@ -1028,9 +1028,9 @@ def kserve_bert_large() -> dict:
 
     config = bert.BertConfig()
     t0 = time.perf_counter()
-    model = TextEncoderModel(config=config, device=DEVICE)
     generator = torch.Generator(device=DEVICE).manual_seed(0)
-    model._params = bert.init_params(generator, config, DEVICE)
+    params = bert.init_params(generator, config, DEVICE)
+    model = TextEncoderModel(config=config, params=params, device=DEVICE)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1042,9 +1042,9 @@ def kserve_bert_large() -> dict:
             model.execute({"INPUT_IDS": rng_warm.integers(
                 1, config.vocab_size, [rows, length], dtype=np.int32)}, {})
     warmup_s = time.perf_counter() - t0
-    params = sum(t.numel() for t in [model._params["tok_emb"], model._params["pos_emb"]]) + sum(
-        t.numel() for layer in model._params["layers"] for t in layer.values())
-    print(f"kserve: text_encoder BERT-large ({params / 1e6:.1f} M parameters, bf16) loaded in "
+    count = sum(t.numel() for t in [params["tok_emb"], params["pos_emb"]]) + sum(
+        t.numel() for layer in params["layers"] for t in layer.values())
+    print(f"kserve: text_encoder BERT-large ({count / 1e6:.1f} M parameters, bf16) loaded in "
           f"{load_s:.2f} s, warmed up in {warmup_s:.2f} s", flush=True)
 
     rng = np.random.default_rng(0)
@@ -1060,7 +1060,7 @@ def kserve_bert_large() -> dict:
     worst = 0.0
     with torch.inference_mode():
         for seq, got in zip(seqs, answers):
-            want = bert.forward(model._params, torch.from_numpy(seq[None]).to(DEVICE),
+            want = bert.forward(params, torch.from_numpy(seq[None]).to(DEVICE),
                                 config)[1][0].cpu().numpy()
             err = float(np.abs(got - want).max())
             tol = 2e-2 * float(np.abs(want).max())
@@ -1098,7 +1098,7 @@ def kserve_bert_large() -> dict:
         "card": card(),
     }
     print("kserve: " + json.dumps(result), flush=True)
-    result["profile"] = profile_execution(model)
+    result["profile"] = profile_execution(model, config)
     return result
 
 

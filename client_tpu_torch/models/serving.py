@@ -73,6 +73,16 @@ class TextEncoderModel(Model):
             self._params = bert.init_params(generator, self._config, self.device)
         self.execute({"INPUT_IDS": np.ones([1, 8], dtype=np.int32)}, {})
 
+    def check_inputs(self, inputs):
+        """Refuse token ids outside the vocabulary: an out-of-range index
+        is a device-side fault on a card, where the reference clamps it.
+        The batcher calls this per request, so such a request fails
+        alone; :meth:`execute` calls it for the unbatched path."""
+        ids = inputs.get("INPUT_IDS")
+        vocab = self._config.vocab_size
+        if ids is not None and ids.size and (ids.min() < 0 or ids.max() >= vocab):
+            raise InferenceServerException(f"token ids must lie in [0, {vocab})")
+
     @torch.inference_mode()
     def execute(self, inputs, parameters):
         if "INPUT_IDS" not in inputs:
@@ -91,12 +101,7 @@ class TextEncoderModel(Model):
             raise InferenceServerException(
                 f"sequence length {ids.shape[1]} exceeds max {config.max_seq_len}"
             )
-        # an out-of-range index is a device-side fault on a card, where the
-        # reference clamps it: refuse it here, on the host
-        if ids.size and (ids.min() < 0 or ids.max() >= config.vocab_size):
-            raise InferenceServerException(
-                f"token ids must lie in [0, {config.vocab_size})"
-            )
+        self.check_inputs({"INPUT_IDS": ids})
         rows, length = ids.shape
         row_bucket = pad_batch_bucket(rows)
         len_bucket = min(pad_batch_bucket(length, minimum=8), config.max_seq_len)

@@ -95,7 +95,6 @@ class QueuePolicy:
     """
 
     __slots__ = (
-        "model",
         "max_queue_size",
         "default_timeout_us",
         "timeout_action",
@@ -106,7 +105,6 @@ class QueuePolicy:
 
     def __init__(
         self,
-        model=None,
         max_queue_size: int = 0,
         default_timeout_us: int = 0,
         timeout_action: str = TIMEOUT_ACTION_REJECT,
@@ -119,7 +117,6 @@ class QueuePolicy:
                 f"timeout_action must be {TIMEOUT_ACTION_REJECT!r}, got "
                 f"{timeout_action!r}"
             )
-        self.model = model
         self.max_queue_size = max(0, int(max_queue_size))
         self.default_timeout_us = max(0, int(default_timeout_us))
         self.timeout_action = timeout_action
@@ -132,7 +129,6 @@ class QueuePolicy:
         """Resolve a model's scheduling declarations (all optional)."""
         declared = getattr(model, "queue_policy", None) or {}
         return cls(
-            model=model,
             max_queue_size=declared.get("max_queue_size", 0),
             default_timeout_us=declared.get("default_timeout_us", 0),
             timeout_action=declared.get("timeout_action", TIMEOUT_ACTION_REJECT),

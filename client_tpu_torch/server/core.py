@@ -185,13 +185,15 @@ class _BatchMeta:
         self.model = model
         self.declared = {i["name"] for i in model.inputs}
         self.declared_shapes = {i["name"]: list(i["shape"]) for i in model.inputs}
-        self.ragged = bool(getattr(model, "allow_ragged_batch", False))
+        self.ragged = bool(model.allow_ragged_batch)
 
     def validate(self, request: CoreRequest) -> int:
         """Batch-path request validation; returns the request's row count.
 
         Happens per request so a malformed request fails alone instead of
-        poisoning the batch it would have joined.
+        poisoning the batch it would have joined: the batch dims, a ragged
+        dim over ``ragged_dim_cap``, and whatever the model's own
+        :meth:`Model.check_inputs` refuses.
         """
         model = self.model
         declared = self.declared
@@ -210,12 +212,31 @@ class _BatchMeta:
                         f"'{t.name}' shape {list(t.shape)} does not match "
                         f"batch size {rows}"
                     )
+                self._check_ragged_cap(t)
             if rows > model.max_batch_size:
                 raise InferenceServerException(
                     f"inference request batch-size must be <= "
                     f"{model.max_batch_size} for '{model.name}', got {rows}"
                 )
+            model.check_inputs({t.name: t.data for t in request.inputs})
         return rows
+
+    def _check_ragged_cap(self, tensor: CoreTensor) -> None:
+        """Refuse a -1-declared dim longer than the model's cap: merged
+        with shorter requests it could not be padded to a shared bucket."""
+        cap = self.model.ragged_dim_cap
+        declared = self.declared_shapes.get(tensor.name)
+        if not self.ragged or cap is None or declared is None:
+            return
+        dims = tensor.shape[1:]
+        if len(dims) != len(declared):
+            return
+        for d, dd in zip(dims, declared):
+            if dd == -1 and int(d) > cap:
+                raise InferenceServerException(
+                    f"input '{tensor.name}' shape {list(tensor.shape)} exceeds "
+                    f"max {cap} in a ragged dim for model '{self.model.name}'"
+                )
 
     @staticmethod
     def _signature_params(parameters: Dict[str, Any]) -> str:
@@ -256,20 +277,21 @@ class _BatchMeta:
         rank = arrays[0].ndim
         if declared is None or len(declared) != rank - 1:
             return arrays
-        cap = getattr(self.model, "ragged_dim_cap", None)
+        cap = self.model.ragged_dim_cap
         targets = []
         for ax in range(1, rank):
             if declared[ax - 1] == -1:
                 bucket = pad_batch_bucket(max(a.shape[ax] for a in arrays))
                 if cap is not None:
-                    # never past the model's hard limit: every member is
-                    # within it, so the clamped bucket still covers them
+                    # never past the model's hard limit: validate() kept
+                    # every member within it, so the clamped bucket still
+                    # covers them
                     bucket = min(bucket, cap)
                 targets.append(bucket)
             else:
                 targets.append(arrays[0].shape[ax])
         out = []
-        pad_value = getattr(self.model, "ragged_pad_value", 0)
+        pad_value = self.model.ragged_pad_value
         for a in arrays:
             pads = [(0, 0)] + [(0, targets[ax - 1] - a.shape[ax]) for ax in range(1, rank)]
             if any(p[1] for p in pads):
@@ -320,8 +342,8 @@ class _ModelBatcher:
     def __init__(self, core: "ServerCore", model: Model):
         self.core = core
         self.model = model
-        self.meta = core._batch_meta(model)
-        self.policy = core._queue_policy(model)
+        self.meta = _BatchMeta(model)
+        self.policy = QueuePolicy.from_model(model)
         # queued entries: (request, future, signature, rows, arrival_ns)
         self.pending = PriorityQueue(levels=self.policy.levels)
         self.running = False
@@ -492,24 +514,6 @@ class ServerCore:
                 self.stats[model_name] = _Stats()
             return self.stats[model_name]
 
-    @staticmethod
-    def _batch_meta(model: Model) -> _BatchMeta:
-        """Per-model batching caches, cached on the model object."""
-        meta = getattr(model, "_ctpu_batch_meta", None)
-        if meta is None or meta.model is not model:
-            meta = _BatchMeta(model)
-            model._ctpu_batch_meta = meta
-        return meta
-
-    @staticmethod
-    def _queue_policy(model: Model) -> QueuePolicy:
-        """The model's resolved admission policy, cached on the model."""
-        policy = getattr(model, "_ctpu_queue_policy", None)
-        if policy is None or policy.model is not model:
-            policy = QueuePolicy.from_model(model)
-            model._ctpu_queue_policy = policy
-        return policy
-
     def statistics(self, model_name: str = "", model_version: str = "") -> Dict[str, Any]:
         """The statistics extension's document for one model or all."""
         names = [model_name] if model_name else [m["name"] for m in self.repository.index()]
@@ -541,10 +545,7 @@ class ServerCore:
         rejects them. A request whose inputs match no declared name
         executes singly too.
         """
-        declared = getattr(model, "_ctpu_declared_ranks", None)
-        if declared is None:
-            declared = {i["name"]: len(i["shape"]) for i in model.inputs}
-            model._ctpu_declared_ranks = declared
+        declared = {i["name"]: len(i["shape"]) for i in model.inputs}
         matches = [
             len(t.shape) == declared[t.name]
             for t in request.inputs
@@ -562,12 +563,12 @@ class ServerCore:
             return int(shape[0])
         return 1
 
-    def _run_model(self, model: Model, request: CoreRequest) -> Dict[str, np.ndarray]:
+    @staticmethod
+    def _run_model(model: Model, request: CoreRequest,
+                   policy: QueuePolicy) -> Dict[str, np.ndarray]:
         """Executor-side body of the unbatched path."""
         if request.deadline_ns is not None and time.monotonic_ns() > request.deadline_ns:
-            raise QueueTimeoutError(
-                model.name, self._queue_policy(model).timeout_us_of(request.parameters)
-            )
+            raise QueueTimeoutError(model.name, policy.timeout_us_of(request.parameters))
         declared = {i["name"] for i in model.inputs}
         for t in request.inputs:
             if declared and t.name not in declared:
@@ -580,13 +581,9 @@ class ServerCore:
 
     def _package_outputs(self, model: Model, request: CoreRequest,
                          raw: Dict[str, np.ndarray]) -> CoreResponse:
-        requested = request.outputs
-        if not requested:
-            # the default "all declared outputs" list, cached on the model
-            requested = getattr(model, "_ctpu_default_outputs", None)
-            if requested is None:
-                requested = [CoreRequestedOutput(name=o["name"]) for o in model.outputs]
-                model._ctpu_default_outputs = requested
+        requested = request.outputs or [
+            CoreRequestedOutput(name=o["name"]) for o in model.outputs
+        ]
         out_tensors: List[CoreTensor] = []
         for req_out in requested:
             if req_out.name not in raw:
@@ -662,11 +659,14 @@ class ServerCore:
         """Unbatched execution (max_batch_size <= 1 or no batch dim)."""
         stats = self._stats_for(model.name)
         t0 = time.monotonic_ns()
-        self._queue_policy(model).stamp(request, t0)
+        policy = QueuePolicy.from_model(model)
+        policy.stamp(request, t0)
         loop = asyncio.get_running_loop()
         try:
             t1 = time.monotonic_ns()
-            raw = await loop.run_in_executor(self._executor, self._run_model, model, request)
+            raw = await loop.run_in_executor(
+                self._executor, self._run_model, model, request, policy
+            )
             t2 = time.monotonic_ns()
             response = self._package_outputs(model, request, raw)
             t3 = time.monotonic_ns()

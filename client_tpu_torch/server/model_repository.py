@@ -123,6 +123,11 @@ class Model:
         """Classification labels for an output (None if unlabeled)."""
         return None
 
+    def check_inputs(self, inputs: Dict[str, np.ndarray]) -> None:
+        """Refuse one request's inputs before they join a dynamic batch:
+        raise :class:`InferenceServerException` for what :meth:`execute`
+        would refuse, so a bad request fails alone. Default: accept."""
+
     def execute(
         self, inputs: Dict[str, np.ndarray], parameters: Dict[str, Any]
     ) -> Dict[str, Any]:

@@ -2,9 +2,7 @@
 wire dtype tables and tensor serialization.
 
 The wire helpers are own copies of ``client_tpu/utils``. BF16 host arrays
-are ``ml_dtypes.bfloat16`` where that package is installed (the same
-numbers the JAX package hands out); where it is not, they are a 2-byte
-structured dtype that carries the bits and nothing else. Either way a
+are ``ml_dtypes.bfloat16`` (the same numbers the JAX package hands out); a
 BF16 tensor crosses to and from torch through a 16-bit view
 (:func:`numpy_to_tensor`, :func:`tensors_to_numpy`).
 """
@@ -12,15 +10,11 @@ BF16 tensor crosses to and from torch through a 16-bit view
 import struct
 from typing import List, Optional, Sequence, Union
 
+import ml_dtypes
 import numpy as np
 import torch
 
-try:
-    import ml_dtypes
-
-    bfloat16 = np.dtype(ml_dtypes.bfloat16)
-except ImportError:  # the card's machine need not have it
-    bfloat16 = np.dtype([("bfloat16", "<u2")])
+bfloat16 = np.dtype(ml_dtypes.bfloat16)
 
 __all__ = [
     "InferenceServerException",
@@ -249,7 +243,7 @@ def deserialize_bytes_tensor(encoded_tensor: Union[bytes, np.ndarray]) -> np.nda
 
 # ---------------------------------------------------------------------------
 # BF16 tensors: 2 bytes an element on the wire. A float input is rounded
-# to nearest even (torch's float -> bfloat16 conversion).
+# to nearest even (ml_dtypes' conversion).
 # ---------------------------------------------------------------------------
 
 
@@ -265,8 +259,7 @@ def serialize_bf16_tensor(input_tensor: np.ndarray) -> np.ndarray:
             raise InferenceServerException(
                 f"cannot serialize bf16 tensor from dtype {arr.dtype}"
             )
-        converted = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-        arr = converted.to(torch.bfloat16).view(torch.int16).numpy()
+        arr = arr.astype(bfloat16)
     return np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
 
 

@@ -161,28 +161,44 @@ def test_incompatible_requests_batch_apart(core, split):
         assert all(p.get("mode") == "other" or "mode" not in p for p in model.parameters)
 
 
-@pytest.mark.parametrize("bad", ["unexpected_input", "over_max_batch", "mismatched_dims"])
+@pytest.mark.parametrize("bad", ["unexpected_input", "over_max_batch", "mismatched_dims",
+                                 "out_of_vocabulary", "over_ragged_cap"])
 def test_bad_request_fails_alone(core, bad):
     core_obj, model = core
+    name = "batch_counter"
+    good = [_request(float(i)) for i in range(3)]
     if bad == "unexpected_input":
         broken = _request(9.0, name="WRONG")
         message = "unexpected inference input"
     elif bad == "over_max_batch":
         broken = _request(9.0, rows=model.max_batch_size + 1)
         message = "batch-size must be"
-    else:
+    elif bad == "mismatched_dims":
         broken = _request(9.0, rows=2)
         broken.inputs.append(CoreTensor("X2", "FP32", [3, 4], np.zeros([3, 4], np.float32)))
         model.inputs = model.inputs + [{"name": "X2", "datatype": "FP32", "shape": [4]}]
         message = "share the batch dimension"
-    results = _gather(core_obj, [_request(float(i)) for i in range(3)] + [broken],
-                      return_exceptions=True)
+    else:
+        # the ragged text_encoder: what it refuses must be refused before
+        # the request is merged with good ones
+        name = "text_encoder"
+        config = bert.BertConfig.tiny(dtype=torch.float32)
+        core_obj.repository.add_model(TextEncoderModel(config=config, device="cpu"))
+        good = [_ids_request([5] * n, name) for n in (3, 9, 17)]
+        if bad == "out_of_vocabulary":
+            broken = _ids_request([4, config.vocab_size, 2], name)
+            message = "token ids must lie in"
+        else:
+            broken = _ids_request([1] * (config.max_seq_len + 1), name)
+            message = "exceeds max"
+    results = _gather(core_obj, good + [broken], return_exceptions=True)
     assert all(not isinstance(r, Exception) for r in results[:3])
     assert isinstance(results[3], InferenceServerException)
     assert message in results[3].message()
-    stats = core_obj.statistics("batch_counter")["model_stats"][0]
+    stats = core_obj.statistics(name)["model_stats"][0]
     assert stats["inference_stats"]["fail"]["count"] == 1
     assert stats["inference_count"] == 3
+    assert stats["execution_count"] == 1
 
 
 def test_single_request_sees_no_batching(core):

@@ -17,8 +17,6 @@ import asyncio
 import gzip
 import http.client
 import json
-import subprocess
-import sys
 import threading
 import time
 
@@ -211,35 +209,6 @@ def test_wire_helpers_refuse_what_client_tpu_refuses():
         utils.triton_dtype_byte_size("FP8")
     for datatype in ("BOOL", "INT8", "UINT64", "FP16", "FP64", "BF16", "BYTES", "NOPE"):
         assert utils.triton_to_np_dtype(datatype) == jax_utils.triton_to_np_dtype(datatype)
-
-
-def test_bf16_round_trips_without_ml_dtypes():
-    """Where ``ml_dtypes`` is missing (the card's machine need not have
-    it), BF16 host arrays are a 2-byte structured dtype: the server still
-    decodes, copies and encodes them bit for bit."""
-    script = (
-        "import sys\n"
-        "sys.modules['ml_dtypes'] = None\n"
-        "import asyncio, numpy as np\n"
-        "from client_tpu_torch import utils\n"
-        "from client_tpu_torch.server.core import ServerCore, CoreRequest\n"
-        "from client_tpu_torch.server.model_repository import ModelRepository\n"
-        "from client_tpu_torch.server.models import register_builtin_models\n"
-        "assert utils.bfloat16.kind == 'V' and utils.bfloat16.itemsize == 2\n"
-        "wire = utils.serialize_bf16_tensor(np.array([1.0, -2.5, 3.14159], np.float32))\n"
-        "assert wire.tobytes() == bytes.fromhex('803f20c04940'), wire.tobytes().hex()\n"
-        "repo = ModelRepository(); register_builtin_models(repo, device='cpu')\n"
-        "core = ServerCore(repo, max_workers=1)\n"
-        "tensor = core.decode_input('INPUT0', 'BF16', [3], raw=wire.tobytes())\n"
-        "out = asyncio.run(core.infer(CoreRequest('identity_bf16', inputs=[tensor])))\n"
-        "assert out.outputs[0].datatype == 'BF16'\n"
-        "assert out.outputs[0].data.tobytes() == wire.tobytes()\n"
-        "core.close(); print('ok')\n"
-    )
-    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
 
 
 # ---------------------------------------------------------------------------
