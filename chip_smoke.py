@@ -42,6 +42,20 @@ result line:
    ``kserve:`` line (requests/s, latency p50/p99, rows per execution,
    load and warmup), and one 16 x 512 execution profiled against its
    FLOP bound (``kserve execution:``). This path has no TPU kernel.
+7. the image classifier and the shared-memory data plane: (a) a tiny fp32
+   ResNet (stage_sizes (2, 1, 1, 1), 16 filters, 64 x 64, every norm
+   perturbed) within 1e-4 of the largest |logit| of its CPU forward, one
+   image byte-identical over inline binary, system shm and TPU shm, top-3
+   classification over shm, ``identity_fp32`` bit-exact through both
+   region kinds, the shm routes' semantics (``image tiny:``); (b)
+   ``image_classifier`` at ResNet-50's widths (224 x 224, 1000 classes,
+   bf16, random weights from seed 0): 128 one-image requests from 8
+   clients over inline binary, system shm and TPU shm, each answer within
+   2 % of its unbatched forward (``image:`` images/s, latency, rows per
+   execution), one 8-image execution profiled against its FLOP bound
+   (``image execution:``); (c) ``identity_fp32`` at 4 MiB a request, 4
+   clients, 64 requests, per route (``data plane:`` MiB/s, p99). This path
+   has no TPU kernel either.
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -610,9 +624,15 @@ def stream_all(port: int, max_tokens: int, vocab_size: int) -> tuple:
     return records, wall
 
 
+def percentile(values, q):
+    """The nearest-rank ``q`` quantile of ``values``."""
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, max(0, math.ceil(q * len(ordered)) - 1))]
+
+
 def latency(records, wall) -> dict:
     ttft = [r["stamps"][0] - r["start"] for r in records]
-    gaps = sorted(b - a for r in records for a, b in zip(r["stamps"], r["stamps"][1:]))
+    gaps = [b - a for r in records for a, b in zip(r["stamps"], r["stamps"][1:])]
     tokens = sum(len(r["tokens"]) for r in records)
     return {
         "tokens": tokens,
@@ -621,8 +641,8 @@ def latency(records, wall) -> dict:
         "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft),
         "ttft_ms_max": 1e3 * max(ttft),
         "itl_ms_mean": 1e3 * sum(gaps) / len(gaps),
-        "itl_ms_p50": 1e3 * gaps[len(gaps) // 2],
-        "itl_ms_p99": 1e3 * gaps[min(len(gaps) - 1, math.ceil(0.99 * len(gaps)) - 1)],
+        "itl_ms_p50": 1e3 * percentile(gaps, 0.5),
+        "itl_ms_p99": 1e3 * percentile(gaps, 0.99),
     }
 
 
@@ -760,17 +780,27 @@ def serve_7b_speculative(params, plain_streams) -> dict:
 
 
 def kserve_infer(conn, model, inputs, binary=True, outputs=()):
-    """One ``POST /v2/models/<model>/infer`` on ``conn``: ``inputs`` are
-    (name, datatype, array); JSON or the binary-tensor extension (BF16 is
-    always binary). Returns {output name: array}; raises on a non-200."""
+    """One ``POST /v2/models/<model>/infer`` on ``conn``. ``inputs`` are
+    (name, datatype, array), sent as JSON or with the binary-tensor
+    extension (BF16 is always binary), or (name, datatype, array, (region,
+    byte_size, offset)), which the server reads from a registered
+    shared-memory region (the array gives the shape). ``outputs`` are
+    names, or (name, parameters) pairs. Returns {output name: array, or
+    its parameters for an output written to a region}; raises
+    :class:`InferError` on a non-200."""
     import numpy as np
 
     from client_tpu_torch import utils
 
     tensors, chunks = [], []
-    for name, datatype, array in inputs:
+    for name, datatype, array, *shm in inputs:
         entry = {"name": name, "datatype": datatype, "shape": list(array.shape)}
-        if binary or datatype == "BF16":
+        if shm:
+            region, size, offset = shm[0]
+            entry["parameters"] = {"shared_memory_region": region,
+                                   "shared_memory_byte_size": size,
+                                   "shared_memory_offset": offset}
+        elif binary or datatype == "BF16":
             raw = (utils.serialize_byte_tensor(array) if datatype == "BYTES"
                    else np.ascontiguousarray(array)).tobytes()
             entry["parameters"] = {"binary_data_size": len(raw)}
@@ -781,7 +811,9 @@ def kserve_infer(conn, model, inputs, binary=True, outputs=()):
             entry["data"] = array.reshape(-1).tolist()
         tensors.append(entry)
     payload = {"inputs": tensors,
-               "outputs": [{"name": n, "parameters": {"binary_data": binary}} for n in outputs]}
+               "outputs": [{"name": o, "parameters": {"binary_data": binary}}
+                           if isinstance(o, str) else {"name": o[0], "parameters": dict(o[1])}
+                           for o in outputs]}
     header = json.dumps(payload).encode()
     headers = {"Content-Type": "application/octet-stream"}
     if chunks:
@@ -791,12 +823,16 @@ def kserve_infer(conn, model, inputs, binary=True, outputs=()):
     response = conn.getresponse()
     body = response.read()
     if response.status != 200:
-        raise AssertionError(f"{model}: HTTP {response.status} {body[:300]!r}")
+        raise InferError(model, response.status, body)
     header_len = response.getheader("Inference-Header-Content-Length")
     split = int(header_len) if header_len else len(body)
     doc, tail, offset, out = json.loads(body[:split]), body[split:], 0, {}
     for o in doc["outputs"]:
-        size = o.get("parameters", {}).get("binary_data_size")
+        params = o.get("parameters", {})
+        if "shared_memory_region" in params:
+            out[o["name"]] = params
+            continue
+        size = params.get("binary_data_size")
         if size is None:
             data = o["data"]
             if o["datatype"] == "BYTES":
@@ -810,6 +846,13 @@ def kserve_infer(conn, model, inputs, binary=True, outputs=()):
                      else np.frombuffer(raw, dtype=utils.triton_to_np_dtype(o["datatype"])))
         out[o["name"]] = array.reshape(o["shape"])
     return out
+
+
+class InferError(AssertionError):
+    def __init__(self, model, status, body):
+        super().__init__(f"{model}: HTTP {status} {body[:300]!r}")
+        self.status = status
+        self.body = body
 
 
 def _stats(port, model):
@@ -954,23 +997,18 @@ def bert_large_bound_ms(config, rows: int, length: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def profile_execution(model, config, rows: int = 16, length: int = 512) -> dict:
-    """Where one ``text_encoder`` execution's time goes at ``rows`` x
-    ``length``: host wall time of ``execute`` (its host read included)
-    and, from ``torch.profiler``, device time by kind."""
-    import numpy as np
+def profile_device(step, kinds, bound_ms, iters: int = 10) -> dict:
+    """Host wall time of ``step()`` (after 3 warm-up calls, ``iters``
+    timed) and, from ``torch.profiler`` over ``iters`` more, its device
+    time by kind against ``bound_ms``: ``kinds`` maps a kind to the name
+    tags that put a kernel in it (the first match wins; the rest is
+    "other"). Device numbers are "not measured" when the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ids = np.random.default_rng(9).integers(1, config.vocab_size, [rows, length],
-                                            dtype=np.int32)
-
-    def step():
-        model.execute({"INPUT_IDS": ids}, {})
-
     for _ in range(3):
         step()
-    iters = 10
     wall = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -980,35 +1018,51 @@ def profile_execution(model, config, rows: int = 16, length: int = 512) -> dict:
                  acc_events=True) as prof:
         for _ in range(iters):
             step()
-    kinds = {"matmul": 0.0, "other": 0.0}
-    by_kernel = {}
+    by_kind = dict.fromkeys([*kinds, "other"], 0.0)
+    by_kernel, launches = {}, 0
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
         name = event.key.lower()
-        matmul = any(tag in name for tag in ("gemm", "gemv", "cutlass", "nvjet", "xmma"))
+        kind = next((k for k, tags in kinds.items() if any(t in name for t in tags)), "other")
         ms = event.self_device_time_total / 1e3 / iters
-        kinds["matmul" if matmul else "other"] += ms
+        by_kind[kind] += ms
+        launches += event.count
         by_kernel[event.key[:80]] = by_kernel.get(event.key[:80], 0.0) + ms
-    device_ms = sum(kinds.values())
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    device_ms = sum(by_kind.values())
     measured = device_ms > 0
-    host_ms = sorted(wall)[iters // 2]
-    bound = bert_large_bound_ms(config, rows, length)
-    result = {
-        "rows": rows,
-        "length": length,
+    host_ms = percentile(wall, 0.5)
+
+    def device(value):
+        return value if measured else "not measured"
+
+    return {
         "host_ms_median": host_ms,
         "host_ms_mean": sum(wall) / iters,
-        "device_ms": device_ms if measured else "not measured",
-        "device_ms_by_kind": kinds if measured else "not measured",
-        "device_idle_share": 1.0 - device_ms / host_ms if measured else "not measured",
-        "tflop": bound["tflop"],
-        "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"],
-        "share_of_bound": bound["bound_ms"] / device_ms if measured else "not measured",
-        "top_kernels_ms": top if measured else "not measured",
+        "device_ms": device(device_ms),
+        "device_ms_by_kind": device(by_kind),
+        "device_kernels_per_execution": device(launches / iters),
+        "device_idle_share": device(1.0 - device_ms / host_ms),
+        "bound_ms": bound_ms,
+        "share_of_bound": device(bound_ms / device_ms if measured else 0.0),
+        "top_kernels_ms": device(dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])),
     }
+
+
+def profile_execution(model, config, rows: int = 16, length: int = 512) -> dict:
+    """Where one ``text_encoder`` execution's time goes at ``rows`` x
+    ``length``: host wall time of ``execute`` (its host read included)
+    and, from ``torch.profiler``, device time by kind."""
+    import numpy as np
+
+    ids = np.random.default_rng(9).integers(1, config.vocab_size, [rows, length],
+                                            dtype=np.int32)
+    bound = bert_large_bound_ms(config, rows, length)
+    result = {"rows": rows, "length": length, "tflop": bound["tflop"],
+              "bound_by": bound["bound_by"],
+              **profile_device(lambda: model.execute({"INPUT_IDS": ids}, {}),
+                               {"matmul": ("gemm", "gemv", "cutlass", "nvjet", "xmma")},
+                               bound["bound_ms"])}
     print("kserve execution: " + json.dumps(result) + f" [{card()}]", flush=True)
     return result
 
@@ -1072,7 +1126,6 @@ def kserve_bert_large() -> dict:
     if requests != KSERVE_REQUESTS or executions < 1:
         raise AssertionError(f"stats: {requests} requests in {executions} executions")
     stats = after["inference_stats"]
-    ordered = sorted(latencies)
     result = {
         "model": f"text_encoder (d {config.d_model}, {config.n_layers} layers, "
                  f"{config.n_heads} heads, d_ff {config.d_ff}, {config.dtype})",
@@ -1082,8 +1135,8 @@ def kserve_bert_large() -> dict:
         "requests_per_s": KSERVE_REQUESTS / wall,
         "sequences_per_s": KSERVE_REQUESTS / wall,
         "tokens_per_s": int(lengths.sum()) / wall,
-        "latency_ms_p50": 1e3 * ordered[len(ordered) // 2],
-        "latency_ms_p99": 1e3 * ordered[min(len(ordered) - 1, math.ceil(0.99 * len(ordered)) - 1)],
+        "latency_ms_p50": 1e3 * percentile(latencies, 0.5),
+        "latency_ms_p99": 1e3 * percentile(latencies, 0.99),
         "executions": executions,
         "rows_per_execution": requests / executions,
         "queue_ms_mean": (stats["queue"]["ns"] - before["inference_stats"]["queue"]["ns"])
@@ -1100,6 +1153,507 @@ def kserve_bert_large() -> dict:
     print("kserve: " + json.dumps(result), flush=True)
     result["profile"] = profile_execution(model, config)
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the image classifier and the shared-memory data plane
+# ---------------------------------------------------------------------------
+
+IMAGE_REQUESTS = 128
+IMAGE_CLIENTS = 8
+DATA_PLANE_BYTES = 4 * 2**20
+DATA_PLANE_REQUESTS = 64
+DATA_PLANE_CLIENTS = 4
+
+
+def shm_call(port, kind, action, name="", body=None):
+    """A shared-memory route of ``kind`` (system, tpu or cuda): ``action``
+    status, register or unregister, of one region (``name``) or all.
+    Returns (HTTP status, parsed body or None)."""
+    path = f"/v2/{kind}sharedmemory" + (f"/region/{name}" if name else "") + f"/{action}"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        data = json.dumps(body).encode() if body is not None else b""
+        conn.request("GET" if action == "status" else "POST", path, body=data,
+                     headers={"Content-Type": "application/json"})
+        response = conn.getresponse()
+        raw = response.read()
+        return response.status, json.loads(raw) if raw else None
+    finally:
+        conn.close()
+
+
+class ClientRegions:
+    """One client's input and output regions of one kind (``system`` or
+    ``tpu``), created with the port's client modules and registered with
+    the server at ``port``; :meth:`close` unregisters and destroys them."""
+
+    def __init__(self, port, kind, tag, in_bytes, out_bytes):
+        import base64
+        import os
+
+        from client_tpu_torch.utils import shared_memory as shm
+        from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+        self.port, self.kind, self.handles = port, kind, {}
+        self.module = shm if kind == "system" else tpushm
+        for role, size in (("in", in_bytes), ("out", out_bytes)):
+            name = f"chip_smoke_{os.getpid()}_{tag}_{role}"
+            if kind == "system":
+                handle = shm.create_shared_memory_region(name, name, size, create_only=True)
+                body = {"key": name, "offset": 0, "byte_size": size}
+            else:
+                handle = tpushm.create_shared_memory_region(name, size)
+                raw = base64.b64encode(tpushm.get_raw_handle(handle)).decode()
+                body = {"raw_handle": {"b64": raw}, "device_id": 0, "byte_size": size}
+            self.handles[role] = handle
+            status, doc = shm_call(port, kind, "register", name, body)
+            if status != 200:
+                raise AssertionError(f"{kind} register {name}: HTTP {status} {doc}")
+
+    def name(self, role):
+        return self.handles[role].name()
+
+    def write(self, array):
+        """Copy ``array`` into the input region (the client's one copy)."""
+        self.module.set_shared_memory_region(self.handles["in"], [array])
+
+    def read(self, dtype, shape, offset=0):
+        """A copy of the output region's bytes as an array."""
+        return self.module.get_contents_as_numpy(self.handles["out"], dtype, shape,
+                                                 offset).copy()
+
+    def close(self):
+        for handle in self.handles.values():
+            shm_call(self.port, self.kind, "unregister", handle.name())
+            self.module.destroy_shared_memory_region(handle)
+
+
+def perturbed_classifier(config, generator, last_scale):
+    """ResNet parameters from ``generator`` (on its device) with every norm
+    perturbed: scale U(0.5, 1.5) (a block's last norm U(``last_scale``)),
+    bias and running mean N(0, 0.1), running variance U(0.5, 1.5). The
+    reference's default makes each block's last scale zero and every
+    residual branch a no-op; this makes every branch count."""
+    from client_tpu_torch.models import resnet
+
+    params = resnet.init_params(generator, config, generator.device)
+    norms = [(params["bn_init"], (0.5, 1.5))]
+    for block in params["blocks"]:
+        norms += [(block["norm0"], (0.5, 1.5)), (block["norm1"], (0.5, 1.5)),
+                  (block["norm2"], last_scale)]
+        if "norm_proj" in block:
+            norms.append((block["norm_proj"], (0.5, 1.5)))
+    for norm, (lo, hi) in norms:
+        shape = norm["scale"].shape
+        uniform = lambda a, b: torch.rand(shape, generator=generator,  # noqa: E731
+                                          device=generator.device) * (b - a) + a
+        norm["scale"] = uniform(lo, hi)
+        norm["bias"] = 0.1 * torch.randn(shape, generator=generator, device=generator.device)
+        norm["mean"] = 0.1 * torch.randn(shape, generator=generator, device=generator.device)
+        norm["var"] = uniform(0.5, 1.5)
+    return params
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def check_shm_routes(port) -> None:
+    """Register, status and unregister for both kinds (idempotent
+    re-registration, a conflicting one refused, a region of the other
+    kind refused), and the ``cuda`` kind's empty status and refused
+    registration."""
+    import base64
+    import os
+
+    from client_tpu_torch.utils import shared_memory as shm
+    from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+    key = f"chip_smoke_{os.getpid()}_routes"
+    sys_handle = shm.create_shared_memory_region(key, key, 256, create_only=True)
+    tpu_handle = tpushm.create_shared_memory_region(key + "_tpu", 256)
+    tpu_body = {"raw_handle": {"b64": base64.b64encode(tpushm.get_raw_handle(tpu_handle))
+                               .decode()}, "device_id": 0, "byte_size": 256}
+    try:
+        expect = [
+            (shm_call(port, "system", "register", "r_sys",
+                      {"key": key, "offset": 0, "byte_size": 256}), 200),
+            (shm_call(port, "system", "register", "r_sys",
+                      {"key": key, "offset": 0, "byte_size": 256}), 200),  # idempotent
+            (shm_call(port, "system", "register", "r_sys",
+                      {"key": key, "offset": 0, "byte_size": 128}), 400),  # conflict
+            (shm_call(port, "system", "register", "r_big",
+                      {"key": key, "offset": 0, "byte_size": 512}), 400),  # past its end
+            (shm_call(port, "tpu", "register", "r_tpu", tpu_body), 200),
+            (shm_call(port, "cuda", "register", "r_cuda", tpu_body), 400),
+            (shm_call(port, "tpu", "unregister", "r_sys"), 400),  # another kind
+        ]
+        for (status, doc), want in expect:
+            if status != want:
+                raise AssertionError(f"shm route answered {status} {doc}, expected {want}")
+        refusal = shm_call(port, "cuda", "register", "r_cuda", tpu_body)[1]["error"]
+        if "tpu" not in refusal.lower() or "system" not in refusal.lower():
+            raise AssertionError(f"the cuda refusal does not point elsewhere: {refusal}")
+        statuses = {kind: shm_call(port, kind, "status")[1]
+                    for kind in ("system", "tpu", "cuda")}
+        if ([r["name"] for r in statuses["system"]] != ["r_sys"]
+                or statuses["system"][0]["byte_size"] != 256
+                or [r["name"] for r in statuses["tpu"]] != ["r_tpu"]
+                or statuses["tpu"][0]["key"] != tpu_handle.key()
+                or statuses["cuda"] != []):
+            raise AssertionError(f"shm status: {statuses}")
+        if shm_call(port, "tpu", "status", "r_tpu")[1][0]["name"] != "r_tpu":
+            raise AssertionError("region status of r_tpu")
+        for kind, name in (("tpu", "r_tpu"), ("system", "never"), ("system", "")):
+            if shm_call(port, kind, "unregister", name)[0] != 200:  # "": all of the kind
+                raise AssertionError(f"unregister {kind} {name!r}")
+        if shm_call(port, "system", "status")[1] or shm_call(port, "tpu", "status")[1]:
+            raise AssertionError("regions left after unregister")
+    finally:
+        shm.destroy_shared_memory_region(sys_handle)
+        tpushm.destroy_shared_memory_region(tpu_handle)
+
+
+def classifier_tiny() -> None:
+    """Phase 7a: a tiny fp32 classifier (stage_sizes (2, 1, 1, 1), 16
+    filters, 64 x 64 images, every norm perturbed) and ``identity_fp32`` on
+    the card. The logits within 1e-4 of the largest |logit| of the CPU
+    forward on the same weights (TF32 is off: ``main`` switches it off for
+    matmuls and cuDNN); one image over three routes (binary, system shm
+    and TPU shm, input and output in regions) byte-identical; the top 3
+    classes over shm equal to the logits' top 3; ``identity_fp32`` bit
+    for bit through both kinds of region; the routes' register, status
+    and unregister semantics."""
+    import numpy as np
+
+    from client_tpu_torch.models import resnet
+    from client_tpu_torch.models.serving import ImageClassifierModel
+    from client_tpu_torch.server import models
+    from client_tpu_torch.utils import deserialize_bytes_tensor
+    from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+    config = resnet.ResNetConfig((2, 1, 1, 1), 1000, 16, torch.float32)
+    size = 64
+    cpu_params = perturbed_classifier(config, torch.Generator().manual_seed(5), (0.5, 1.5))
+    image = np.random.default_rng(3).normal(size=[1, size, size, 3]).astype(np.float32)
+    with torch.inference_mode():
+        want = resnet.forward(cpu_params, torch.from_numpy(image), config).numpy()[0]
+    served = [ImageClassifierModel(image_size=size, config=config,
+                                   params=_to_device(cpu_params, DEVICE), device=DEVICE),
+              models.IdentityModel("identity_fp32", "FP32", device=DEVICE)]
+    logits_bytes = 4 * config.num_classes
+    with http_server(*served) as port:
+        check_shm_routes(port)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        answers = {"binary": kserve_infer(conn, "image_classifier", [("INPUT", "FP32", image)],
+                                          outputs=("OUTPUT",))["OUTPUT"][0]}
+        regions = {kind: ClientRegions(port, kind, f"tiny_{kind}", 1 << 20, 1 << 20)
+                   for kind in ("system", "tpu")}
+        try:
+            for kind, region in regions.items():
+                if kind == "tpu":  # staged from a tensor on the card
+                    tpushm.set_shared_memory_region_from_torch(
+                        region.handles["in"], [torch.from_numpy(image).to(DEVICE)])
+                else:
+                    region.write(image)
+                shm_image = ("INPUT", "FP32", image, (region.name("in"), image.nbytes, 0))
+                out = kserve_infer(conn, "image_classifier", [shm_image], outputs=[
+                    ("OUTPUT", {"shared_memory_region": region.name("out"),
+                                "shared_memory_byte_size": logits_bytes})])
+                if out["OUTPUT"]["shared_memory_byte_size"] != logits_bytes:
+                    raise AssertionError(f"{kind}: output parameters {out['OUTPUT']}")
+                answers[kind] = region.read(np.float32, [config.num_classes])
+                # class_count=3 into the region: BYTES "value:index" strings
+                out = kserve_infer(conn, "image_classifier", [shm_image], outputs=[
+                    ("OUTPUT", {"classification": 3,
+                                "shared_memory_region": region.name("out"),
+                                "shared_memory_byte_size": 1024,
+                                "shared_memory_offset": 4096})])
+                written = out["OUTPUT"]["shared_memory_byte_size"]
+                raw = bytes(region.handles["out"].buf(4096, written))
+                top = [s.decode().split(":") for s in deserialize_bytes_tensor(raw)]
+                expect = np.argsort(answers[kind])[::-1][:3]
+                if [int(i) for _, i in top] != list(expect) or any(
+                        f"{answers[kind][int(i)]:f}" != v for v, i in top):
+                    raise AssertionError(f"{kind} class_count=3 {top} vs top 3 {expect}")
+                # identity_fp32 through the same regions, bit for bit
+                values = np.random.default_rng(4).normal(size=[5000]).astype(np.float32)
+                values[:3] = [np.inf, -0.0, np.nan]
+                region.write(values)
+                kserve_infer(conn, "identity_fp32",
+                             [("INPUT0", "FP32", values, (region.name("in"), values.nbytes, 0))],
+                             outputs=[("OUTPUT0", {"shared_memory_region": region.name("out"),
+                                                   "shared_memory_byte_size": values.nbytes})])
+                if region.read(np.float32, values.shape).tobytes() != values.tobytes():
+                    raise AssertionError(f"identity_fp32 through {kind} shm is not bit-exact")
+            # an output region smaller than the output is refused
+            try:
+                kserve_infer(conn, "identity_fp32", [("INPUT0", "FP32", values)],
+                             outputs=[("OUTPUT0", {"shared_memory_region":
+                                                   regions["system"].name("out"),
+                                                   "shared_memory_byte_size": 16})])
+                raise AssertionError("a too-small output region was accepted")
+            except InferError as e:
+                if e.status != 400 or b"too small" not in e.body:
+                    raise
+        finally:
+            for region in regions.values():
+                region.close()
+            conn.close()
+    if not (answers["binary"].tobytes() == answers["system"].tobytes()
+            == answers["tpu"].tobytes()):
+        raise AssertionError("binary, system shm and TPU shm answers differ")
+    err = float(np.abs(answers["binary"] - want).max())
+    limit = 1e-4 * float(np.abs(want).max())
+    if not (np.isfinite(answers["binary"]).all() and err <= limit):
+        raise AssertionError(f"tiny classifier on the card vs the CPU: {err} > {limit}")
+    print(f"image tiny: fp32 (2,1,1,1)/16 classifier on the card within {err:.3g} of the CPU "
+          f"forward (limit {limit:.3g}); binary, system shm and TPU shm answers byte-identical; "
+          f"class_count=3 over shm = the logits' top 3; identity_fp32 bit-exact through both "
+          f"region kinds; shm register/status/unregister and the cuda refusal as the JAX "
+          f"server's", flush=True)
+
+
+def resnet_flops(config, batch: int, size: int) -> dict:
+    """Operations of one forward of ``batch`` images: each convolution's
+    2·B·H_out·W_out·C_out·C_in·k² and the head's product; the bytes it must
+    move: the weights (in ``config.dtype``), the images (fp32) and the
+    logits."""
+    flops, weights = 0, 0
+    h = (size + 6 - 7) // 2 + 1  # the stem's explicit (3, 3) padding
+    flops += 2 * batch * h * h * config.num_filters * 3 * 49
+    weights += config.num_filters * 3 * 49
+    h = -(-h // 2)  # the max pool
+    for in_c, filters, stride in config.blocks():
+        h_out = -(-h // stride)
+        convs = [(in_c, filters, 1, h), (filters, filters, 3, h_out),
+                 (filters, 4 * filters, 1, h_out)]
+        if in_c != 4 * filters or stride != 1:
+            convs.append((in_c, 4 * filters, 1, h_out))
+        for cin, cout, k, hw in convs:
+            flops += 2 * batch * hw * hw * cout * cin * k * k
+            weights += cout * cin * k * k
+        h = h_out
+    width = 4 * config.blocks()[-1][1]
+    head = 2 * batch * width * config.num_classes
+    dtype_bytes = torch.tensor([], dtype=config.dtype).element_size()
+    moved = (weights * dtype_bytes + 4 * (width + 1) * config.num_classes
+             + 4 * batch * size * size * 3 + 4 * batch * config.num_classes)
+    ops_ms = (flops + head) / bench.BF16_FLOPS * 1e3
+    bytes_ms = moved / bench.HBM_BYTES_PER_S * 1e3
+    return {"gflop": (flops + head) / 1e9, "conv_gflop": flops / 1e9,
+            "bytes_moved": moved, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def profile_classifier(model, config, images) -> dict:
+    """Where one ``image_classifier`` execution of ``len(images)`` images
+    goes: host wall time of ``execute`` (its host-to-device copy and
+    device-to-host read included) and, from ``torch.profiler``, device time
+    by kind against the FLOP bound of the convolution shapes."""
+    bound = resnet_flops(config, len(images), images.shape[1])
+    kinds = {"conv": ("conv", "fprop", "implicit", "xmma", "cutlass", "gemm", "nvjet",
+                      "wgrad", "dgrad"),
+             "norm and elementwise": ("elementwise", "copy", "vectorized", "unrolled")}
+    result = {"images": len(images), "gflop": bound["gflop"], "bound_by": bound["bound_by"],
+              **profile_device(lambda: model.execute({"INPUT": images}, {}), kinds,
+                               bound["bound_ms"])}
+    print("image execution: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def serve_routes(port, model, routes, clients, requests, make_inputs, outputs, in_bytes,
+                 out_bytes, check):
+    """``requests`` requests from ``clients`` closed-loop client threads
+    over each of ``routes`` (``none``: inline binary both ways; ``system``,
+    ``tpu``: the input written into the client's own region and the
+    output read back from its region). ``make_inputs(i)`` is request i's
+    (name, datatype, array); ``check(i, route, answer)`` holds its
+    answer. Returns {route: the run's numbers}."""
+    results = {}
+    for route in routes:
+        regions = ([ClientRegions(port, route, f"{model}_{route}_{w}", in_bytes, out_bytes)
+                    for w in range(clients)] if route != "none" else [])
+        try:
+            def work(conn, i):
+                name, datatype, array = make_inputs(i)
+                if route == "none":
+                    out = kserve_infer(conn, model, [(name, datatype, array)],
+                                       outputs=[o for o, _ in outputs])
+                    return [out[o] for o, _ in outputs]
+                region = regions[i % clients]
+                region.write(array)
+                kserve_infer(conn, model,
+                             [(name, datatype, array, (region.name("in"), array.nbytes, 0))],
+                             outputs=[(o, {"shared_memory_region": region.name("out"),
+                                           "shared_memory_byte_size": out_bytes})
+                                      for o, _ in outputs])
+                return [region.read(dtype, shape) for _, (dtype, shape) in outputs]
+
+            before = _stats(port, model)
+            answers, latencies, wall = _concurrently(
+                port, [lambda c, i=i: work(c, i) for i in range(requests)], clients)
+            after = _stats(port, model)
+        finally:
+            for region in regions:
+                region.close()
+        for i, answer in enumerate(answers):
+            check(i, route, answer)
+        executions = after["execution_count"] - before["execution_count"]
+        rows = after["inference_count"] - before["inference_count"]
+        if rows != requests or executions < 1:
+            raise AssertionError(f"{model} {route} stats: {rows} requests in {executions} "
+                                 f"executions, not {requests}")
+        results[route] = {
+            "requests": requests, "clients": clients, "wall_s": wall,
+            "requests_per_s": requests / wall,
+            "latency_ms_p50": 1e3 * percentile(latencies, 0.5),
+            "latency_ms_p99": 1e3 * percentile(latencies, 0.99),
+            "executions": executions,
+            "rows_per_execution": rows / executions,
+            "queue_ms_mean": (after["inference_stats"]["queue"]["ns"]
+                              - before["inference_stats"]["queue"]["ns"]) / 1e6 / requests,
+            "compute_infer_ms_mean": (after["inference_stats"]["compute_infer"]["ns"]
+                                      - before["inference_stats"]["compute_infer"]["ns"])
+            / 1e6 / requests,
+        }
+    return results
+
+
+def classifier_resnet50() -> dict:
+    """Phase 7b: ``image_classifier`` at ResNet-50's widths (224 x 224,
+    1000 classes, stage_sizes (3, 4, 6, 3), 64 filters, bf16; random
+    weights from seed 0 with every norm perturbed, each block's last norm
+    scale in U(0.1, 0.3)). 128 one-image requests (seed-0 noise per pixel
+    and on a coarse grid) from 8 closed-loop
+    client threads over loopback HTTP, three times: inline binary, system
+    shm and TPU shm (input and output in the client's regions). Every
+    answer within 2 % of the largest |logit| of that image's unbatched
+    forward on the card, no NaN, while any two images' forwards differ by
+    more than that limit; one 8-image execution profiled."""
+    import numpy as np
+
+    from client_tpu_torch.models import resnet
+    from client_tpu_torch.models.serving import ImageClassifierModel
+
+    config, size = resnet.resnet50(), 224
+    t0 = time.perf_counter()
+    params = perturbed_classifier(config, torch.Generator(device=DEVICE).manual_seed(0),
+                                  (0.1, 0.3))
+    model = ImageClassifierModel(image_size=size, config=config, params=params, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.warmup()
+    for rows in (2, 4, 8):  # every batch bucket the run can meet, once
+        model.execute({"INPUT": np.zeros([rows, size, size, 3], dtype=np.float32)}, {})
+    warmup_s = time.perf_counter() - t0
+    count = _parameter_count(params)
+    print(f"image: image_classifier ResNet-50 ({count / 1e6:.1f} M parameters, bf16) loaded in "
+          f"{load_s:.2f} s, warmed up in {warmup_s:.2f} s", flush=True)
+    # per-pixel noise plus noise on a coarse 14 x 14 grid: global pooling
+    # averages per-pixel noise away: white noise alone left the two closest
+    # images' logits only 1.25 times the check's limit apart (NVIDIA H100
+    # 80GB HBM3, 700 W), too near for the check to see a swapped answer
+    rng = np.random.default_rng(0)
+    coarse = rng.normal(size=[IMAGE_REQUESTS, 14, 14, 3])
+    images = (np.repeat(np.repeat(coarse, size // 14, axis=1), size // 14, axis=2)
+              + rng.normal(size=[IMAGE_REQUESTS, size, size, 3])).astype(np.float32)
+    with torch.inference_mode():
+        want = [resnet.forward(params, torch.from_numpy(image[None]).to(DEVICE),
+                               config)[0].cpu().numpy() for image in images]
+    # the check's fault side: another image's logits must miss an image's
+    # limit, or a row swapped or shifted inside a batch would pass
+    logits = np.stack(want)
+    gaps = (np.abs(logits[:, None] - logits[None]).max(axis=2)
+            / np.abs(logits).max(axis=1)[:, None])
+    np.fill_diagonal(gaps, np.inf)
+    distinct = float(gaps.min())
+    if not distinct > 2e-2:
+        raise AssertionError(f"two images' logits differ by only {distinct:.4f} of the larger "
+                             f"|logit|: the 2 % check would not see a swapped answer")
+    worst = [0.0]
+
+    def check(i, route, answer):
+        got = np.asarray(answer[0]).reshape(-1)
+        err = float(np.abs(got - want[i]).max())
+        tol = 2e-2 * float(np.abs(want[i]).max())
+        if not (np.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"ResNet-50 {route} image {i}: {err} > {tol}")
+        worst[0] = max(worst[0], err / tol)
+
+    with http_server(model) as port:
+        runs = serve_routes(
+            port, "image_classifier", ("none", "system", "tpu"), IMAGE_CLIENTS,
+            IMAGE_REQUESTS, lambda i: ("INPUT", "FP32", images[i:i + 1]),
+            [("OUTPUT", (np.float32, [1, config.num_classes]))],
+            images[0:1].nbytes, 4 * config.num_classes, check)
+    for route, run in runs.items():
+        run.update(route=route, images_per_s=run.pop("requests_per_s"))
+        print("image: " + json.dumps(run) + f" [{card()}]", flush=True)
+    result = {"runs": runs, "load_s": load_s, "warmup_s": warmup_s, "parameters": count,
+              "max_err_share_of_limit": worst[0], "least_gap_share_of_limit": distinct / 2e-2}
+    print(f"image: every answer of the three runs within {worst[0]:.3f} of its 2 % limit of "
+          f"the unbatched forward, none NaN; the closest two images' logits differ by "
+          f"{distinct / 2e-2:.3f} times that limit", flush=True)
+    result["profile"] = profile_classifier(model, config, images[:8])
+    return result
+
+
+def _parameter_count(params) -> int:
+    """Learned parameters (the norms' scale and bias, not their running
+    statistics)."""
+    count = 0
+
+    def walk(tree):
+        nonlocal count
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                if key not in ("mean", "var"):
+                    walk(value)
+        elif isinstance(tree, list):
+            for value in tree:
+                walk(value)
+        else:
+            count += tree.numel()
+
+    walk(params)
+    return count
+
+
+def data_plane() -> dict:
+    """Phase 7c: ``identity_fp32`` at 4 MiB a request, 4 closed-loop
+    clients, 64 requests, once inline (binary both ways), once through
+    system shm and once through TPU shm; every answer bit-exact."""
+    import numpy as np
+
+    from client_tpu_torch.server import models
+
+    count = DATA_PLANE_BYTES // 4
+    base = np.random.default_rng(8).normal(size=[count]).astype(np.float32)
+
+    def make(i):
+        return "INPUT0", "FP32", base + np.float32(i)
+
+    def check(i, route, answer):
+        if answer[0].tobytes() != (base + np.float32(i)).tobytes():
+            raise AssertionError(f"identity_fp32 {route} request {i} is not bit-exact")
+
+    with http_server(models.IdentityModel("identity_fp32", "FP32", device=DEVICE)) as port:
+        runs = serve_routes(port, "identity_fp32", ("none", "system", "tpu"),
+                            DATA_PLANE_CLIENTS, DATA_PLANE_REQUESTS, make,
+                            [("OUTPUT0", (np.float32, [count]))], DATA_PLANE_BYTES,
+                            DATA_PLANE_BYTES, check)
+    for route, run in runs.items():
+        run.update(route=route, payload_mib_per_s=run["requests_per_s"] * DATA_PLANE_BYTES
+                   / 2**20)
+        print("data plane: " + json.dumps(run) + f" [{card()}]", flush=True)
+    return runs
 
 
 def main() -> int:
@@ -1121,6 +1675,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kserve_tiny()
     kserve_bert_large()
+    classifier_tiny()
+    classifier_resnet50()
+    data_plane()
     line = {
         "kernels": [
             {

@@ -1,26 +1,91 @@
 """Adapters exposing the model zoo as KServe v2 models on the port's server.
 
-``text_encoder`` (:class:`TextEncoderModel`, BERT-family embeddings) is the
-serving half of BASELINE.json's "perf_analyzer concurrency sweep: BERT-large"
-configuration; ``llm_engine`` (``client_tpu_torch/llm/serving.py``) serves
-streaming generation.
+``image_classifier`` (:class:`ImageClassifierModel`, ResNet) is the
+serving half of BASELINE.json's "image_client.py ResNet-50" configuration;
+``text_encoder`` (:class:`TextEncoderModel`, BERT-family embeddings) that
+of its "perf_analyzer concurrency sweep: BERT-large";
+``llm_engine`` (``client_tpu_torch/llm/serving.py``) serves streaming
+generation.
 """
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from client_tpu_torch.models import bert
+from client_tpu_torch.models import bert, resnet
 from client_tpu_torch.server.model_repository import Model
-from client_tpu_torch.server.models import pad_batch_bucket
+from client_tpu_torch.server.models import pad_batch_bucket, run_bucketed
 from client_tpu_torch.utils import (
     InferenceServerException,
     numpy_to_tensor,
     resolve_device,
     tensors_to_numpy,
 )
+
+
+class ImageClassifierModel(Model):
+    """ResNet image classifier: INPUT [H, W, 3] FP32 -> OUTPUT [classes]
+    FP32 logits, on ``device`` (``cuda`` unless the caller passes
+    ``"cpu"``), with the classification extension's labels.
+
+    ``config`` defaults to ResNet-50. ``params`` (the dict
+    :func:`resnet.init_params` or :func:`resnet.params_from_jax` returns)
+    must already live on ``device``; without them warmup draws random
+    weights from seed 0. Executions pad the batch to a power of two
+    (``run_bucketed``), so the card sees at most four batch shapes.
+    """
+
+    max_batch_size = 8
+
+    def __init__(
+        self,
+        name: str = "image_classifier",
+        image_size: int = 224,
+        config: Optional[resnet.ResNetConfig] = None,
+        params: Optional[Dict[str, Any]] = None,
+        class_labels: Optional[List[str]] = None,
+        device=None,
+    ):
+        self.name = name
+        self.device = resolve_device(device)
+        self._config = config or resnet.resnet50()
+        self._image_size = image_size
+        self._params = params
+        self._labels = class_labels
+        self.inputs = [
+            {"name": "INPUT", "datatype": "FP32", "shape": [image_size, image_size, 3]}
+        ]
+        self.outputs = [
+            {"name": "OUTPUT", "datatype": "FP32", "shape": [self._config.num_classes]}
+        ]
+
+    def labels(self, output_name: str):
+        return self._labels
+
+    def warmup(self) -> None:
+        if self._params is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            self._params = resnet.init_params(generator, self._config, self.device)
+        size = self._image_size
+        self.execute({"INPUT": np.zeros([1, size, size, 3], dtype=np.float32)}, {})
+
+    def execute(self, inputs, parameters):
+        if "INPUT" not in inputs:
+            raise InferenceServerException(f"model '{self.name}' expects input INPUT")
+        images = inputs["INPUT"]
+        if images.ndim == 3:
+            images = images[None]
+        if images.ndim != 4 or images.shape[-1] != 3:
+            raise InferenceServerException(
+                f"INPUT must be [batch, H, W, 3] images, got shape {list(images.shape)}"
+            )
+        (logits,) = run_bucketed(
+            lambda x: (resnet.forward(self._params, x, self._config),), images,
+            device=self.device,
+        )
+        return {"OUTPUT": logits}
 
 
 class TextEncoderModel(Model):
@@ -115,11 +180,17 @@ class TextEncoderModel(Model):
 
 
 def register_zoo_models(repository, small: bool = True, device=None) -> None:
-    """Install the model-zoo adapters on ``device``: ``llm_engine`` (the
-    tiny Llama) and ``text_encoder`` (the tiny BERT when ``small``, else
-    BERT-large's widths), random weights from seed 0."""
+    """Install the model-zoo adapters on ``device``: ``image_classifier``
+    (64 x 64 images through the thin ResNet-18 when ``small``, else 224 x
+    224 through ResNet-50), ``llm_engine`` (the tiny Llama) and
+    ``text_encoder`` (the tiny BERT when ``small``, else BERT-large's
+    widths), random weights from seed 0."""
     from client_tpu_torch.llm.serving import LlmEngineModel
 
+    repository.add_model(ImageClassifierModel(
+        image_size=64 if small else 224,
+        config=resnet.resnet18_thin() if small else resnet.resnet50(), device=device,
+    ))
     repository.add_model(LlmEngineModel(device=device))
     repository.add_model(TextEncoderModel(
         config=bert.BertConfig.tiny() if small else bert.BertConfig(), device=device

@@ -3,8 +3,9 @@
 Starts the HTTP front-end over a model repository holding the built-in
 models (``simple``, ``identity_fp32``, ``identity_bf16``,
 ``identity_bytes``; ``--no-builtin-models`` leaves them out);
-``--zoo-models`` adds ``llm_engine`` (the tiny Llama) and ``text_encoder``
-(the tiny BERT), random weights from seed 0. Every model runs on
+``--zoo-models`` adds ``image_classifier`` (64 x 64 images, the thin
+ResNet-18), ``llm_engine`` (the tiny Llama) and ``text_encoder`` (the tiny
+BERT), random weights from seed 0. Every model runs on
 ``--device`` (default ``cuda``).
 """
 
@@ -28,7 +29,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--zoo-models",
         action="store_true",
-        help="also register the model-zoo adapters (llm_engine, text_encoder)",
+        help="also register the model-zoo adapters (image_classifier, llm_engine, "
+        "text_encoder)",
     )
     parser.add_argument(
         "--device",

@@ -16,9 +16,15 @@ way Triton's statistics extension reports them (success, fail, queue,
 compute_input, compute_infer, compute_output: cumulative count and ns;
 inference_count counts rows, execution_count executions).
 
+Inputs and outputs may live in shared-memory regions registered with
+:attr:`ServerCore.shm` (system and TPU kinds): an input is a read-only
+zero-copy view of its region, and an output asked for in a region is
+written there after the execution's one device-to-host read — in a
+dynamic batch, each request's own rows into its own region.
+
 Not ported yet: metrics, profiling, exemplars, traces, drain and
-lifecycle, shared-memory inputs and outputs, the direct (pump-thread)
-batch path, rate limiting and the admission gate of the unbatched path.
+lifecycle, the shared-memory slot rings, the direct (pump-thread) batch
+path, rate limiting and the admission gate of the unbatched path.
 """
 
 import asyncio
@@ -45,6 +51,7 @@ from client_tpu_torch.server.model_repository import (
     ModelRepository,
 )
 from client_tpu_torch.server.models import pad_batch_bucket
+from client_tpu_torch.server.shm import SharedMemoryManager
 from client_tpu_torch.utils import (
     InferenceServerException,
     deserialize_bf16_tensor,
@@ -52,6 +59,7 @@ from client_tpu_torch.utils import (
     np_to_triton_dtype,
     num_elements,
     serialize_bf16_tensor,
+    serialize_byte_tensor,
     tensors_to_numpy,
     triton_to_np_dtype,
 )
@@ -65,6 +73,8 @@ SERVER_EXTENSIONS = [
     "binary_tensor_data",
     "parameters",
     "statistics",
+    "system_shared_memory",
+    "tpu_shared_memory",
 ]
 
 
@@ -80,6 +90,10 @@ class CoreTensor:
 class CoreRequestedOutput:
     name: str
     classification: int = 0  # top-k as classification strings (0 = the raw tensor)
+    # the registered region the output is written into (None = inline)
+    shm_region: Optional[str] = None
+    shm_byte_size: int = 0
+    shm_offset: int = 0
 
 
 @dataclass(slots=True)
@@ -104,6 +118,9 @@ class CoreResponse:
     id: str
     outputs: List[CoreTensor]
     parameters: Dict[str, Any] = field(default_factory=dict)
+    # output name -> (region, bytes written, offset) for outputs written
+    # into shared memory; the front-end sends no data for them
+    shm_outputs: Dict[str, Any] = field(default_factory=dict)
 
 
 class _Stats:
@@ -486,6 +503,7 @@ class ServerCore:
         self.stats: Dict[str, _Stats] = {}
         self._stats_lock = threading.Lock()
         self._batchers: Dict[str, _ModelBatcher] = {}
+        self.shm = SharedMemoryManager()
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="client-tpu-torch-exec"
         )
@@ -500,13 +518,14 @@ class ServerCore:
 
     def close(self) -> None:
         """Stop model-owned machinery (the LLM engine's step loop) and the
-        executor."""
+        executor, and unmap every registered shared-memory region."""
         self.live = False
         for entry in self.repository.index():
             shutdown = getattr(self.repository.peek(entry["name"]), "shutdown", None)
             if shutdown is not None:
                 shutdown()
         self._executor.shutdown(wait=False, cancel_futures=True)
+        self.shm.unregister_all()
 
     def _stats_for(self, model_name: str) -> _Stats:
         with self._stats_lock:
@@ -585,6 +604,7 @@ class ServerCore:
             CoreRequestedOutput(name=o["name"]) for o in model.outputs
         ]
         out_tensors: List[CoreTensor] = []
+        shm_outputs: Dict[str, Any] = {}
         for req_out in requested:
             if req_out.name not in raw:
                 raise InferenceServerException(
@@ -601,8 +621,20 @@ class ServerCore:
                 raise InferenceServerException(
                     f"output '{req_out.name}' has unsupported dtype {arr.dtype}"
                 )
+            if req_out.shm_region is not None:
+                payload = (serialize_byte_tensor(arr) if datatype == "BYTES"
+                           else np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+                if payload.nbytes > req_out.shm_byte_size:
+                    raise InferenceServerException(
+                        f"shared memory region for output '{req_out.name}' is too "
+                        f"small: need {payload.nbytes} bytes, have {req_out.shm_byte_size}"
+                    )
+                self.shm.write(req_out.shm_region, req_out.shm_offset, payload)
+                shm_outputs[req_out.name] = (req_out.shm_region, payload.nbytes,
+                                             req_out.shm_offset)
             out_tensors.append(CoreTensor(req_out.name, datatype, list(arr.shape), arr))
-        return CoreResponse(model.name, model.version, request.id, out_tensors)
+        return CoreResponse(model.name, model.version, request.id, out_tensors,
+                            shm_outputs=shm_outputs)
 
     @staticmethod
     def _classify(model: Model, req_out: CoreRequestedOutput,
@@ -708,12 +740,21 @@ class ServerCore:
 
     # -- wire-side input decoding -------------------------------------------
 
-    @staticmethod
-    def decode_input(name: str, datatype: str, shape: List[int],
+    def decode_input(self, name: str, datatype: str, shape: List[int],
                      raw: Optional[bytes] = None,
-                     json_data: Optional[list] = None) -> CoreTensor:
-        """Materialize an input tensor from inline binary or JSON data."""
+                     json_data: Optional[list] = None,
+                     shm_region: Optional[str] = None,
+                     shm_byte_size: int = 0,
+                     shm_offset: int = 0) -> CoreTensor:
+        """Materialize an input tensor from inline binary, JSON or a
+        registered shared-memory region."""
         count = num_elements(shape)
+        if shm_region is not None:
+            # a zero-copy view of the region, read-only so that a model
+            # that writes its input raises instead of changing the
+            # client's bytes; the region must stay registered while
+            # requests that read it are in flight
+            raw = self.shm.read(shm_region, shm_offset, shm_byte_size).toreadonly()
         if raw is not None:
             if datatype == "BYTES":
                 arr = deserialize_bytes_tensor(raw)
@@ -750,7 +791,7 @@ class ServerCore:
                 arr = np.array(json_data, dtype=np_dtype)
         else:
             raise InferenceServerException(
-                f"input '{name}' has no data (inline binary or JSON)"
+                f"input '{name}' has no data (inline binary, JSON or shared memory)"
             )
         if arr.size != count:
             raise InferenceServerException(

@@ -3,7 +3,10 @@
 Serves the KServe v2 REST protocol — health, server and model metadata,
 model config, statistics, and inference with the binary-tensor extension
 (a JSON header followed by raw tensor buffers, its size in the
-``Inference-Header-Content-Length`` header) — and the OpenAI-compatible
+``Inference-Header-Content-Length`` header) and the system and TPU
+shared-memory extensions (``/v2/{system,tpu}sharedmemory``; the
+``cudasharedmemory`` routes answer as the JAX server's do: an empty
+status and a refused registration) — and the OpenAI-compatible
 routes (``server/openai_frontend.py``), with Server-Sent Events over a
 chunked response when a request asks to stream. Connections are kept
 alive between requests unless the client sends ``Connection: close``.
@@ -13,6 +16,8 @@ are inflated, and responses are compressed when the client's
 """
 
 import asyncio
+import base64
+import binascii
 import gzip
 import json
 import logging
@@ -192,6 +197,7 @@ class HttpServer:
             ("GET", re.compile(model + "/config"), self.handle_model_config),
             ("POST", re.compile(model + "/infer"), self.handle_infer),
             ("GET", re.compile(model), self.handle_model_metadata),
+            *self._shm_routes(),
             ("GET", re.compile(r"/v1/models"), openai.handle_models),
             ("POST", re.compile(r"/v1/chat/completions"), openai.handle_chat),
             ("POST", re.compile(r"/v1/completions"), openai.handle_chat),
@@ -321,6 +327,64 @@ class HttpServer:
             request.params.get("model", ""), request.params.get("version", "")
         ))
 
+    # -- shared memory -------------------------------------------------------
+
+    def _shm_routes(self):
+        routes = []
+        for kind in ("system", "cuda", "tpu"):
+            base = f"/v2/{kind}sharedmemory"
+            region = base + r"/region/(?P<name>[^/]+)"
+            routes += [
+                ("GET", re.compile(base + "/status"), self._shm_status(kind)),
+                ("GET", re.compile(region + "/status"), self._shm_status(kind)),
+                ("POST", re.compile(region + "/register"), self._shm_register(kind)),
+                ("POST", re.compile(base + "/unregister"), self._shm_unregister(kind)),
+                ("POST", re.compile(region + "/unregister"), self._shm_unregister(kind)),
+            ]
+        return routes
+
+    def _shm_status(self, kind: str):
+        async def handler(request: Request) -> Response:
+            regions = {} if kind == "cuda" else self.core.shm.status(
+                kind, request.params.get("name", ""))
+            return json_response(list(regions.values()))  # a list of region dicts
+        return handler
+
+    def _shm_register(self, kind: str):
+        async def handler(request: Request) -> Response:
+            if kind == "cuda":
+                raise InferenceServerException(
+                    "this server has no CUDA shared memory; use TPU or system "
+                    "shared memory"
+                )
+            name = request.params["name"]
+            try:
+                payload = request.json()
+                byte_size = int(payload["byte_size"])
+                if kind == "system":
+                    self.core.shm.register_system(
+                        name, payload["key"], int(payload.get("offset", 0)), byte_size)
+                else:
+                    raw_handle = base64.b64decode(payload["raw_handle"]["b64"], validate=True)
+                    self.core.shm.register_tpu(
+                        name, raw_handle, int(payload.get("device_id", 0)), byte_size)
+            except (ValueError, KeyError, TypeError, AttributeError, binascii.Error) as e:
+                raise InferenceServerException(
+                    f"malformed {kind} shared-memory registration for '{name}': {e!r}"
+                ) from None
+            return Response(200)
+        return handler
+
+    def _shm_unregister(self, kind: str):
+        async def handler(request: Request) -> Response:
+            name = request.params.get("name", "")
+            if name:
+                self.core.shm.unregister(name, kind=kind)
+            else:
+                self.core.shm.unregister_all(kind=kind)
+            return Response(200)
+        return handler
+
     # -- inference -----------------------------------------------------------
 
     async def handle_infer(self, request: Request) -> Response:
@@ -379,6 +443,7 @@ class HttpServer:
             shape = [int(s) for s in tensor.get("shape", [])]
             raw = None
             json_data = None
+            shm_region = params.get("shared_memory_region")
             if "binary_data_size" in params:
                 size = int(params["binary_data_size"])
                 if size < 0 or offset + size > len(binary):
@@ -387,15 +452,22 @@ class HttpServer:
                     )
                 raw = binary[offset:offset + size]
                 offset += size
-            else:
+            elif shm_region is None:
                 json_data = tensor.get("data")
-            request.inputs.append(
-                self.core.decode_input(name, datatype, shape, raw=raw, json_data=json_data)
-            )
+            request.inputs.append(self.core.decode_input(
+                name, datatype, shape, raw=raw, json_data=json_data,
+                shm_region=shm_region,
+                shm_byte_size=int(params.get("shared_memory_byte_size", 0)),
+                shm_offset=int(params.get("shared_memory_offset", 0)),
+            ))
         for out in payload.get("outputs", []):
+            params = out.get("parameters", {})
             request.outputs.append(CoreRequestedOutput(
                 name=out["name"],
-                classification=int(out.get("parameters", {}).get("classification", 0)),
+                classification=int(params.get("classification", 0)),
+                shm_region=params.get("shared_memory_region"),
+                shm_byte_size=int(params.get("shared_memory_byte_size", 0)),
+                shm_offset=int(params.get("shared_memory_offset", 0)),
             ))
         return request
 
@@ -428,7 +500,13 @@ class HttpServer:
             }
             binary = bool(requested.get(tensor.name, {}).get("binary_data",
                                                               want_binary_default))
-            if binary or tensor.datatype == "BF16":  # BF16 has no JSON form
+            if tensor.name in core_response.shm_outputs:
+                region, size, shm_offset = core_response.shm_outputs[tensor.name]
+                out_json["parameters"] = {"shared_memory_region": region,
+                                          "shared_memory_byte_size": size}
+                if shm_offset:
+                    out_json["parameters"]["shared_memory_offset"] = shm_offset
+            elif binary or tensor.datatype == "BF16":  # BF16 has no JSON form
                 if tensor.datatype == "BYTES":
                     raw = serialize_byte_tensor(tensor.data).tobytes()
                 else:

@@ -21,6 +21,7 @@ __all__ = [
     "bfloat16",
     "deserialize_bf16_tensor",
     "deserialize_bytes_tensor",
+    "np_to_torch_dtype",
     "np_to_triton_dtype",
     "num_elements",
     "numpy_to_tensor",
@@ -134,6 +135,7 @@ _TORCH_TO_NP = {
     torch.float64: np.dtype(np.float64),
     torch.bfloat16: bfloat16,
 }
+_NP_TO_TORCH = {v: k for k, v in _TORCH_TO_NP.items()}
 
 
 def np_to_triton_dtype(np_dtype) -> Optional[str]:
@@ -148,6 +150,14 @@ def np_to_triton_dtype(np_dtype) -> Optional[str]:
     if dt == np.dtype(object) or dt.kind in ("S", "U"):
         return "BYTES"
     return None
+
+
+def np_to_torch_dtype(np_dtype) -> torch.dtype:
+    """The torch dtype of a fixed-size numpy dtype (BF16 included)."""
+    try:
+        return _NP_TO_TORCH[np.dtype(np_dtype)]
+    except KeyError:
+        raise InferenceServerException(f"no torch dtype for {np_dtype}") from None
 
 
 def triton_to_np_dtype(dtype: str):

@@ -4,7 +4,9 @@ on layouts that straddle their split-KV partitions (held to the plain
 split-and-merge version), and the tiny engine through both against the
 dense oracle. Then the KServe v2 path's models on the card: the tiny fp32
 text encoder against its CPU run, BERT-large widths batched against
-unbatched in bf16, and ``run_bucketed``'s host arrays.
+unbatched in bf16, and ``run_bucketed``'s host arrays; the image
+classifier (fp32 against its CPU run, bf16 against the card's fp32) and
+the TPU shared-memory staging of CUDA tensors (one device-to-host read).
 
 Every test here carries the ``cuda`` marker and skips without a card: a
 CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
@@ -35,8 +37,10 @@ TOL = 1e-5
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernel has no CPU or interpret mode")
-    # full-precision fp32 matmuls in the plain versions the kernel is held to
+    # full-precision fp32 matmuls and convolutions in the plain versions the
+    # kernel (and the fp32 models) are held to
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -352,3 +356,110 @@ def test_run_bucketed_on_the_card_returns_host_arrays_of_the_true_rows(cuda):
     result = model.execute({"INPUT0": a, "INPUT1": b}, {})
     assert np.array_equal(result["OUTPUT0"], a + b)
     assert np.array_equal(result["OUTPUT1"], a - b)
+
+
+# ---------------------------------------------------------------------------
+# the image classifier and the TPU shared-memory staging on the card
+# ---------------------------------------------------------------------------
+
+
+def _perturbed_resnet(config, seed, device):
+    """Thin-ResNet parameters with every norm perturbed (the default init
+    zeroes each block's last norm scale, which hides the residual
+    branches)."""
+    from client_tpu_torch.models import resnet
+
+    generator = torch.Generator().manual_seed(seed)
+    params = resnet.init_params(generator, config, "cpu")
+    norms = [params["bn_init"]] + [block[k] for block in params["blocks"]
+                                   for k in ("norm0", "norm1", "norm2", "norm_proj")
+                                   if k in block]
+    for norm in norms:
+        c = norm["scale"].shape
+        norm["scale"] = torch.rand(c, generator=generator) + 0.5
+        norm["bias"] = 0.1 * torch.randn(c, generator=generator)
+        norm["mean"] = 0.1 * torch.randn(c, generator=generator)
+        norm["var"] = torch.rand(c, generator=generator) + 0.5
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [move(v) for v in tree]
+        return tree.to(device)
+
+    return params, move(params)
+
+
+def test_tiny_classifier_on_the_card_equals_its_cpu_run(cuda):
+    """fp32 (TF32 off) logits within 1e-4 of the largest |logit| of the
+    same weights on the CPU, through the served model's execute."""
+    from client_tpu_torch.models import resnet
+    from client_tpu_torch.models.serving import ImageClassifierModel
+
+    config = resnet.ResNetConfig((2, 1, 1, 1), 100, 16, torch.float32)
+    cpu_params, card_params = _perturbed_resnet(config, 0, cuda)
+    images = np.random.default_rng(1).normal(size=[3, 64, 64, 3]).astype(np.float32)
+    got = ImageClassifierModel(image_size=64, config=config, params=card_params,
+                               device=cuda).execute({"INPUT": images}, {})["OUTPUT"]
+    want = ImageClassifierModel(image_size=64, config=config, params=cpu_params,
+                                device="cpu").execute({"INPUT": images}, {})["OUTPUT"]
+    assert isinstance(got, np.ndarray) and got.shape == (3, 100)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_bf16_classifier_on_the_card_is_within_2_percent_of_its_fp32_forward(cuda):
+    """The same weights in bf16 (convolutions on the tensor cores, norms
+    in fp32): finite logits within 2 % of the largest |logit| of the
+    card's fp32 forward."""
+    import dataclasses
+
+    from client_tpu_torch.models import resnet
+
+    config = resnet.ResNetConfig((2, 1, 1, 1), 100, 16, torch.float32)
+    _, params = _perturbed_resnet(config, 2, cuda)
+    bf16 = dataclasses.replace(config, dtype=torch.bfloat16)
+    params_bf16 = {**params, "conv_init": params["conv_init"].to(torch.bfloat16),
+                   "blocks": [{k: v.to(torch.bfloat16) if k.startswith("conv") else v
+                               for k, v in block.items()} for block in params["blocks"]]}
+    images = torch.from_numpy(
+        np.random.default_rng(3).normal(size=[4, 64, 64, 3]).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        want = resnet.forward(params, images, config)
+        got = resnet.forward(params_bf16, images, bf16)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_set_shared_memory_region_from_torch_reads_the_card_once(cuda):
+    """Several CUDA tensors (and one host tensor) staged into a TPU region:
+    the bytes land back to back, and the CUDA ones come back in ONE
+    device-to-host copy; ``as_torch_tensor`` brings a slice back to the
+    card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+    tensors = [torch.arange(10, dtype=torch.float32, device=cuda),
+               torch.randn(3, 4, device=cuda).to(torch.bfloat16),
+               torch.tensor([True, False, True], device=cuda),
+               torch.arange(6, dtype=torch.int64).reshape(2, 3),  # a host tensor
+               torch.full((5,), -7, dtype=torch.int32, device=cuda)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    region = tpushm.create_shared_memory_region(f"cuda_stage_{id(tensors)}", nbytes + 8)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tpushm.set_shared_memory_region_from_torch(region, tensors, offset=8)
+        copies = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "dtoh" in e.key.lower()]
+        assert sum(e.count for e in copies) == 1, [(e.key, e.count) for e in copies]
+        want = b"".join(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+                        if t.dtype == torch.bfloat16 else t.cpu().numpy().tobytes()
+                        for t in tensors)
+        assert bytes(region.buf(8, nbytes)) == want
+        back = tpushm.as_torch_tensor(region, "FP32", [10], offset=8, device=cuda)
+        assert back.device.type == "cuda" and torch.equal(back, tensors[0])
+    finally:
+        tpushm.destroy_shared_memory_region(region)

@@ -6,8 +6,9 @@
 - A subprocess in which importing ``jax`` (or ``client_tpu``) fails
   imports every module of the port.
 - On a host with no card, an entry point called without
-  ``device="cpu"`` (the LLM engine, the text encoder, the built-in
-  models, the server CLI) raises instead of running on the CPU.
+  ``device="cpu"`` (the LLM engine, the text encoder, the image
+  classifier, the built-in models, the server CLI, the TPU shared-memory
+  import onto the device) raises instead of running on the CPU.
 """
 
 import ast
@@ -25,6 +26,10 @@ from client_tpu_torch.utils import resolve_device
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "client_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "client_tpu")
+# modules of the latest slice, named so that a scan that missed them fails
+SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm",
+                 "client_tpu_torch.utils.shared_memory",
+                 "client_tpu_torch.utils.tpu_shared_memory")
 
 
 def _port_files():
@@ -44,6 +49,9 @@ def _imported_modules(path):
 def test_port_sources_import_no_jax_and_nothing_of_client_tpu():
     files = _port_files()
     assert len(files) > 10
+    for module in SLICE_MODULES:
+        path = ROOT.joinpath(*module.split("."))
+        assert path.with_suffix(".py") in files or path / "__init__.py" in files, module
     offenders = [
         f"{path.relative_to(ROOT)}: {name}"
         for path in files
@@ -59,6 +67,7 @@ def test_every_port_module_imports_with_jax_blocked():
         for path in PORT.rglob("*.py")
     )
     modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    assert set(SLICE_MODULES) <= set(modules)
     script = (
         "import importlib, sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -129,6 +138,35 @@ def test_kserve_entry_points_raise_without_a_card(no_card):
     repository = ModelRepository()
     models.register_builtin_models(repository, device="cpu")
     assert [m["state"] for m in repository.index()] == ["READY"] * 4
+
+
+def test_image_and_shm_entry_points_raise_without_a_card(no_card):
+    import uuid
+
+    from client_tpu_torch.models import resnet
+    from client_tpu_torch.models.serving import ImageClassifierModel
+    from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+    config = resnet.resnet18_thin(dtype=torch.float32)
+    region = tpushm.create_shared_memory_region(f"iso_{uuid.uuid4().hex}", 16)
+    try:
+        tpushm.set_shared_memory_region(region, [np.arange(4, dtype=np.float32)])
+        for make in (
+            lambda: ImageClassifierModel(),
+            lambda: ImageClassifierModel(device="cuda"),
+            lambda: resnet.init_params(torch.Generator().manual_seed(0), config),
+            lambda: resnet.params_from_jax({"params": {}, "batch_stats": {}}, config),
+            lambda: tpushm.as_torch_tensor(region, "FP32", [4]),
+            lambda: tpushm.as_torch_tensor(region, "FP32", [4], device="cuda"),
+        ):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        # the CPU is there when asked for
+        assert ImageClassifierModel(device="cpu").device.type == "cpu"
+        on_cpu = tpushm.as_torch_tensor(region, "FP32", [4], device="cpu")
+        assert on_cpu.device.type == "cpu" and on_cpu.tolist() == [0.0, 1.0, 2.0, 3.0]
+    finally:
+        tpushm.destroy_shared_memory_region(region)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
