@@ -31,7 +31,8 @@ result line:
    with n-gram speculation (K = 4), 128 tokens a stream: its verify steps
    run K2, whose launch counter is zeroed just before and read just after;
 6. the KServe v2 infer route (``POST /v2/models/<m>/infer``) through the
-   dynamic batcher: (a) ``simple``, the identities and a tiny fp32
+   dynamic batcher, sent, as in phases 7 and 8, by the port's own client
+   (``client_tpu_torch.http``; client threads here, one client each): (a) ``simple``, the identities and a tiny fp32
    ``text_encoder`` from one ``ServerCore`` — AddSub exact and the
    identities bit for bit in JSON and binary, 16 concurrent encoder
    requests within 1e-5 of the plain forward on the CPU and merged into
@@ -56,6 +57,19 @@ result line:
    (``image execution:``); (c) ``identity_fp32`` at 4 MiB a request, 4
    clients, 64 requests, per route (``data plane:`` MiB/s, p99). This path
    has no TPU kernel either.
+8. the port's HTTP client (``client_tpu_torch.http``, sync and aio) and
+   its slot ring (``ShmRing``) from client processes of their own
+   (``multiprocessing`` spawn; they never touch the card): (a) one
+   process checks health, metadata, config, statistics, region routes,
+   ``simple`` and the identities over JSON, binary, system shm, TPU shm
+   and the ring, the tiny fp32 classifier through the ring against its
+   CPU forward, refused ring requests, the OpenAI error body and a
+   chunked request body, and ``infer_decoupled`` of ``simple`` runs here
+   (``client tiny:``); (b) phase 7b's 128 images from 8 processes over
+   inline binary, system shm, TPU shm and the ring, each answer held as
+   7b holds them (``image-procs:``, beside 7b's in-process figures); (c)
+   ``identity_fp32`` from 4 processes at 256 KiB and 4 MiB over the four
+   routes, 64 requests each, bit-exact (``data-plane-procs:``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -66,17 +80,22 @@ import gc
 import http.client
 import json
 import math
+import os
 import re
 import sys
 import threading
 import time
+import uuid
 
 import torch
 
-if not torch.cuda.is_available():
+# phase 8's client processes are spawned from this file, which they import
+# as __mp_main__: they speak HTTP and shared memory and never ask for the card
+if __name__ != "__mp_main__" and not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
 
 import attention_bench as bench  # noqa: E402
+import client_tpu_torch.http as client_http  # noqa: E402
 from attention_bench import BF16_ULP, card, cuda_ms  # noqa: E402
 from client_tpu_torch import kernels  # noqa: E402
 from client_tpu_torch.llm.engine import block_bucket  # noqa: E402
@@ -779,121 +798,132 @@ def serve_7b_speculative(params, plain_streams) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kserve_infer(conn, model, inputs, binary=True, outputs=()):
-    """One ``POST /v2/models/<model>/infer`` on ``conn``. ``inputs`` are
-    (name, datatype, array), sent as JSON or with the binary-tensor
-    extension (BF16 is always binary), or (name, datatype, array, (region,
-    byte_size, offset)), which the server reads from a registered
-    shared-memory region (the array gives the shape). ``outputs`` are
-    names, or (name, parameters) pairs. Returns {output name: array, or
-    its parameters for an output written to a region}; raises
-    :class:`InferError` on a non-200."""
-    import numpy as np
+def _shm_key(tag):
+    """A shared-memory key (and region name) of this process's own:
+    ``/dev/shm`` is shared by every run on the machine, and a run killed
+    midway leaves its keys behind."""
+    return f"chip_smoke_{os.getpid()}_{uuid.uuid4().hex[:8]}_{tag}"
 
-    from client_tpu_torch import utils
 
-    tensors, chunks = [], []
-    for name, datatype, array, *shm in inputs:
-        entry = {"name": name, "datatype": datatype, "shape": list(array.shape)}
-        if shm:
-            region, size, offset = shm[0]
-            entry["parameters"] = {"shared_memory_region": region,
-                                   "shared_memory_byte_size": size,
-                                   "shared_memory_offset": offset}
-        elif binary or datatype == "BF16":
-            raw = (utils.serialize_byte_tensor(array) if datatype == "BYTES"
-                   else np.ascontiguousarray(array)).tobytes()
-            entry["parameters"] = {"binary_data_size": len(raw)}
-            chunks.append(raw)
-        elif datatype == "BYTES":
-            entry["data"] = [b.decode() for b in array.reshape(-1)]
-        else:
-            entry["data"] = array.reshape(-1).tolist()
-        tensors.append(entry)
-    payload = {"inputs": tensors,
-               "outputs": [{"name": o, "parameters": {"binary_data": binary}}
-                           if isinstance(o, str) else {"name": o[0], "parameters": dict(o[1])}
-                           for o in outputs]}
-    header = json.dumps(payload).encode()
-    headers = {"Content-Type": "application/octet-stream"}
-    if chunks:
-        headers["Inference-Header-Content-Length"] = str(len(header))
-    conn.request("POST", f"/v2/models/{model}/infer", body=header + b"".join(chunks),
-                 headers=headers)
-    response = conn.getresponse()
-    body = response.read()
-    if response.status != 200:
-        raise InferError(model, response.status, body)
-    header_len = response.getheader("Inference-Header-Content-Length")
-    split = int(header_len) if header_len else len(body)
-    doc, tail, offset, out = json.loads(body[:split]), body[split:], 0, {}
-    for o in doc["outputs"]:
-        params = o.get("parameters", {})
-        if "shared_memory_region" in params:
-            out[o["name"]] = params
-            continue
-        size = params.get("binary_data_size")
-        if size is None:
-            data = o["data"]
-            if o["datatype"] == "BYTES":
-                array = np.array([d.encode() for d in data], dtype=object)
-            else:
-                array = np.array(data, dtype=utils.triton_to_np_dtype(o["datatype"]))
-        else:
-            raw = tail[offset:offset + size]
+class _ClientRoute:
+    """One client's way to send a model tensors and get its outputs back,
+    all through ``client_tpu_torch.http``: JSON (``json``; BF16 stays
+    binary, as it has no JSON form), inline binary (``none``), its own
+    input and output regions of ``in_bytes`` and ``out_bytes`` (``system``,
+    ``tpu``), or its own one-slot ring (``ring``); :meth:`close`
+    unregisters and destroys what it made."""
+
+    def __init__(self, client, route, tag="", in_bytes=0, out_bytes=0):
+        from client_tpu_torch.utils import shared_memory as shm
+        from client_tpu_torch.utils import tpu_shared_memory as tpushm
+        from client_tpu_torch.utils.tpu_shared_memory.ring import ShmRing
+
+        self.client, self.route, self.regions, self.ring = client, route, [], None
+        self.module = shm if route == "system" else tpushm
+        if route == "ring":
+            self.ring = ShmRing(n_slots=1, slot_size=in_bytes + out_bytes + 4096,
+                                name=_shm_key(f"{tag}_ring"))
+            self.ring.register(client)
+        elif route in ("system", "tpu"):
+            for role, size in (("in", in_bytes), ("out", out_bytes)):
+                name = _shm_key(f"{tag}_{role}")
+                if route == "system":
+                    region = shm.create_shared_memory_region(name, name, size, create_only=True)
+                    client.register_system_shared_memory(name, name, size)
+                else:
+                    region = tpushm.create_shared_memory_region(name, size)
+                    client.register_tpu_shared_memory(name, tpushm.get_raw_handle(region), 0,
+                                                      size)
+                self.regions.append(region)
+
+    def infer(self, model, inputs, outputs):
+        """``inputs``: (name, datatype, array); ``outputs``: (name, dtype,
+        shape), the dtype and shape read only from a region. Returns
+        {output name: array}."""
+        import numpy as np
+
+        if self.ring is not None:
+            return self.ring.infer(self.client, model,
+                                   [(name, array) for name, _, array in inputs])
+        tensors = [client_http.InferInput(name, list(a.shape), dt) for name, dt, a in inputs]
+        if not self.regions:
+            binary = self.route != "json"
+            for tensor, (_, datatype, array) in zip(tensors, inputs):
+                tensor.set_data_from_numpy(array, binary_data=binary or datatype == "BF16")
+            result = self.client.infer(model, tensors, outputs=[
+                client_http.InferRequestedOutput(name, binary_data=binary)
+                for name, _, _ in outputs])
+            return {name: result.as_numpy(name) for name, _, _ in outputs}
+        self.module.set_shared_memory_region(self.regions[0], [a for _, _, a in inputs])
+        offset = 0
+        for tensor, (_, _, array) in zip(tensors, inputs):
+            tensor.set_shared_memory(self.regions[0].name(), array.nbytes, offset)
+            offset += array.nbytes
+        sizes = [int(np.prod(shape)) * np.dtype(dtype).itemsize for _, dtype, shape in outputs]
+        requested, offset = [], 0
+        for (name, _, _), size in zip(outputs, sizes):
+            requested.append(client_http.InferRequestedOutput(name).set_shared_memory(
+                self.regions[1].name(), size, offset))
             offset += size
-            array = (utils.deserialize_bytes_tensor(raw) if o["datatype"] == "BYTES"
-                     else np.frombuffer(raw, dtype=utils.triton_to_np_dtype(o["datatype"])))
-        out[o["name"]] = array.reshape(o["shape"])
-    return out
+        self.client.infer(model, tensors, outputs=requested)
+        answers, offset = {}, 0
+        for (name, dtype, shape), size in zip(outputs, sizes):
+            answers[name] = self.module.get_contents_as_numpy(
+                self.regions[1], np.dtype(dtype), shape, offset).copy()
+            offset += size
+        return answers
 
-
-class InferError(AssertionError):
-    def __init__(self, model, status, body):
-        super().__init__(f"{model}: HTTP {status} {body[:300]!r}")
-        self.status = status
-        self.body = body
+    def close(self):
+        if self.ring is not None:
+            self.client.unregister_tpu_shared_memory(self.ring.region_name)
+            self.ring.close()
+        for region in self.regions:
+            getattr(self.client, f"unregister_{self.route}_shared_memory")(region.name())
+            self.module.destroy_shared_memory_region(region)
 
 
 def _stats(port, model):
     """``model``'s entry of the statistics route."""
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-    try:
-        conn.request("GET", f"/v2/models/{model}/stats")
-        response = conn.getresponse()
-        body = response.read()
-        if response.status != 200:
-            raise AssertionError(f"{model} stats: HTTP {response.status}")
-        return json.loads(body)["model_stats"][0]
-    finally:
-        conn.close()
+    with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+        return client.get_inference_statistics(model)["model_stats"][0]
 
 
-def _concurrently(port, work, threads):
-    """Run ``work(conn, i)`` for i in range(len) on ``threads`` client
-    threads (one keep-alive connection each), started together; returns
-    the results and each call's latency in seconds."""
+def _concurrently(port, threads, open_way, work):
+    """Run ``work[i](way)`` for i in range(len(work)) on ``threads``
+    closed-loop client threads, each with a ``client_tpu_torch.http``
+    client of its own and the :class:`_ClientRoute` that
+    ``open_way(client, thread)`` made before the threads are released
+    together. Returns the results, each call's latency in seconds and the
+    seconds from the release to the last answer."""
     n = len(work)
     results, latencies, errors = [None] * n, [None] * n, []
-    barrier = threading.Barrier(threads)
+    barrier = threading.Barrier(threads + 1)
 
     def client(worker):
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
         try:
-            barrier.wait(60)
-            for i in range(worker, n, threads):
-                t0 = time.perf_counter()
-                results[i] = work[i](conn)
-                latencies[i] = time.perf_counter() - t0
+            with client_http.InferenceServerClient(f"127.0.0.1:{port}",
+                                                   network_timeout=600) as conn:
+                way = open_way(conn, worker)
+                try:
+                    barrier.wait(300)
+                    for i in range(worker, n, threads):
+                        t0 = time.perf_counter()
+                        results[i] = work[i](way)
+                        latencies[i] = time.perf_counter() - t0
+                finally:
+                    way.close()
         except Exception as e:  # noqa: BLE001 - re-raised by the caller
             errors.append(e)
-        finally:
-            conn.close()
+            barrier.abort()  # no thread waits for this one any longer
 
     pool = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
-    t_start = time.perf_counter()
     for thread in pool:
         thread.start()
+    try:
+        barrier.wait(300)
+    except threading.BrokenBarrierError:
+        pass  # a thread failed: its error is in ``errors``
+    t_start = time.perf_counter()
     for thread in pool:
         thread.join(900)
     wall = time.perf_counter() - t_start
@@ -927,37 +957,37 @@ def kserve_tiny() -> None:
               models.BytesIdentityModel(device=DEVICE),
               TextEncoderModel(config=config, params=card_params, device=DEVICE)]
     rng = np.random.default_rng(0)
-    with http_server(*served) as port:
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    with (http_server(*served) as port,
+          client_http.InferenceServerClient(f"127.0.0.1:{port}") as client):
         a = rng.integers(-2**20, 2**20, [5, 16], dtype=np.int32)
         b = rng.integers(-2**20, 2**20, [5, 16], dtype=np.int32)
         fp32 = rng.normal(size=[33]).astype(np.float32)
         bf16 = utils.deserialize_bf16_tensor(
             utils.serialize_bf16_tensor(rng.normal(size=[64]).astype(np.float32)))
         strings = np.array([b"alpha", b"", "été".encode()], dtype=object)
-        for binary in (False, True):
-            out = kserve_infer(conn, "simple", [("INPUT0", "INT32", a), ("INPUT1", "INT32", b)],
-                               binary, ("OUTPUT0", "OUTPUT1"))
+        for route in ("json", "none"):
+            way = _ClientRoute(client, route)
+            out = way.infer("simple", [("INPUT0", "INT32", a), ("INPUT1", "INT32", b)],
+                            [("OUTPUT0", None, None), ("OUTPUT1", None, None)])
             if not (np.array_equal(out["OUTPUT0"], a + b) and np.array_equal(out["OUTPUT1"], a - b)):
-                raise AssertionError(f"simple (binary={binary}) is not a+b, a-b")
+                raise AssertionError(f"simple ({route}) is not a+b, a-b")
             for model, datatype, array in (("identity_fp32", "FP32", fp32),
                                            ("identity_bf16", "BF16", bf16),
                                            ("identity_bytes", "BYTES", strings)):
-                got = kserve_infer(conn, model, [("INPUT0", datatype, array)], binary,
-                                   ("OUTPUT0",))["OUTPUT0"]
+                got = way.infer(model, [("INPUT0", datatype, array)],
+                                [("OUTPUT0", None, None)])["OUTPUT0"]
                 same = (list(got) == list(array) if datatype == "BYTES"
                         else got.tobytes() == array.tobytes())
                 if not same:
-                    raise AssertionError(f"{model} (binary={binary}) did not round-trip")
-        conn.close()
+                    raise AssertionError(f"{model} ({route}) did not round-trip")
 
         lengths = rng.integers(3, 201, 16)
         seqs = [rng.integers(1, config.vocab_size, n, dtype=np.int32) for n in lengths]
         before = _stats(port, "text_encoder")
-        work = [lambda c, s=s: kserve_infer(c, "text_encoder", [("INPUT_IDS", "INT32", s[None])],
-                                            outputs=("EMBEDDING",))["EMBEDDING"][0]
+        work = [lambda way, s=s: way.infer("text_encoder", [("INPUT_IDS", "INT32", s[None])],
+                                           [("EMBEDDING", None, None)])["EMBEDDING"][0]
                 for s in seqs]
-        answers, _, _ = _concurrently(port, work, 16)
+        answers, _, _ = _concurrently(port, 16, lambda c, w: _ClientRoute(c, "none"), work)
         after = _stats(port, "text_encoder")
     worst = 0.0
     with torch.inference_mode():
@@ -1106,10 +1136,11 @@ def kserve_bert_large() -> dict:
     seqs = [rng.integers(1, config.vocab_size, n, dtype=np.int32) for n in lengths]
     with http_server(model) as port:
         before = _stats(port, "text_encoder")
-        work = [lambda c, s=s: kserve_infer(c, "text_encoder", [("INPUT_IDS", "INT32", s[None])],
-                                            outputs=("EMBEDDING",))["EMBEDDING"][0]
+        work = [lambda way, s=s: way.infer("text_encoder", [("INPUT_IDS", "INT32", s[None])],
+                                           [("EMBEDDING", None, None)])["EMBEDDING"][0]
                 for s in seqs]
-        answers, latencies, wall = _concurrently(port, work, KSERVE_CLIENTS)
+        answers, latencies, wall = _concurrently(port, KSERVE_CLIENTS,
+                                                 lambda c, w: _ClientRoute(c, "none"), work)
         after = _stats(port, "text_encoder")
     worst = 0.0
     with torch.inference_mode():
@@ -1166,69 +1197,6 @@ DATA_PLANE_REQUESTS = 64
 DATA_PLANE_CLIENTS = 4
 
 
-def shm_call(port, kind, action, name="", body=None):
-    """A shared-memory route of ``kind`` (system, tpu or cuda): ``action``
-    status, register or unregister, of one region (``name``) or all.
-    Returns (HTTP status, parsed body or None)."""
-    path = f"/v2/{kind}sharedmemory" + (f"/region/{name}" if name else "") + f"/{action}"
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-    try:
-        data = json.dumps(body).encode() if body is not None else b""
-        conn.request("GET" if action == "status" else "POST", path, body=data,
-                     headers={"Content-Type": "application/json"})
-        response = conn.getresponse()
-        raw = response.read()
-        return response.status, json.loads(raw) if raw else None
-    finally:
-        conn.close()
-
-
-class ClientRegions:
-    """One client's input and output regions of one kind (``system`` or
-    ``tpu``), created with the port's client modules and registered with
-    the server at ``port``; :meth:`close` unregisters and destroys them."""
-
-    def __init__(self, port, kind, tag, in_bytes, out_bytes):
-        import base64
-        import os
-
-        from client_tpu_torch.utils import shared_memory as shm
-        from client_tpu_torch.utils import tpu_shared_memory as tpushm
-
-        self.port, self.kind, self.handles = port, kind, {}
-        self.module = shm if kind == "system" else tpushm
-        for role, size in (("in", in_bytes), ("out", out_bytes)):
-            name = f"chip_smoke_{os.getpid()}_{tag}_{role}"
-            if kind == "system":
-                handle = shm.create_shared_memory_region(name, name, size, create_only=True)
-                body = {"key": name, "offset": 0, "byte_size": size}
-            else:
-                handle = tpushm.create_shared_memory_region(name, size)
-                raw = base64.b64encode(tpushm.get_raw_handle(handle)).decode()
-                body = {"raw_handle": {"b64": raw}, "device_id": 0, "byte_size": size}
-            self.handles[role] = handle
-            status, doc = shm_call(port, kind, "register", name, body)
-            if status != 200:
-                raise AssertionError(f"{kind} register {name}: HTTP {status} {doc}")
-
-    def name(self, role):
-        return self.handles[role].name()
-
-    def write(self, array):
-        """Copy ``array`` into the input region (the client's one copy)."""
-        self.module.set_shared_memory_region(self.handles["in"], [array])
-
-    def read(self, dtype, shape, offset=0):
-        """A copy of the output region's bytes as an array."""
-        return self.module.get_contents_as_numpy(self.handles["out"], dtype, shape,
-                                                 offset).copy()
-
-    def close(self):
-        for handle in self.handles.values():
-            shm_call(self.port, self.kind, "unregister", handle.name())
-            self.module.destroy_shared_memory_region(handle)
-
-
 def perturbed_classifier(config, generator, last_scale):
     """ResNet parameters from ``generator`` (on its device) with every norm
     perturbed: scale U(0.5, 1.5) (a block's last norm U(``last_scale``)),
@@ -1263,43 +1231,44 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def check_shm_routes(port) -> None:
+def check_shm_routes(client) -> None:
     """Register, status and unregister for both kinds (idempotent
     re-registration, a conflicting one refused, a region of the other
     kind refused), and the ``cuda`` kind's empty status and refused
-    registration."""
-    import base64
-    import os
-
+    registration, through the port's client."""
+    from client_tpu_torch.utils import InferenceServerException
     from client_tpu_torch.utils import shared_memory as shm
     from client_tpu_torch.utils import tpu_shared_memory as tpushm
 
-    key = f"chip_smoke_{os.getpid()}_routes"
+    def answer(call, *args):
+        """(HTTP status, error message) of one client call."""
+        try:
+            call(*args)
+            return 200, ""
+        except InferenceServerException as e:
+            return int(e.status()), e.message()
+
+    key = _shm_key("routes")
     sys_handle = shm.create_shared_memory_region(key, key, 256, create_only=True)
     tpu_handle = tpushm.create_shared_memory_region(key + "_tpu", 256)
-    tpu_body = {"raw_handle": {"b64": base64.b64encode(tpushm.get_raw_handle(tpu_handle))
-                               .decode()}, "device_id": 0, "byte_size": 256}
+    raw = tpushm.get_raw_handle(tpu_handle)
     try:
         expect = [
-            (shm_call(port, "system", "register", "r_sys",
-                      {"key": key, "offset": 0, "byte_size": 256}), 200),
-            (shm_call(port, "system", "register", "r_sys",
-                      {"key": key, "offset": 0, "byte_size": 256}), 200),  # idempotent
-            (shm_call(port, "system", "register", "r_sys",
-                      {"key": key, "offset": 0, "byte_size": 128}), 400),  # conflict
-            (shm_call(port, "system", "register", "r_big",
-                      {"key": key, "offset": 0, "byte_size": 512}), 400),  # past its end
-            (shm_call(port, "tpu", "register", "r_tpu", tpu_body), 200),
-            (shm_call(port, "cuda", "register", "r_cuda", tpu_body), 400),
-            (shm_call(port, "tpu", "unregister", "r_sys"), 400),  # another kind
+            (answer(client.register_system_shared_memory, "r_sys", key, 256), 200),
+            (answer(client.register_system_shared_memory, "r_sys", key, 256), 200),  # idempotent
+            (answer(client.register_system_shared_memory, "r_sys", key, 128), 400),  # conflict
+            (answer(client.register_system_shared_memory, "r_big", key, 512), 400),  # past its end
+            (answer(client.register_tpu_shared_memory, "r_tpu", raw, 0, 256), 200),
+            (answer(client.register_cuda_shared_memory, "r_cuda", raw, 0, 256), 400),
+            (answer(client.unregister_tpu_shared_memory, "r_sys"), 400),  # another kind
         ]
-        for (status, doc), want in expect:
+        for (status, message), want in expect:
             if status != want:
-                raise AssertionError(f"shm route answered {status} {doc}, expected {want}")
-        refusal = shm_call(port, "cuda", "register", "r_cuda", tpu_body)[1]["error"]
+                raise AssertionError(f"shm route answered {status} {message}, expected {want}")
+        refusal = answer(client.register_cuda_shared_memory, "r_cuda", raw, 0, 256)[1]
         if "tpu" not in refusal.lower() or "system" not in refusal.lower():
             raise AssertionError(f"the cuda refusal does not point elsewhere: {refusal}")
-        statuses = {kind: shm_call(port, kind, "status")[1]
+        statuses = {kind: getattr(client, f"get_{kind}_shared_memory_status")()
                     for kind in ("system", "tpu", "cuda")}
         if ([r["name"] for r in statuses["system"]] != ["r_sys"]
                 or statuses["system"][0]["byte_size"] != 256
@@ -1307,12 +1276,13 @@ def check_shm_routes(port) -> None:
                 or statuses["tpu"][0]["key"] != tpu_handle.key()
                 or statuses["cuda"] != []):
             raise AssertionError(f"shm status: {statuses}")
-        if shm_call(port, "tpu", "status", "r_tpu")[1][0]["name"] != "r_tpu":
+        if client.get_tpu_shared_memory_status("r_tpu")[0]["name"] != "r_tpu":
             raise AssertionError("region status of r_tpu")
         for kind, name in (("tpu", "r_tpu"), ("system", "never"), ("system", "")):
-            if shm_call(port, kind, "unregister", name)[0] != 200:  # "": all of the kind
-                raise AssertionError(f"unregister {kind} {name!r}")
-        if shm_call(port, "system", "status")[1] or shm_call(port, "tpu", "status")[1]:
+            status = answer(getattr(client, f"unregister_{kind}_shared_memory"), name)
+            if status[0] != 200:  # "": all of the kind
+                raise AssertionError(f"unregister {kind} {name!r}: {status}")
+        if client.get_system_shared_memory_status() or client.get_tpu_shared_memory_status():
             raise AssertionError("regions left after unregister")
     finally:
         shm.destroy_shared_memory_region(sys_handle)
@@ -1334,7 +1304,7 @@ def classifier_tiny() -> None:
     from client_tpu_torch.models import resnet
     from client_tpu_torch.models.serving import ImageClassifierModel
     from client_tpu_torch.server import models
-    from client_tpu_torch.utils import deserialize_bytes_tensor
+    from client_tpu_torch.utils import InferenceServerException, deserialize_bytes_tensor
     from client_tpu_torch.utils import tpu_shared_memory as tpushm
 
     config = resnet.ResNetConfig((2, 1, 1, 1), 1000, 16, torch.float32)
@@ -1347,35 +1317,44 @@ def classifier_tiny() -> None:
                                    params=_to_device(cpu_params, DEVICE), device=DEVICE),
               models.IdentityModel("identity_fp32", "FP32", device=DEVICE)]
     logits_bytes = 4 * config.num_classes
-    with http_server(*served) as port:
-        check_shm_routes(port)
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        answers = {"binary": kserve_infer(conn, "image_classifier", [("INPUT", "FP32", image)],
-                                          outputs=("OUTPUT",))["OUTPUT"][0]}
-        regions = {kind: ClientRegions(port, kind, f"tiny_{kind}", 1 << 20, 1 << 20)
-                   for kind in ("system", "tpu")}
+    with (http_server(*served) as port,
+          client_http.InferenceServerClient(f"127.0.0.1:{port}") as client):
+        check_shm_routes(client)
+        answers = {"binary": _ClientRoute(client, "none").infer(
+            "image_classifier", [("INPUT", "FP32", image)], [("OUTPUT", None, None)])
+            ["OUTPUT"][0]}
+        ways = {kind: _ClientRoute(client, kind, f"tiny_{kind}", 1 << 20, 1 << 20)
+                for kind in ("system", "tpu")}
+
+        def infer(model, name, array, way, *outputs):
+            """``array`` read from ``way``'s input region; ``outputs`` are
+            requested outputs. Returns the result."""
+            tensor = client_http.InferInput(name, list(array.shape), "FP32")
+            tensor.set_shared_memory(way.regions[0].name(), array.nbytes, 0)
+            return client.infer(model, [tensor], outputs=list(outputs))
+
         try:
-            for kind, region in regions.items():
+            for kind, way in ways.items():
+                region_in, region_out = way.regions
                 if kind == "tpu":  # staged from a tensor on the card
                     tpushm.set_shared_memory_region_from_torch(
-                        region.handles["in"], [torch.from_numpy(image).to(DEVICE)])
+                        region_in, [torch.from_numpy(image).to(DEVICE)])
                 else:
-                    region.write(image)
-                shm_image = ("INPUT", "FP32", image, (region.name("in"), image.nbytes, 0))
-                out = kserve_infer(conn, "image_classifier", [shm_image], outputs=[
-                    ("OUTPUT", {"shared_memory_region": region.name("out"),
-                                "shared_memory_byte_size": logits_bytes})])
-                if out["OUTPUT"]["shared_memory_byte_size"] != logits_bytes:
-                    raise AssertionError(f"{kind}: output parameters {out['OUTPUT']}")
-                answers[kind] = region.read(np.float32, [config.num_classes])
+                    way.module.set_shared_memory_region(region_in, [image])
+                out = infer("image_classifier", "INPUT", image, way,
+                            client_http.InferRequestedOutput("OUTPUT").set_shared_memory(
+                                region_out.name(), logits_bytes))
+                written = out.get_output("OUTPUT")["parameters"]["shared_memory_byte_size"]
+                if written != logits_bytes:
+                    raise AssertionError(f"{kind}: output parameters {out.get_output('OUTPUT')}")
+                answers[kind] = way.module.get_contents_as_numpy(
+                    region_out, np.float32, [config.num_classes]).copy()
                 # class_count=3 into the region: BYTES "value:index" strings
-                out = kserve_infer(conn, "image_classifier", [shm_image], outputs=[
-                    ("OUTPUT", {"classification": 3,
-                                "shared_memory_region": region.name("out"),
-                                "shared_memory_byte_size": 1024,
-                                "shared_memory_offset": 4096})])
-                written = out["OUTPUT"]["shared_memory_byte_size"]
-                raw = bytes(region.handles["out"].buf(4096, written))
+                out = infer("image_classifier", "INPUT", image, way,
+                            client_http.InferRequestedOutput("OUTPUT", class_count=3)
+                            .set_shared_memory(region_out.name(), 1024, 4096))
+                written = out.get_output("OUTPUT")["parameters"]["shared_memory_byte_size"]
+                raw = bytes(region_out.buf(4096, written))
                 top = [s.decode().split(":") for s in deserialize_bytes_tensor(raw)]
                 expect = np.argsort(answers[kind])[::-1][:3]
                 if [int(i) for _, i in top] != list(expect) or any(
@@ -1384,27 +1363,23 @@ def classifier_tiny() -> None:
                 # identity_fp32 through the same regions, bit for bit
                 values = np.random.default_rng(4).normal(size=[5000]).astype(np.float32)
                 values[:3] = [np.inf, -0.0, np.nan]
-                region.write(values)
-                kserve_infer(conn, "identity_fp32",
-                             [("INPUT0", "FP32", values, (region.name("in"), values.nbytes, 0))],
-                             outputs=[("OUTPUT0", {"shared_memory_region": region.name("out"),
-                                                   "shared_memory_byte_size": values.nbytes})])
-                if region.read(np.float32, values.shape).tobytes() != values.tobytes():
+                got = way.infer("identity_fp32", [("INPUT0", "FP32", values)],
+                                [("OUTPUT0", np.float32, values.shape)])["OUTPUT0"]
+                if got.tobytes() != values.tobytes():
                     raise AssertionError(f"identity_fp32 through {kind} shm is not bit-exact")
             # an output region smaller than the output is refused
+            tensor = client_http.InferInput("INPUT0", list(values.shape), "FP32")
             try:
-                kserve_infer(conn, "identity_fp32", [("INPUT0", "FP32", values)],
-                             outputs=[("OUTPUT0", {"shared_memory_region":
-                                                   regions["system"].name("out"),
-                                                   "shared_memory_byte_size": 16})])
+                client.infer("identity_fp32", [tensor.set_data_from_numpy(values)], outputs=[
+                    client_http.InferRequestedOutput("OUTPUT0").set_shared_memory(
+                        ways["system"].regions[1].name(), 16)])
                 raise AssertionError("a too-small output region was accepted")
-            except InferError as e:
-                if e.status != 400 or b"too small" not in e.body:
+            except InferenceServerException as e:
+                if e.status() != "400" or "too small" not in e.message():
                     raise
         finally:
-            for region in regions.values():
-                region.close()
-            conn.close()
+            for way in ways.values():
+                way.close()
     if not (answers["binary"].tobytes() == answers["system"].tobytes()
             == answers["tpu"].tobytes()):
         raise AssertionError("binary, system shm and TPU shm answers differ")
@@ -1472,36 +1447,22 @@ def serve_routes(port, model, routes, clients, requests, make_inputs, outputs, i
     """``requests`` requests from ``clients`` closed-loop client threads
     over each of ``routes`` (``none``: inline binary both ways; ``system``,
     ``tpu``: the input written into the client's own region and the
-    output read back from its region). ``make_inputs(i)`` is request i's
-    (name, datatype, array); ``check(i, route, answer)`` holds its
+    output read back from its region), each through the port's client.
+    ``make_inputs(i)`` is request i's (name, datatype, array); ``outputs``
+    are (name, dtype, shape); ``check(i, route, answer)`` holds its
     answer. Returns {route: the run's numbers}."""
     results = {}
     for route in routes:
-        regions = ([ClientRegions(port, route, f"{model}_{route}_{w}", in_bytes, out_bytes)
-                    for w in range(clients)] if route != "none" else [])
-        try:
-            def work(conn, i):
-                name, datatype, array = make_inputs(i)
-                if route == "none":
-                    out = kserve_infer(conn, model, [(name, datatype, array)],
-                                       outputs=[o for o, _ in outputs])
-                    return [out[o] for o, _ in outputs]
-                region = regions[i % clients]
-                region.write(array)
-                kserve_infer(conn, model,
-                             [(name, datatype, array, (region.name("in"), array.nbytes, 0))],
-                             outputs=[(o, {"shared_memory_region": region.name("out"),
-                                           "shared_memory_byte_size": out_bytes})
-                                      for o, _ in outputs])
-                return [region.read(dtype, shape) for _, (dtype, shape) in outputs]
+        def work(way, i):
+            out = way.infer(model, [make_inputs(i)], outputs)
+            return [out[name] for name, _, _ in outputs]
 
-            before = _stats(port, model)
-            answers, latencies, wall = _concurrently(
-                port, [lambda c, i=i: work(c, i) for i in range(requests)], clients)
-            after = _stats(port, model)
-        finally:
-            for region in regions:
-                region.close()
+        before = _stats(port, model)
+        answers, latencies, wall = _concurrently(
+            port, clients,
+            lambda c, w: _ClientRoute(c, route, f"{model}_{route}_{w}", in_bytes, out_bytes),
+            [lambda way, i=i: work(way, i) for i in range(requests)])
+        after = _stats(port, model)
         for i, answer in enumerate(answers):
             check(i, route, answer)
         executions = after["execution_count"] - before["execution_count"]
@@ -1591,16 +1552,18 @@ def classifier_resnet50() -> dict:
         runs = serve_routes(
             port, "image_classifier", ("none", "system", "tpu"), IMAGE_CLIENTS,
             IMAGE_REQUESTS, lambda i: ("INPUT", "FP32", images[i:i + 1]),
-            [("OUTPUT", (np.float32, [1, config.num_classes]))],
+            [("OUTPUT", np.float32, [1, config.num_classes])],
             images[0:1].nbytes, 4 * config.num_classes, check)
-    for route, run in runs.items():
-        run.update(route=route, images_per_s=run.pop("requests_per_s"))
-        print("image: " + json.dumps(run) + f" [{card()}]", flush=True)
-    result = {"runs": runs, "load_s": load_s, "warmup_s": warmup_s, "parameters": count,
-              "max_err_share_of_limit": worst[0], "least_gap_share_of_limit": distinct / 2e-2}
-    print(f"image: every answer of the three runs within {worst[0]:.3f} of its 2 % limit of "
-          f"the unbatched forward, none NaN; the closest two images' logits differ by "
-          f"{distinct / 2e-2:.3f} times that limit", flush=True)
+        for route, run in runs.items():
+            run.update(route=route, images_per_s=run.pop("requests_per_s"))
+            print("image: " + json.dumps(run) + f" [{card()}]", flush=True)
+        procs = image_procs(port, images, check, runs)
+    result = {"runs": runs, "procs": procs, "load_s": load_s, "warmup_s": warmup_s,
+              "parameters": count, "max_err_share_of_limit": worst[0],
+              "least_gap_share_of_limit": distinct / 2e-2}
+    print(f"image: every answer of the three in-process runs and of phase 8b's four within "
+          f"{worst[0]:.3f} of its 2 % limit of the unbatched forward, none NaN; the closest "
+          f"two images' logits differ by {distinct / 2e-2:.3f} times that limit", flush=True)
     result["profile"] = profile_classifier(model, config, images[:8])
     return result
 
@@ -1647,13 +1610,455 @@ def data_plane() -> dict:
     with http_server(models.IdentityModel("identity_fp32", "FP32", device=DEVICE)) as port:
         runs = serve_routes(port, "identity_fp32", ("none", "system", "tpu"),
                             DATA_PLANE_CLIENTS, DATA_PLANE_REQUESTS, make,
-                            [("OUTPUT0", (np.float32, [count]))], DATA_PLANE_BYTES,
+                            [("OUTPUT0", np.float32, [count])], DATA_PLANE_BYTES,
                             DATA_PLANE_BYTES, check)
     for route, run in runs.items():
         run.update(route=route, payload_mib_per_s=run["requests_per_s"] * DATA_PLANE_BYTES
                    / 2**20)
         print("data plane: " + json.dumps(run) + f" [{card()}]", flush=True)
     return runs
+
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the port's client, from separate client processes
+# ---------------------------------------------------------------------------
+
+PROC_CLIENTS = 8
+DATA_PLANE_PROC_CLIENTS = 4
+DATA_PLANE_PROC_SIZES = (256 * 2**10, 4 * 2**20)
+
+
+def _client_main(task, args, barrier, results):
+    """A spawned client process: runs ``CLIENT_TASKS[task]`` and puts
+    (worker, result, error) on ``results``, once a task or once a route.
+    It imports torch for the client's dtype tables and never asks for the
+    card: it speaks HTTP and shared memory only."""
+    import traceback
+
+    worker = args.get("worker", 0)
+    try:
+        for result in CLIENT_TASKS[task](barrier=barrier, **args):
+            results.put((worker, result, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails
+        results.put((worker, None, traceback.format_exc()))
+        barrier.abort()  # no process waits for this one any longer
+
+
+def _load_task(barrier, url, worker, routes, images=None, seed=0):
+    """Closed-loop load from one client process: per (route, request
+    indices, bytes) of ``routes``, set up, wait for every process at
+    ``barrier``, send the requests one after another and yield their
+    latencies. With ``images`` ({index: [1, H, W, 3] image}) the model is
+    ``image_classifier`` and the logits go back; otherwise it is
+    ``identity_fp32`` on seed-``seed`` values, and the indices whose
+    answer is not bit for bit what was sent go back."""
+    import numpy as np
+
+    with client_http.InferenceServerClient(url, network_timeout=600) as client:
+        for route, indices, size in routes:
+            if images is not None:
+                model, outputs = "image_classifier", [("OUTPUT", np.float32, [1, 1000])]
+                in_bytes, out_bytes = next(iter(images.values())).nbytes, 4 * 1000
+            else:
+                model, outputs = "identity_fp32", [("OUTPUT0", np.float32, [size // 4])]
+                in_bytes = out_bytes = size
+                base = np.random.default_rng(seed).normal(size=[size // 4]).astype(np.float32)
+            way = _ClientRoute(client, route, f"{route}_{size}", in_bytes, out_bytes)
+            try:
+                barrier.wait(300)
+                latencies, answers, wrong = [], [], []
+                for i in indices:
+                    sent = images[i] if images is not None else base + np.float32(i)
+                    t0 = time.perf_counter()
+                    out = way.infer(model, [(("INPUT" if images is not None else "INPUT0"),
+                                             "FP32", sent)], outputs)[outputs[0][0]]
+                    latencies.append(time.perf_counter() - t0)
+                    if images is not None:
+                        answers.append(out)
+                    elif out.tobytes() != sent.tobytes():
+                        wrong.append(i)
+            finally:
+                way.close()
+            yield {"route": route, "indices": list(indices), "latencies": latencies,
+                   "answers": answers, "wrong": wrong}
+
+
+def _raw_exchange(url, head, body):
+    """(status, body) of one request written as bytes to a fresh socket."""
+    import socket
+
+    host, port = url.rsplit(":", 1)
+    with socket.create_connection((host, int(port)), timeout=60) as sock:
+        sock.sendall(head + body)
+        received = b""
+        while data := sock.recv(1 << 16):
+            received += data
+    split = received.index(b"\r\n\r\n")
+    return int(received.split(b" ", 2)[1]), received[split + 4:]
+
+
+def _correctness_task(barrier, url, image):
+    """Phase 8a in a client process: the port's sync and aio clients
+    against the port's server on the card."""
+    import asyncio
+
+    import numpy as np
+
+    from client_tpu_torch import utils
+    from client_tpu_torch.http import aio
+    from client_tpu_torch.utils.tpu_shared_memory.ring import ShmRing
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(-2**20, 2**20, [3, 16], dtype=np.int32)
+    b = rng.integers(-2**20, 2**20, [3, 16], dtype=np.int32)
+    fp32 = rng.normal(size=[5000]).astype(np.float32)
+    fp32[:3] = [np.inf, -0.0, np.nan]
+    bf16 = utils.deserialize_bf16_tensor(utils.serialize_bf16_tensor(
+        rng.normal(size=[64]).astype(np.float32)))
+    strings = np.array([b"alpha", b"", "\xe9t\xe9".encode()], dtype=object)
+    cases = [("simple", [("INPUT0", "INT32", a), ("INPUT1", "INT32", b)],
+              {"OUTPUT0": a + b, "OUTPUT1": a - b}),
+             ("identity_fp32", [("INPUT0", "FP32", fp32)], {"OUTPUT0": fp32}),
+             ("identity_bf16", [("INPUT0", "BF16", bf16)], {"OUTPUT0": bf16}),
+             ("identity_bytes", [("INPUT0", "BYTES", strings)], {"OUTPUT0": strings})]
+    checked = []
+    barrier.wait(300)
+    with client_http.InferenceServerClient(url) as client:
+        meta = client.get_server_metadata()
+        if not (client.is_server_live() and client.is_server_ready()
+                and client.is_model_ready("simple") and "tpu_shared_memory" in meta["extensions"]
+                and [i["name"] for i in client.get_model_metadata("simple")["inputs"]]
+                == ["INPUT0", "INPUT1"]
+                and client.get_model_config("simple")["max_batch_size"] == 64):
+            raise AssertionError(f"health, metadata or config: {meta}")
+        before = client.get_inference_statistics("simple")["model_stats"][0]["inference_count"]
+        for model, inputs, want in cases:
+            outputs = [(name, arr.dtype, list(arr.shape)) for name, arr in want.items()]
+            for route in ("json", "none", "system", "tpu", "ring"):
+                if (route == "json" and model == "identity_bf16") or (
+                        model == "identity_bytes" and route in ("system", "tpu")):
+                    continue  # BF16 has no JSON form; a BYTES size is the data's own
+                size = sum(x.nbytes for _, _, x in inputs) + 4096
+                way = _ClientRoute(client, route, f"8a_{model}_{route}", size, size)
+                try:
+                    got = way.infer(model, inputs, outputs)
+                finally:
+                    way.close()
+                for name, arr in want.items():
+                    same = (list(got[name].reshape(-1)) == list(arr.reshape(-1))
+                            if arr.dtype == object else got[name].tobytes() == arr.tobytes())
+                    if not same:
+                        raise AssertionError(f"8a {model} over {route}: {name} differs")
+                checked.append(f"{model}/{route}")
+        after = client.get_inference_statistics("simple")["model_stats"][0]["inference_count"]
+        if after - before != 3 * 5:
+            raise AssertionError(f"simple stats counted {after - before} rows, not 15")
+        # region routes: register, status, unregister for both kinds
+        for kind in ("system", "tpu"):
+            way = _ClientRoute(client, kind, f"8a_status_{kind}", 64, 64)
+            status = getattr(client, f"get_{kind}_shared_memory_status")()
+            names = sorted(r["name"] for r in status)
+            way.close()
+            if names != sorted(r.name() for r in way.regions) or getattr(
+                    client, f"get_{kind}_shared_memory_status")():
+                raise AssertionError(f"{kind} region status {status}")
+        # the tiny classifier through a ring: its logits go back for the check
+        ring = ShmRing(n_slots=1, slot_size=image.nbytes + 4 * 1000 + 4096,
+                       name=_shm_key("8a_classifier"))
+        ring.register(client)
+        try:
+            logits = ring.infer(client, "image_classifier", [("INPUT", image)])["OUTPUT"]
+        finally:
+            client.unregister_tpu_shared_memory(ring.region_name)
+            ring.close()
+        # a stale ring slot is refused and the region gone says so
+        ring = ShmRing(n_slots=1, slot_size=1024, name=_shm_key("8a_stale"))
+        ring.register(client)
+        try:
+            ticket = ring.stage([("INPUT0", a[:1]), ("INPUT1", b[:1])])
+            try:
+                client.infer("simple", [], parameters=dict(ticket.parameters,
+                                                           shm_ring_seq=ticket.seq + 1))
+                raise AssertionError("a stale ring slot was served")
+            except utils.InferenceServerException as e:
+                if e.status() != "400" or "stale or torn" not in e.message():
+                    raise
+            ring.release(ticket)
+            client.unregister_tpu_shared_memory(ring.region_name)
+            try:
+                ring.infer(client, "simple", [("INPUT0", a[:1]), ("INPUT1", b[:1])])
+                raise AssertionError("a ring request to an unregistered region was served")
+            except utils.InferenceServerException as e:
+                if e.status() != "400" or "unavailable" not in e.message():
+                    raise
+        finally:
+            ring.close()
+
+    async def aio_ring():
+        ring = ShmRing(n_slots=8, slot_size=2048, name=_shm_key("8a_aio"))
+        async with aio.InferenceServerClient(url) as client:
+            await ring.aregister(client)
+            try:
+                outs = await asyncio.gather(*(ring.ainfer(
+                    client, "simple", [("INPUT0", a[:1] + k), ("INPUT1", b[:1])])
+                    for k in range(8)))
+                tensors = [aio.InferInput(n, [3, 16], "INT32").set_data_from_numpy(x)
+                           for n, x in (("INPUT0", a), ("INPUT1", b))]
+                inline = await client.infer("simple", tensors)
+            finally:
+                await client.unregister_tpu_shared_memory(ring.region_name)
+                ring.close()
+        for k, out in enumerate(outs):
+            if not np.array_equal(out["OUTPUT0"], a[:1] + k + b[:1]):
+                raise AssertionError(f"aio ring request {k} is not its own a+b")
+        if not np.array_equal(inline.as_numpy("OUTPUT1"), a - b):
+            raise AssertionError("aio inline simple is not a-b")
+
+    asyncio.run(aio_ring())
+    # fault 1: the OpenAI route's error body; fault 3: a chunked body
+    body = json.dumps({"model": "simple", "messages": [{"content": "hi"}]}).encode()
+    status, answer = _raw_exchange(url, b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                                   b"Connection: close\r\nContent-Length: %d\r\n\r\n"
+                                   % len(body), body)
+    if status != 400 or json.loads(answer) != {"error": {"message": (
+            "unexpected inference input 'INPUT_IDS' for model 'simple'")}}:
+        raise AssertionError(f"OpenAI error body: {status} {answer!r}")
+    header = json.dumps({"inputs": [{"name": "INPUT0", "shape": [5000], "datatype": "FP32",
+                                     "parameters": {"binary_data_size": fp32.nbytes}}],
+                         "outputs": [{"name": "OUTPUT0",
+                                      "parameters": {"binary_data": True}}]}).encode()
+    payload = header + fp32.tobytes()
+    common = (b"POST /v2/models/identity_fp32/infer HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+              b"Inference-Header-Content-Length: %d\r\n" % len(header))
+    sized = _raw_exchange(url, common + b"Content-Length: %d\r\n\r\n" % len(payload), payload)
+    chunks = b"".join(b"%x\r\n%s\r\n" % (len(payload[i:i + 7000]), payload[i:i + 7000])
+                      for i in range(0, len(payload), 7000)) + b"0\r\n\r\n"
+    chunked = _raw_exchange(url, common + b"Transfer-Encoding: chunked\r\n\r\n", chunks)
+    if not (sized[0] == chunked[0] == 200 and sized[1] == chunked[1]
+            and sized[1].endswith(fp32.tobytes())):
+        raise AssertionError("a chunked body did not answer as its Content-Length twin")
+    yield {"checked": checked, "classifier": logits}
+
+
+CLIENT_TASKS = {"load": _load_task, "correctness": _correctness_task}
+
+
+def run_client_processes(task, arglist, on_round, rounds=1):
+    """Start one spawned client process per entry of ``arglist`` running
+    ``task``; for each of ``rounds`` rounds call ``on_round(go)`` where
+    ``go()`` releases the processes (all set up) and returns their results
+    and the seconds from release to the last result. Fails if a process
+    fails; stops and joins every process."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    barrier = ctx.Barrier(len(arglist) + 1)
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_client_main, args=(task, args, barrier, results), daemon=True)
+             for args in arglist]
+    for proc in procs:
+        proc.start()
+    try:
+        for _ in range(rounds):
+            def go():
+                try:
+                    barrier.wait(300)
+                except threading.BrokenBarrierError:
+                    pass  # a process failed: its error is on the queue
+                t0 = time.perf_counter()
+                got = []
+                while len(got) < len(procs):
+                    worker, result, error = results.get(timeout=300)
+                    if error is not None:
+                        raise AssertionError(f"client process {worker} failed:\n{error}")
+                    got.append(result)
+                return got, time.perf_counter() - t0
+
+            on_round(go)
+    except BaseException:
+        barrier.abort()
+        raise
+    finally:
+        for proc in procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+        results.close()
+    if any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"client exit codes {[p.exitcode for p in procs]}")
+
+
+def client_correctness() -> None:
+    """Phase 8a: the built-ins and a tiny fp32 classifier on the card,
+    driven by the port's sync and aio clients from one client process:
+    health, metadata, config, statistics; region register, status and
+    unregister; ``simple`` exact and the identities bit for bit over
+    JSON, binary, system shm, TPU shm and the ring; the classifier through
+    the ring within phase 7a's bound of its CPU forward; a stale ring slot
+    and an unregistered ring refused; the OpenAI error body; a chunked
+    request body; and, in this process, ``infer_decoupled`` giving a
+    non-decoupled model's one response."""
+    import asyncio
+
+    import numpy as np
+
+    from client_tpu_torch.models import resnet
+    from client_tpu_torch.models.serving import ImageClassifierModel
+    from client_tpu_torch.server import models
+    from client_tpu_torch.server.core import CoreRequest, CoreTensor, ServerCore
+    from client_tpu_torch.server.model_repository import ModelRepository
+
+    config = resnet.ResNetConfig((2, 1, 1, 1), 1000, 16, torch.float32)
+    size = 64
+    cpu_params = perturbed_classifier(config, torch.Generator().manual_seed(5), (0.5, 1.5))
+    image = np.random.default_rng(6).normal(size=[1, size, size, 3]).astype(np.float32)
+    with torch.inference_mode():
+        want = resnet.forward(cpu_params, torch.from_numpy(image), config).numpy()
+    served = [models.AddSubModel(device=DEVICE),
+              models.IdentityModel("identity_fp32", "FP32", device=DEVICE),
+              models.IdentityModel("identity_bf16", "BF16", device=DEVICE),
+              models.BytesIdentityModel(device=DEVICE),
+              ImageClassifierModel(image_size=size, config=config,
+                                   params=_to_device(cpu_params, DEVICE), device=DEVICE)]
+    box = {}
+    with http_server(*served) as port:
+        def collect(go):
+            box["result"] = go()[0][0]
+
+        run_client_processes("correctness", [{"url": f"127.0.0.1:{port}", "image": image}],
+                             collect)
+    result = box["result"]
+    err = float(np.abs(result["classifier"] - want).max())
+    limit = 1e-4 * float(np.abs(want).max())
+    if not (np.isfinite(result["classifier"]).all() and err <= limit):
+        raise AssertionError(f"8a classifier through the ring: {err} > {limit}")
+    # fault 2: a non-decoupled model streams exactly its one response
+    repository = ModelRepository()
+    repository.add_model(models.AddSubModel(device=DEVICE))
+    core = ServerCore(repository)
+    a = np.arange(16, dtype=np.int32).reshape(1, 16)
+
+    async def stream():
+        request = CoreRequest("simple", inputs=[CoreTensor(n, "INT32", [1, 16], a)
+                                                for n in ("INPUT0", "INPUT1")])
+        return [r async for r in core.infer_decoupled(request)]
+
+    try:
+        responses = asyncio.run(stream())
+        stats = core.statistics("simple")["model_stats"][0]
+    finally:
+        core.close()
+    if not (len(responses) == 1 and np.array_equal(responses[0].outputs[0].data, 2 * a)
+            and stats["inference_count"] == 1 and stats["execution_count"] == 1):
+        raise AssertionError(f"infer_decoupled of simple: {responses}, {stats}")
+    print(f"client tiny: from a client process, the port's sync and aio clients: health, "
+          f"metadata, config, stats, system/TPU region register/status/unregister; "
+          f"{len(result['checked'])} model x route answers exact ({', '.join(result['checked'])}); "
+          f"tiny fp32 classifier through the ring within {err:.3g} of the CPU forward (limit "
+          f"{limit:.3g}); stale slot and unregistered ring refused (400); OpenAI error body "
+          f"as the JAX server's; chunked body = its Content-Length twin; infer_decoupled of "
+          f"simple: one response", flush=True)
+
+
+def _load_round(port, model):
+    """``on_round`` for :func:`run_client_processes`: one route's run, with
+    the model's statistics before and after. Returns (round callback,
+    list the runs land in)."""
+    runs = []
+
+    def on_round(go):
+        before = _stats(port, model)
+        got, wall = go()
+        after = _stats(port, model)
+        runs.append((got, wall, before, after))
+
+    return on_round, runs
+
+
+def _summarize(got, wall, before, after, requests):
+    latencies = [x for r in got for x in r["latencies"]]
+    rows = after["inference_count"] - before["inference_count"]
+    executions = after["execution_count"] - before["execution_count"]
+    if len(latencies) != requests or rows != requests or executions < 1:
+        raise AssertionError(f"{len(latencies)} answers, {rows} rows in {executions} "
+                             f"executions, not {requests}")
+    return {
+        "requests": requests, "wall_s": wall, "requests_per_s": requests / wall,
+        "latency_ms_p50": 1e3 * percentile(latencies, 0.5),
+        "latency_ms_p99": 1e3 * percentile(latencies, 0.99),
+        "executions": executions, "rows_per_execution": rows / executions,
+        "compute_infer_ms_mean": (after["inference_stats"]["compute_infer"]["ns"]
+                                  - before["inference_stats"]["compute_infer"]["ns"])
+        / 1e6 / requests,
+    }
+
+
+IMAGE_PROC_ROUTES = ("none", "system", "tpu", "ring")
+
+
+def image_procs(port, images, check, in_process) -> dict:
+    """Phase 8b: phase 7b's 128 one-image requests from 8 client
+    processes (16 each, closed loop) over inline binary, system shm, TPU
+    shm and the ring, each answer held by ``check``; an ``image-procs:``
+    line per route beside 7b's in-process figures of the same route."""
+    import numpy as np
+
+    per = IMAGE_REQUESTS // PROC_CLIENTS
+    arglist = [{"url": f"127.0.0.1:{port}", "worker": w,
+                "routes": [(r, range(w * per, (w + 1) * per), 0) for r in IMAGE_PROC_ROUTES],
+                "images": {i: images[i:i + 1] for i in range(w * per, (w + 1) * per)}}
+               for w in range(PROC_CLIENTS)]
+    on_round, runs = _load_round(port, "image_classifier")
+    run_client_processes("load", arglist, on_round, rounds=len(IMAGE_PROC_ROUTES))
+    results = {}
+    for route, (got, wall, before, after) in zip(IMAGE_PROC_ROUTES, runs):
+        for r in got:
+            for i, answer in zip(r["indices"], r["answers"]):
+                check(i, f"{route} (client processes)", [np.asarray(answer)])
+        run = _summarize(got, wall, before, after, IMAGE_REQUESTS)
+        run.update(route=route, clients=f"{PROC_CLIENTS} processes",
+                   images_per_s=run.pop("requests_per_s"))
+        twin = in_process.get(route)
+        run["in_process_7b"] = None if twin is None else {
+            k: twin[k] for k in ("images_per_s", "latency_ms_p50", "latency_ms_p99",
+                                 "rows_per_execution", "compute_infer_ms_mean")}
+        print("image-procs: " + json.dumps(run) + f" [{card()}]", flush=True)
+        results[route] = run
+    return results
+
+
+def data_plane_procs() -> dict:
+    """Phase 8c: ``identity_fp32`` from 4 client processes (16 requests
+    each, closed loop) at 256 KiB (the reference's ring crossover row,
+    ring slot 2 x size + 4096) and 4 MiB (phase 7c's row), per route (none,
+    system shm, TPU shm, ring); every answer bit-exact to what its
+    process sent. The reference's rows run over gRPC; the port has no gRPC
+    front-end yet, so these run over HTTP."""
+    from client_tpu_torch.server import models
+
+    per = DATA_PLANE_REQUESTS // DATA_PLANE_PROC_CLIENTS
+    combos = [(route, size) for size in DATA_PLANE_PROC_SIZES for route in IMAGE_PROC_ROUTES]
+    results = {}
+    with http_server(models.IdentityModel("identity_fp32", "FP32", device=DEVICE)) as port:
+        arglist = [{"url": f"127.0.0.1:{port}", "worker": w, "seed": 8,
+                    "routes": [(r, range(w * per, (w + 1) * per), s) for r, s in combos]}
+                   for w in range(DATA_PLANE_PROC_CLIENTS)]
+        on_round, runs = _load_round(port, "identity_fp32")
+        run_client_processes("load", arglist, on_round, rounds=len(combos))
+    for (route, size), (got, wall, before, after) in zip(combos, runs):
+        wrong = [i for r in got for i in r["wrong"]]
+        if wrong:
+            raise AssertionError(f"identity_fp32 {route} {size} B requests {wrong} not bit-exact")
+        run = _summarize(got, wall, before, after, DATA_PLANE_REQUESTS)
+        run.update(route=route, bytes_per_request=size,
+                   clients=f"{DATA_PLANE_PROC_CLIENTS} processes",
+                   payload_mib_per_s=run["requests_per_s"] * size / 2**20,
+                   transport="HTTP/1.1 (the reference's row runs over gRPC, not ported yet)")
+        print("data-plane-procs: " + json.dumps(run) + f" [{card()}]", flush=True)
+        results[(route, size)] = run
+    return results
 
 
 def main() -> int:
@@ -1678,6 +2083,8 @@ def main() -> int:
     classifier_tiny()
     classifier_resnet50()
     data_plane()
+    client_correctness()
+    data_plane_procs()
     line = {
         "kernels": [
             {

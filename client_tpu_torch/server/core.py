@@ -20,11 +20,14 @@ Inputs and outputs may live in shared-memory regions registered with
 :attr:`ServerCore.shm` (system and TPU kinds): an input is a read-only
 zero-copy view of its region, and an output asked for in a region is
 written there after the execution's one device-to-host read — in a
-dynamic batch, each request's own rows into its own region.
+dynamic batch, each request's own rows into its own region. A request
+may instead name a slot of a shared-memory ring
+(:attr:`ServerCore.shm_rings`, ``server/shm_ring.py``): the front-end
+reads its inputs from the slot and writes its response back there.
 
 Not ported yet: metrics, profiling, exemplars, traces, drain and
-lifecycle, the shared-memory slot rings, the direct (pump-thread) batch
-path, rate limiting and the admission gate of the unbatched path.
+lifecycle, the direct (pump-thread) batch path, rate limiting and the
+admission gate of the unbatched path.
 """
 
 import asyncio
@@ -52,6 +55,7 @@ from client_tpu_torch.server.model_repository import (
 )
 from client_tpu_torch.server.models import pad_batch_bucket
 from client_tpu_torch.server.shm import SharedMemoryManager
+from client_tpu_torch.server.shm_ring import RingRegistry
 from client_tpu_torch.utils import (
     InferenceServerException,
     deserialize_bf16_tensor,
@@ -109,6 +113,10 @@ class CoreRequest:
     # in monotonic ns (None = no deadline)
     priority_level: int = 0
     deadline_ns: Optional[int] = None
+    # shm-ring ticket (server.shm_ring.RingTicket) attached by the
+    # front-end when the request sourced its inputs from a ring slot;
+    # the front-end routes the response back through ticket.complete()
+    shm_ring: Optional[Any] = None
 
 
 @dataclass(slots=True)
@@ -504,6 +512,8 @@ class ServerCore:
         self._stats_lock = threading.Lock()
         self._batchers: Dict[str, _ModelBatcher] = {}
         self.shm = SharedMemoryManager()
+        # rings over registered regions, validated once per registration
+        self.shm_rings = RingRegistry(self.shm)
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="client-tpu-torch-exec"
         )
@@ -718,13 +728,13 @@ class ServerCore:
         self, request: CoreRequest
     ) -> AsyncIterator[CoreResponse]:
         """Execute a streaming inference; yields 0..N responses, the last
-        marked ``triton_final_response``. Only decoupled models stream
-        here; the others answer through :meth:`infer`."""
+        marked ``triton_final_response``. A non-decoupled model yields
+        exactly one response, booked by :meth:`infer`, so a streaming
+        front-end serves both kinds (Triton semantics)."""
         model = self.repository.get(request.model_name, request.model_version)
         if not model.decoupled:
-            raise InferenceServerException(
-                f"model '{model.name}' is not decoupled; use infer"
-            )
+            yield await self.infer(request)
+            return
         # engine-backed models run their device calls on this core's
         # executor; one getattr per stream start, idempotent per core
         bind = getattr(model, "bind_core", None)

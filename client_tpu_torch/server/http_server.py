@@ -10,9 +10,13 @@ status and a refused registration) — and the OpenAI-compatible
 routes (``server/openai_frontend.py``), with Server-Sent Events over a
 chunked response when a request asks to stream. Connections are kept
 alive between requests unless the client sends ``Connection: close``.
-Request bodies need a ``Content-Length``; gzip and deflate request bodies
-are inflated, and responses are compressed when the client's
-``Accept-Encoding`` asks for it.
+Request bodies come with a ``Content-Length`` or chunked, up to 1 GiB
+(the JAX server's limit); gzip and deflate request bodies are inflated,
+and responses are compressed when the client's ``Accept-Encoding`` asks
+for it. An inference request may name a shared-memory ring slot
+(``shm_ring_region``/``shm_ring_slot``/``shm_ring_seq`` parameters,
+``server/shm_ring.py``): its inputs are read from the slot and its
+outputs written back there.
 """
 
 import asyncio
@@ -29,6 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from client_tpu_torch.http._utils import read_chunked
+from client_tpu_torch.server import shm_ring
 from client_tpu_torch.server.core import (
     SERVER_EXTENSIONS,
     SERVER_NAME,
@@ -41,7 +47,7 @@ from client_tpu_torch.server.core import (
 from client_tpu_torch.utils import InferenceServerException, serialize_byte_tensor
 
 MAX_HEADER_BYTES = 64 * 1024
-MAX_BODY_BYTES = 64 * 1024 * 1024
+MAX_BODY_BYTES = 1 << 30
 HEADER_CONTENT_LENGTH = "Inference-Header-Content-Length"
 
 _log = logging.getLogger(__name__)
@@ -161,17 +167,24 @@ async def _read_request(reader: asyncio.StreamReader):
             raise HttpError(400, f"bad header line {line!r}")
         headers[name.strip().lower()] = value.strip()
     if "chunked" in headers.get("transfer-encoding", "").lower():
-        raise HttpError(501, "chunked request bodies are not supported")
-    try:
-        length = int(headers.get("content-length", "0"))
-    except ValueError:
-        raise HttpError(400, "bad Content-Length") from None
-    if length < 0 or length > MAX_BODY_BYTES:
-        raise HttpError(413, f"body of {length} bytes refused")
-    try:
-        body = await reader.readexactly(length) if length else b""
-    except asyncio.IncompleteReadError:
-        raise HttpError(400, "truncated request body") from None
+        try:
+            body = await read_chunked(reader, MAX_BODY_BYTES)
+        except ValueError as e:
+            raise HttpError(400, f"malformed chunked body: {e}") from None
+        except OverflowError:
+            raise HttpError(413, f"chunked body over {MAX_BODY_BYTES} bytes refused") from None
+    else:
+        try:
+            length = int(headers.get("content-length", "0"))
+        except ValueError:
+            raise HttpError(400, "bad Content-Length") from None
+        # checked before the read: readexactly allocates the whole body
+        if length < 0 or length > MAX_BODY_BYTES:
+            raise HttpError(413, f"body of {length} bytes refused")
+        try:
+            body = await reader.readexactly(length) if length else b""
+        except asyncio.IncompleteReadError:
+            raise HttpError(400, "truncated request body") from None
     path = target.split("?", 1)[0]
     return method, path, version, headers, body
 
@@ -416,7 +429,15 @@ class HttpServer:
             raise InferenceServerException(
                 f"malformed inference request: {e!r}"
             ) from None
-        core_response = await self.core.infer(core_request)
+        ticket = core_request.shm_ring
+        try:
+            core_response = await self.core.infer(core_request)
+        except BaseException:
+            if ticket is not None:
+                ticket.fail()
+            raise
+        if ticket is not None:
+            core_response = ticket.complete(core_response)
         return self._build_response(
             payload, core_response, request.headers.get("accept-encoding", "")
         )
@@ -469,6 +490,9 @@ class HttpServer:
                 shm_byte_size=int(params.get("shared_memory_byte_size", 0)),
                 shm_offset=int(params.get("shared_memory_offset", 0)),
             ))
+        # a ring request: its inputs come from the slot, and its ring
+        # parameters leave the request here, before the batch signature
+        shm_ring.attach(self.core, request)
         return request
 
     @staticmethod

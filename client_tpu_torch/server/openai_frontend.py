@@ -35,6 +35,15 @@ def _messages_to_prompt(body: Dict[str, Any]) -> str:
     return str(body.get("prompt", ""))
 
 
+def _mapped_error(e: InferenceServerException) -> Response:
+    """A core exception in the OpenAI body shape, ``{"error": {"message":
+    ...}}``, with its own status and ``Retry-After`` (the JAX server's
+    ``_mapped_error``)."""
+    response = error_response(e)
+    response.body = json.dumps({"error": {"message": e.message()}}).encode()
+    return response
+
+
 def _invalid_request(message: str, param: str) -> Response:
     """OpenAI-style 400 error body (error.type/param/code)."""
     return json_response(
@@ -224,7 +233,7 @@ class OpenAiFrontend:
             }
             return json_response(doc)
         except InferenceServerException as e:
-            return error_response(e)
+            return _mapped_error(e)
         finally:
             await iterator.aclose()
 

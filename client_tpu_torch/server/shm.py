@@ -156,11 +156,15 @@ class SharedMemoryManager:
                                  "byte_size": r.byte_size, "key": r.key}
             return result
 
+    def region(self, name: str) -> Optional[_Region]:
+        """The registered region ``name``, or None."""
+        with self._lock:
+            return self._regions.get(name)
+
     def read(self, name: str, offset: int, byte_size: int) -> memoryview:
         """A writable view of ``byte_size`` bytes at ``offset`` of region
         ``name``, bounds-checked against its registered size."""
-        with self._lock:
-            region = self._regions.get(name)
+        region = self.region(name)
         if region is None:
             raise InferenceServerException(f"Unable to find shared memory region: '{name}'")
         return region.view(offset, byte_size)

@@ -1,8 +1,8 @@
 """TPU shared-memory regions: the data plane that takes the place of
 Triton's CUDA IPC, as the JAX package defines it.
 
-An own copy of ``client_tpu/utils/tpu_shared_memory`` (without its slot
-ring). A region is a POSIX shared-memory buffer that client and server
+An own copy of ``client_tpu/utils/tpu_shared_memory``; its slot ring is
+:mod:`client_tpu_torch.utils.tpu_shared_memory.ring`. A region is a POSIX shared-memory buffer that client and server
 both map; its raw handle (:func:`get_raw_handle`) is the same JSON
 document, ``{"kind": "tpu-host-pinned", "shm_key", "byte_size",
 "device_id"}``, so a region either package creates registers with

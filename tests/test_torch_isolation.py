@@ -2,16 +2,18 @@
 
 - An AST scan of ``client_tpu_torch/``, ``chip_smoke.py`` and
   ``attention_bench.py`` (which ``chip_smoke.py`` imports) finds no
-  import of ``jax``, ``flax``, ``optax`` or ``client_tpu``.
-- A subprocess in which importing ``jax`` (or ``client_tpu``) fails
-  imports every module of the port.
+  import of ``jax``, ``flax``, ``optax``, ``aiohttp`` or ``client_tpu``.
+- A subprocess in which importing ``jax``, ``aiohttp`` or ``client_tpu``
+  fails imports every module of the port.
 - On a host with no card, an entry point called without
   ``device="cpu"`` (the LLM engine, the text encoder, the image
   classifier, the built-in models, the server CLI, the TPU shared-memory
-  import onto the device) raises instead of running on the CPU.
+  import onto the device, the HTTP client's tensor import and export)
+  raises instead of running on the CPU.
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -21,15 +23,25 @@ import pytest
 import torch
 
 from client_tpu_torch.models import llama
-from client_tpu_torch.utils import resolve_device
+from client_tpu_torch.utils import bfloat16, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "client_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "client_tpu")
-# modules of the latest slice, named so that a scan that missed them fails
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aiohttp", "client_tpu")
+# modules of the latest slices, named so that a scan that missed them fails
 SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm",
                  "client_tpu_torch.utils.shared_memory",
-                 "client_tpu_torch.utils.tpu_shared_memory")
+                 "client_tpu_torch.utils.tpu_shared_memory",
+                 "client_tpu_torch.utils.tpu_shared_memory.ring",
+                 "client_tpu_torch.server.shm_ring", "client_tpu_torch.http",
+                 "client_tpu_torch.http.aio", "client_tpu_torch.http._utils",
+                 "client_tpu_torch.http._infer_input", "client_tpu_torch.http._infer_result",
+                 "client_tpu_torch.http._requested_output", "client_tpu_torch._client",
+                 "client_tpu_torch._request", "client_tpu_torch._plugin",
+                 "client_tpu_torch._auth", "client_tpu_torch._sync_runner",
+                 "client_tpu_torch.resilience.policy", "client_tpu_torch.lifecycle.pool",
+                 "client_tpu_torch.lifecycle.routing", "client_tpu_torch.lifecycle.hedge",
+                 "client_tpu_torch.observability.trace", "client_tpu_torch.testing.inprocess")
 
 
 def _port_files():
@@ -167,6 +179,27 @@ def test_image_and_shm_entry_points_raise_without_a_card(no_card):
         assert on_cpu.device.type == "cpu" and on_cpu.tolist() == [0.0, 1.0, 2.0, 3.0]
     finally:
         tpushm.destroy_shared_memory_region(region)
+
+
+def test_client_tensor_entry_points_raise_without_a_card(no_card):
+    from client_tpu_torch.http import InferInput, InferResult
+
+    body = json.dumps({"outputs": [{"name": "Y", "datatype": "FP32", "shape": [2],
+                                    "data": [1.0, 2.0]}]}).encode()
+    result = InferResult(body, None)
+    for make in (lambda: result.as_torch("Y"), lambda: result.as_torch("Y", device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # the CPU is there when asked for
+    assert result.as_torch("Y", device="cpu").tolist() == [1.0, 2.0]
+    values = np.random.default_rng(0).normal(size=[2, 3]).astype(np.float32)
+    from_torch = InferInput("X", [2, 3], "FP32").set_data_from_torch(torch.from_numpy(values))
+    from_numpy = InferInput("X", [2, 3], "FP32").set_data_from_numpy(values)
+    assert from_torch._get_binary_data() == from_numpy._get_binary_data() == values.tobytes()
+    assert from_torch._get_tensor_json() == from_numpy._get_tensor_json()
+    sent = InferInput("X", [2], "BF16").set_data_from_torch(
+        torch.tensor([1.5, -2.0], dtype=torch.bfloat16))
+    assert sent._get_binary_data() == np.array([1.5, -2.0], dtype=bfloat16).tobytes()
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

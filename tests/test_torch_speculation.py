@@ -501,3 +501,61 @@ def test_config_carries_speculation_and_its_stats(weights):
         assert "speculation_stats" not in parameters
     finally:
         plain.shutdown()
+
+
+def test_spec_kv_airtight_under_mixed_traffic(weights):
+    """The twin of the JAX package's test of the same name: a pool of 8
+    blocks, far smaller than the traffic's working set, under accepted,
+    rejected, preempted and cancelled speculative work. The shared prefix
+    block's bytes never change, every stream equals JAX ``generate``, and
+    every block (speculative lookahead included) comes back."""
+    jax_params, params = weights
+    prefix = [9, 3, 7, 1, 5, 2, 8, 4]  # one full block at block_size 8
+    model = LlmEngineModel(
+        config=CONFIG, params=params, device="cpu",
+        speculation={"mode": "draft", "draft": "self", "k": 3},
+        engine_config=EngineConfig(block_size=8, num_blocks=8, max_active=8, max_queue=32,
+                                   max_seq_len=64),
+    )
+    model.warmup()
+    engine = model.engine
+    prompts = [prefix + [30 + i] for i in range(4)]
+    generate = jax.jit(lambda p, t: jax_llama.generate(p, t, JAX_CONFIG, 14))
+    refs = [np.asarray(generate(jax_params, np.array([p], dtype=np.int32)))[0].tolist()
+            for p in prompts]
+
+    async def run():
+        # a holder pins the shared prefix block while speculative traffic
+        # churns around it
+        holder = engine.submit(prefix + [77, 78], max_tokens=8)
+        _, final = await holder.__anext__()
+        assert not final
+        shared = list(engine.allocator.owned(holder.seq_id))[:1]
+
+        def snapshot():
+            return [(k[phys].clone(), v[phys].clone())
+                    for k, v in engine._pages for phys in shared]
+
+        before = snapshot()
+        cancelled = engine.submit(prefix + [99], max_tokens=16)  # cancelled mid-flight
+        await cancelled.__anext__()
+        engine.release(cancelled)
+        results = await asyncio.gather(*(_generate(model, p, 14) for p in prompts))
+        for (bk, bv), (ak, av) in zip(before, snapshot()):
+            assert torch.equal(bk, ak) and torch.equal(bv, av)
+        engine.release(holder)
+        for _ in range(200):
+            if engine.stats()["kv_blocks_in_use"] == 0:
+                break
+            await asyncio.sleep(0)
+        return results
+
+    try:
+        results = asyncio.run(run())
+        assert results == refs
+        stats = engine.stats()
+        assert stats["preemptions"] > 0
+        assert stats["spec_steps"] > 0
+        assert stats["kv_blocks_in_use"] == 0
+    finally:
+        model.shutdown()
