@@ -70,6 +70,22 @@ result line:
    7b holds them (``image-procs:``, beside 7b's in-process figures); (c)
    ``identity_fp32`` from 4 processes at 256 KiB and 4 MiB over the four
    routes, 64 requests each, bit-exact (``data-plane-procs:``).
+9. the port's perf harness and genai-perf (``python -m
+   client_tpu_torch.perf`` / ``client_tpu_torch.genai_perf``), each run a
+   subprocess that cannot see the card, with three 2 s windows (4 s for
+   9d) and its own guards: no error, every completed request booked by
+   the server's statistics, non-zero server queue and compute times, no
+   region left registered. They run on the servers they measure, inside
+   the phases that hold them: (a) on 7b's ResNet-50, ``-b 4
+   --concurrency-range 8`` over none, system and TPU shm and the same
+   profiler in-process on the server's ``ServerCore``, with the north-star
+   ratio HTTP + TPU shm to in-process (``perf 9a:``); (b) Poisson arrivals
+   over TPU shm at half of a closed ``-b 1`` run's rate (``perf 9b:``);
+   (c) on 6b's BERT-large, ``--concurrency-range 4:16:12`` over 6b's
+   first 16 requests (``perf 9c:``); (d) on phase 4's Llama-7B,
+   genai-perf over the OpenAI route, 8 streams of 32 tokens, every
+   request's token events equal to its ``max_tokens``, K1 launches >= 32
+   x decode steps (``perf 9d (genai-perf):``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -82,7 +98,9 @@ import json
 import math
 import os
 import re
+import subprocess
 import sys
+import tempfile
 import threading
 import time
 import uuid
@@ -547,6 +565,11 @@ def profile_step(engine, contexts, rows: int = 1) -> dict:
     return result
 
 
+# port -> (ServerCore, its event loop) of each server http_server runs;
+# phase 9a drives the same core in-process
+SERVING = {}
+
+
 @contextlib.contextmanager
 def http_server(*models):
     """``ServerCore`` + the HTTP front-end on a loopback port serving
@@ -584,8 +607,11 @@ def http_server(*models):
     try:
         if "server" not in box:
             raise AssertionError("the HTTP front-end did not start")
+        SERVING[box["server"].port] = (core, loop)
         yield box["server"].port
     finally:
+        if "server" in box:
+            SERVING.pop(box["server"].port, None)
         async def stop():
             if "server" in box:
                 await box["server"].close()
@@ -717,11 +743,13 @@ def serve_7b() -> tuple:
             raise AssertionError(f"7B prefill logits: shape {logits.shape}, finite "
                                  f"{np.isfinite(logits).all()}")
         profile_step(engine, [len(p.split()) + SERVE_TOKENS for p in _prompts()])
+        served_by_harness = genai_perf_7b(port, engine, config.n_layers)
 
     result = latency(records, wall)
     result.update(decode_steps=decode_steps, k1_launches=launches,
                   prefix_blocks_shared=prefix_hits)
     print("serve: " + json.dumps(result) + f" [{card()}]", flush=True)
+    result["genai_perf"] = served_by_harness
     params = model._params
     # only one 17 GB pool at a time: drop this engine and its pool
     model.engine = None
@@ -1142,6 +1170,7 @@ def kserve_bert_large() -> dict:
         answers, latencies, wall = _concurrently(port, KSERVE_CLIENTS,
                                                  lambda c, w: _ClientRoute(c, "none"), work)
         after = _stats(port, "text_encoder")
+        swept = perf_bert(port, seqs[:16])
     worst = 0.0
     with torch.inference_mode():
         for seq, got in zip(seqs, answers):
@@ -1182,6 +1211,7 @@ def kserve_bert_large() -> dict:
         "card": card(),
     }
     print("kserve: " + json.dumps(result), flush=True)
+    result["perf_9c"] = swept
     result["profile"] = profile_execution(model, config)
     return result
 
@@ -1558,7 +1588,8 @@ def classifier_resnet50() -> dict:
             run.update(route=route, images_per_s=run.pop("requests_per_s"))
             print("image: " + json.dumps(run) + f" [{card()}]", flush=True)
         procs = image_procs(port, images, check, runs)
-    result = {"runs": runs, "procs": procs, "load_s": load_s, "warmup_s": warmup_s,
+        harness = perf_image(port)
+    result = {"runs": runs, "procs": procs, "perf_9ab": harness, "load_s": load_s, "warmup_s": warmup_s,
               "parameters": count, "max_err_share_of_limit": worst[0],
               "least_gap_share_of_limit": distinct / 2e-2}
     print(f"image: every answer of the three in-process runs and of phase 8b's four within "
@@ -2059,6 +2090,238 @@ def data_plane_procs() -> dict:
         print("data-plane-procs: " + json.dumps(run) + f" [{card()}]", flush=True)
         results[(route, size)] = run
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the port's perf harness and genai-perf, in subprocesses
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# short windows: three of 2 s, stable within 50 %
+HARNESS_WINDOWS = ["--measurement-interval", "2000", "--max-trials", "3",
+                   "--stability-percentage", "50"]
+
+
+def _harness(module, args) -> str:
+    """``python -m module args`` in a subprocess that cannot see the card
+    (``CUDA_VISIBLE_DEVICES`` empty): the harness speaks HTTP and shared
+    memory only. A non-zero exit fails the run. Returns its stdout."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _no_regions(port) -> None:
+    with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+        left = (client.get_system_shared_memory_status(),
+                client.get_tpu_shared_memory_status())
+    if any(left):
+        raise AssertionError(f"regions left registered after a harness run: {left}")
+
+
+def _booked(before, after, field="success"):
+    return (after["inference_stats"][field]["count"]
+            - before["inference_stats"][field]["count"])
+
+
+def perf_run(port, model, args) -> dict:
+    """One run of the port's perf-analyzer against ``model`` with ``args``:
+    its ``--json-summary``, CSV rows and profile export, held to the
+    guards (no error, every completed request booked by the server,
+    non-zero server queue and compute times in every row, no region left
+    registered)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, export_path = os.path.join(tmp, "out.csv"), os.path.join(tmp, "export.json")
+        before = _stats(port, model)
+        t0 = time.perf_counter()
+        out = _harness("client_tpu_torch.perf", [
+            "-m", model, "-u", f"127.0.0.1:{port}", *args, *HARNESS_WINDOWS,
+            "-f", csv_path, "--profile-export-file", export_path, "--json-summary"])
+        wall = time.perf_counter() - t0
+        after = _stats(port, model)
+        summary = json.loads(out.strip().splitlines()[-1])
+        with open(csv_path) as f:
+            header, *lines = [line.split(",") for line in f.read().strip().splitlines()]
+        rows = [dict(zip(header, line)) for line in lines]
+        with open(export_path) as f:
+            requests = [r for e in json.load(f)["experiments"] for r in e["requests"]]
+    _no_regions(port)
+    failed = [r for r in requests if not r["success"]]
+    if summary["errors"] or failed or not requests:
+        raise AssertionError(f"{model} {args}: {summary['errors']} errors, {len(failed)} "
+                             f"failed of {len(requests)} exported requests")
+    if _booked(before, after) < len(requests):
+        raise AssertionError(f"{model} {args}: the server booked {_booked(before, after)} "
+                             f"successes for {len(requests)} completed requests")
+    for row in rows:
+        if not (float(row["Server Queue"]) > 0 and float(row["Server Compute Infer"]) > 0):
+            raise AssertionError(f"{model} {args}: server times missing from {row}")
+    executions = after["execution_count"] - before["execution_count"]
+    return {
+        "infer_per_s": summary["throughput"],
+        "p50_ms": summary["p50_us"] / 1e3,
+        "p99_ms": summary["p99_us"] / 1e3,
+        "points": [{key: float(row[key]) for key in (
+            header[0], "Inferences/Second", "p99 latency", "Server Queue",
+            "Server Compute Infer")} for row in rows],
+        "server_queue_us": float(rows[-1]["Server Queue"]),
+        "server_compute_infer_us": float(rows[-1]["Server Compute Infer"]),
+        "rows_per_execution": (after["inference_count"] - before["inference_count"])
+        / max(1, executions),
+        "completed": len(requests),
+        "wall_s": wall,
+    }
+
+
+def local_twin(port, model, batch, concurrency) -> dict:
+    """The same profiler in-process: ``LocalPerfBackend`` on the server's
+    own ``ServerCore``, on its event loop (the in-process twin of the
+    reference's ``bench.py`` north-star row)."""
+    import asyncio
+
+    from client_tpu_torch.perf.backend import LocalPerfBackend
+    from client_tpu_torch.perf.data import DataLoader
+    from client_tpu_torch.perf.load_manager import ConcurrencyManager
+    from client_tpu_torch.perf.profiler import InferenceProfiler
+
+    core, loop = SERVING[port]
+
+    async def run():
+        local = LocalPerfBackend(core)
+        config = await local.get_model_config(model)
+        loader = DataLoader(await local.get_model_metadata(model), batch_size=batch,
+                            batched=config["max_batch_size"] > 0)
+        loader.generate_synthetic()
+        manager = ConcurrencyManager(local, model, loader)
+        profiler = InferenceProfiler(manager, measurement_interval_s=2.0, stability_pct=50.0,
+                                     max_trials=3)
+        (experiment,) = await profiler.profile_concurrency_range(concurrency, concurrency)
+        return experiment
+
+    experiment = asyncio.run_coroutine_threadsafe(run(), loop).result(600)
+    s = experiment.status
+    if s.error_count or not s.request_count or not (s.server_queue_us > 0
+                                                     and s.server_compute_infer_us > 0):
+        raise AssertionError(f"in-process twin: {s.error_count} errors, {s.request_count} "
+                             f"requests, server {s.server_queue_us} / "
+                             f"{s.server_compute_infer_us} us")
+    return {"infer_per_s": s.throughput, "p50_ms": s.latency_percentiles_us[50] / 1e3,
+            "p99_ms": s.latency_percentiles_us[99] / 1e3,
+            "server_queue_us": s.server_queue_us,
+            "server_compute_infer_us": s.server_compute_infer_us}
+
+
+def perf_image(port) -> dict:
+    """Phases 9a-9b on phase 7b's ResNet-50 server. 9a, the north-star
+    row: ``-b 4 --concurrency-range 8`` over ``--shared-memory none``,
+    ``system`` and ``tpu``, and the same profiler in-process; the ratio of
+    HTTP + TPU shm to in-process is reported (BASELINE.json's target is
+    0.9), not gated. 9b, open load: Poisson arrivals at half the infer/s
+    of a ``-b 1 --concurrency-range 8`` TPU-shm run made just before."""
+    t0 = time.perf_counter()
+    rows = {}
+    for route in ("none", "system", "tpu"):
+        rows[route] = perf_run(port, "image_classifier",
+                               ["-b", "4", "--concurrency-range", "8", "--shared-memory", route])
+    rows["in-process"] = local_twin(port, "image_classifier", 4, 8)
+    for route, row in rows.items():
+        row.update(route=route, images_per_s=4 * row["infer_per_s"])
+        print("perf 9a: " + json.dumps(row) + f" [{card()}]", flush=True)
+    north_star = rows["tpu"]["infer_per_s"] / rows["in-process"]["infer_per_s"]
+    print(f"perf 9a: HTTP + TPU shm / in-process = {north_star:.3f} (BASELINE.json's target "
+          f"0.9, reported, not gated) [{card()}]", flush=True)
+    closed = perf_run(port, "image_classifier",
+                      ["-b", "1", "--concurrency-range", "8", "--shared-memory", "tpu"])
+    target = closed["infer_per_s"] / 2
+    opened = perf_run(port, "image_classifier",
+                      ["-b", "1", "--request-rate-range", f"{target:.3f}",
+                       "--request-distribution", "poisson", "--shared-memory", "tpu"])
+    result = {"closed_c8": closed, "open": opened, "target_per_s": target,
+              "achieved_per_s": opened["infer_per_s"],
+              "achieved_share": opened["infer_per_s"] / target}
+    print("perf 9b: " + json.dumps(result) + f" [{card()}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"perf 9a-9b: {wall:.1f} s", flush=True)
+    return {"rows": rows, "north_star_ratio": north_star, "open": result, "wall_s": wall}
+
+
+def perf_bert(port, seqs) -> dict:
+    """Phase 9c on phase 6b's BERT-large server: BASELINE.json's sweep,
+    ``--concurrency-range 4:16:12`` over an ``--input-data`` file of
+    phase 6b's first 16 requests."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.json")
+        with open(path, "w") as f:
+            json.dump({"data": [{"INPUT_IDS": {"content": s.tolist(), "shape": [1, len(s)]}}
+                                for s in seqs]}, f)
+        result = perf_run(port, "text_encoder",
+                          ["--concurrency-range", "4:16:12", "--input-data", path])
+    result["lengths"] = [len(s) for s in seqs]
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print("perf 9c: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def genai_perf_7b(port, engine, n_layers) -> dict:
+    """Phase 9d on phase 4's Llama-7B server: genai-perf over the OpenAI
+    route, 8 concurrent streams, 16 prompts of 250 ± 50 synthetic words
+    (one token each on both sides), 32 output tokens. Every request's
+    token events equal its ``max_tokens`` and every stream ends in
+    ``[DONE]`` (the harness fails a stream without it); K1 launches are
+    counted as phase 4 counts them."""
+    t0 = time.perf_counter()
+    before = _stats(port, "llm_engine")
+    steps0 = engine.steps
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- counters zeroed just before, read just after --
+        pa.paged_attention_cuda.launches = 0
+        out = _harness("client_tpu_torch.genai_perf", [
+            "-m", "llm_engine", "-u", f"127.0.0.1:{port}", "--service-kind", "openai",
+            "--endpoint-type", "openai-chat", "--streaming", "--tokenizer", "synthetic",
+            "--concurrency", "8", "--num-prompts", "16",
+            "--synthetic-input-tokens-mean", "250", "--synthetic-input-tokens-stddev", "50",
+            "--output-tokens-mean", str(SERVE_TOKENS), "--measurement-interval", "4000",
+            "--stability-percentage", "50", "--max-trials", "3", "--artifact-dir", tmp,
+            "--json-summary"])
+        launches = pa.paged_attention_cuda.launches
+        # --------------------------------------------------
+        decode_steps = engine.steps - steps0
+        with open(os.path.join(tmp, "profile_export.json")) as f:
+            requests = json.load(f)["experiments"][0]["requests"]
+        with open(os.path.join(tmp, "llm_inputs.json")) as f:
+            asked = {json.loads(e["payload"]["content"][0])["max_tokens"]
+                     for e in json.load(f)["data"]}
+    summary = next(json.loads(line) for line in reversed(out.splitlines())
+                   if line.startswith("{") and "ttft_avg_ms" in line)
+    after = _stats(port, "llm_engine")
+    if asked != {SERVE_TOKENS}:
+        raise AssertionError(f"the corpus asked for max_tokens {asked}")
+    wrong = [len(r["response_timestamps"]) for r in requests
+             if not r["success"] or len(r["response_timestamps"]) != SERVE_TOKENS]
+    if wrong or not requests:
+        raise AssertionError(f"genai-perf: {len(wrong)} of {len(requests)} requests failed or "
+                             f"streamed other than {SERVE_TOKENS} tokens: {wrong[:8]}")
+    if _booked(before, after) < len(requests):
+        raise AssertionError(f"the server booked {_booked(before, after)} streams for "
+                             f"{len(requests)} completed requests")
+    if not 0 < n_layers * decode_steps <= launches:
+        raise AssertionError(f"K1 launched {launches} times for {decode_steps} decode steps "
+                             f"x {n_layers} layers")
+    # streams the harness cut at its end finish on the server; none may leak
+    deadline = time.monotonic() + 120
+    while engine.allocator.blocks_in_use and time.monotonic() < deadline:
+        time.sleep(0.1)
+    if engine.allocator.blocks_in_use:
+        raise AssertionError(f"{engine.allocator.blocks_in_use} KV blocks leaked after 9d")
+    result = dict(summary, completed=len(requests), decode_steps=decode_steps,
+                  k1_launches=launches, wall_s=time.perf_counter() - t0)
+    print("perf 9d (genai-perf): " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
 
 
 def main() -> int:

@@ -730,7 +730,8 @@ class ServerCore:
         """Execute a streaming inference; yields 0..N responses, the last
         marked ``triton_final_response``. A non-decoupled model yields
         exactly one response, booked by :meth:`infer`, so a streaming
-        front-end serves both kinds (Triton semantics)."""
+        front-end serves both kinds (Triton semantics). A decoupled
+        stream that runs to its end is booked as one successful request."""
         model = self.repository.get(request.model_name, request.model_version)
         if not model.decoupled:
             yield await self.infer(request)
@@ -740,13 +741,29 @@ class ServerCore:
         bind = getattr(model, "bind_core", None)
         if bind is not None:
             bind(self)
+        # a stream is booked as one request, as the reference books it:
+        # queue 0, compute_infer its life less the packaging of its
+        # responses, compute_output that packaging; a stream that fails
+        # (not one its consumer closes) is booked as a failure
+        stats = self._stats_for(model.name)
+        t0 = time.monotonic_ns()
+        packaging_ns = 0
         inputs = {t.name: t.data for t in request.inputs}
-        async for raw in model.execute_decoupled(inputs, request.parameters):
-            final = raw.pop("__final__", False)
-            response = self._package_outputs(model, request, raw)
-            if final:
-                response.parameters["triton_final_response"] = True
-            yield response
+        try:
+            async for raw in model.execute_decoupled(inputs, request.parameters):
+                p0 = time.monotonic_ns()
+                final = raw.pop("__final__", False)
+                response = self._package_outputs(model, request, raw)
+                if final:
+                    response.parameters["triton_final_response"] = True
+                packaging_ns += time.monotonic_ns() - p0
+                yield response
+        except Exception:
+            stats.record("fail", time.monotonic_ns() - t0)
+            raise
+        t1 = time.monotonic_ns()
+        stats.record_success(self._resolve_batch(model, request), queue_ns=0, in_ns=0,
+                             infer_ns=t1 - t0 - packaging_ns, out_ns=packaging_ns)
 
     # -- wire-side input decoding -------------------------------------------
 

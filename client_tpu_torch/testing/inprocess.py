@@ -82,9 +82,13 @@ class InProcessServer:
             await self._stop.wait()
         finally:
             await server.close()
+            # on the loop, while it runs: an engine model's shutdown fails
+            # its live streams through queues bound to this loop
+            self.core.close()
 
     def stop(self) -> None:
-        """Close the front-end and its connections, then the core."""
+        """Close the front-end and its connections, then the core (on the
+        server's loop; again here, idempotently, if it never started)."""
         if self._loop is not None and self._stop is not None:
             self._loop.call_soon_threadsafe(self._stop.set)
         if self._thread is not None:

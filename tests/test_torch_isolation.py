@@ -2,9 +2,11 @@
 
 - An AST scan of ``client_tpu_torch/``, ``chip_smoke.py`` and
   ``attention_bench.py`` (which ``chip_smoke.py`` imports) finds no
-  import of ``jax``, ``flax``, ``optax``, ``aiohttp`` or ``client_tpu``.
-- A subprocess in which importing ``jax``, ``aiohttp`` or ``client_tpu``
-  fails imports every module of the port.
+  import of ``jax``, ``flax``, ``optax``, ``aiohttp``, ``grpc`` or
+  ``client_tpu``.
+- A subprocess in which importing ``jax``, ``aiohttp``, ``grpc`` or
+  ``client_tpu`` fails imports every module of the port (the perf
+  harness's CLI and genai-perf's among them).
 - On a host with no card, an entry point called without
   ``device="cpu"`` (the LLM engine, the text encoder, the image
   classifier, the built-in models, the server CLI, the TPU shared-memory
@@ -27,7 +29,7 @@ from client_tpu_torch.utils import bfloat16, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "client_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aiohttp", "client_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aiohttp", "grpc", "client_tpu")
 # modules of the latest slices, named so that a scan that missed them fails
 SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm",
                  "client_tpu_torch.utils.shared_memory",
@@ -41,7 +43,16 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch._auth", "client_tpu_torch._sync_runner",
                  "client_tpu_torch.resilience.policy", "client_tpu_torch.lifecycle.pool",
                  "client_tpu_torch.lifecycle.routing", "client_tpu_torch.lifecycle.hedge",
-                 "client_tpu_torch.observability.trace", "client_tpu_torch.testing.inprocess")
+                 "client_tpu_torch.observability.trace", "client_tpu_torch.testing.inprocess",
+                 "client_tpu_torch.perf", "client_tpu_torch.perf.records",
+                 "client_tpu_torch.perf.sequence", "client_tpu_torch.perf.backend",
+                 "client_tpu_torch.perf.data", "client_tpu_torch.perf.load_manager",
+                 "client_tpu_torch.perf.profiler", "client_tpu_torch.perf.report",
+                 "client_tpu_torch.perf.cli", "client_tpu_torch.perf.__main__",
+                 "client_tpu_torch.genai_perf", "client_tpu_torch.genai_perf.tokenizer",
+                 "client_tpu_torch.genai_perf.logging", "client_tpu_torch.genai_perf.inputs",
+                 "client_tpu_torch.genai_perf.metrics", "client_tpu_torch.genai_perf.plots",
+                 "client_tpu_torch.genai_perf.main", "client_tpu_torch.genai_perf.__main__")
 
 
 def _port_files():
