@@ -86,12 +86,39 @@ result line:
    genai-perf over the OpenAI route, 8 streams of 32 tokens, every
    request's token events equal to its ``max_tokens``, K1 launches >= 32
    x decode steps (``perf 9d (genai-perf):``).
+10. the remaining built-ins, ``llm_decode`` and the server's
+   observability surface, each inside the phase that holds its server:
+   (a) ``repeat_int32``, ``sequence_accumulate`` and ``add_sub_chain`` on
+   the card (``builtins 10a:``): the ensemble exactly ``2 * INPUT0`` and
+   ``2 * INPUT1`` at batch 1 and from 8 client threads, the sequence
+   model under the port's harness in sequence mode and by hand across
+   the int32 wrap, ``repeat_int32`` streamed through
+   ``ServerCore.infer_decoupled`` with ``delay_us`` and refused by
+   ``/infer``; (b) after phase 5, ``llm_decode`` on phase 4's Llama-7B
+   weights through the OpenAI route's default model, two prompts of 32
+   tokens in turn and then at once, each stream equal to
+   ``llama.generate`` (``llm_decode 10b:``, TTFT and ITL); (c)
+   ``/metrics``: on 9d's server, ``tpu_llm_step_batch_size`` counts the
+   engine's steps and ``tpu_llm_generated_tokens_total`` at least the
+   tokens genai-perf counted; on 7b's, 9a's TPU-shm run again with
+   ``--collect-metrics`` (its report's server-metrics section printed),
+   the duration histogram's ``_count`` equal to the statistics'
+   ``success.count``, device memory in (0, the card], the duty cycle in
+   (0, 1] (``metrics 10c``); (d) 7b's ResNet-50 served from a spawned
+   process of its own, a ``-b 1`` c=8 TPU-shm load with
+   ``--profile-server`` and, under it, ``/v2/debug/profile`` for 2 s with a
+   ``torch.profiler`` Chrome trace: the stage CPU table, the
+   five stacks with the most samples, the busy samples by thread, the
+   trace's CUDA kernel events (there must be some), the flight
+   recorder's slowest requests and five-stamp trace records at
+   ``trace_rate`` 1 (``profile 10d:``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
 """
 
 import contextlib
+import faulthandler
 import gc
 import http.client
 import json
@@ -448,13 +475,17 @@ def _prompts(vocab_words: int = 400):
     return prompts
 
 
-def _stream_one(port: int, prompt: str, max_tokens: int, record: dict) -> None:
+def _stream_one(port: int, prompt: str, max_tokens: int, record: dict,
+                model: str = "llm_engine") -> None:
+    """One streaming chat completion for ``model`` (None: the route's
+    default model) into ``record``."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        body = json.dumps({
-            "model": "llm_engine", "stream": True, "max_tokens": max_tokens,
-            "messages": [{"role": "user", "content": prompt}],
-        })
+        doc = {"stream": True, "max_tokens": max_tokens,
+               "messages": [{"role": "user", "content": prompt}]}
+        if model is not None:
+            doc["model"] = model
+        body = json.dumps(doc)
         t0 = time.perf_counter()
         conn.request("POST", "/v1/chat/completions", body=body,
                      headers={"Content-Type": "application/json"})
@@ -571,24 +602,28 @@ SERVING = {}
 
 
 @contextlib.contextmanager
-def http_server(*models):
+def http_server(*models, builtins: bool = False):
     """``ServerCore`` + the HTTP front-end on a loopback port serving
-    ``models`` (loaded here); yields the port, and stops the server, the
-    engine and the event loop on the way out."""
+    ``models`` (loaded here; with ``builtins``, the built-in models on the
+    card too); yields the port, and stops the server, the engine and the
+    event loop on the way out."""
     import asyncio
 
     from client_tpu_torch.server.core import ServerCore
     from client_tpu_torch.server.http_server import serve_http
     from client_tpu_torch.server.model_repository import ModelRepository
+    from client_tpu_torch.server.models import register_builtin_models
 
     repository = ModelRepository()
+    if builtins:
+        register_builtin_models(repository, device=DEVICE)
     for model in models:
         repository.add_model(model)
     torch.cuda.synchronize()
     for entry in repository.index():
         if entry["state"] != "READY":
             raise AssertionError(f"{entry['name']} did not load: {entry['reason']}")
-    core = ServerCore(repository, max_workers=4)
+    core = ServerCore(repository, max_workers=4, device=DEVICE)
     loop = asyncio.new_event_loop()
     started = threading.Event()
     box = {}
@@ -1589,7 +1624,9 @@ def classifier_resnet50() -> dict:
             print("image: " + json.dumps(run) + f" [{card()}]", flush=True)
         procs = image_procs(port, images, check, runs)
         harness = perf_image(port)
-    result = {"runs": runs, "procs": procs, "perf_9ab": harness, "load_s": load_s, "warmup_s": warmup_s,
+        metrics_10c = image_metrics(port)
+    result = {"runs": runs, "procs": procs, "perf_9ab": harness, "metrics_10c": metrics_10c,
+              "load_s": load_s, "warmup_s": warmup_s,
               "parameters": count, "max_err_share_of_limit": worst[0],
               "least_gap_share_of_limit": distinct / 2e-2}
     print(f"image: every answer of the three in-process runs and of phase 8b's four within "
@@ -2128,18 +2165,19 @@ def _booked(before, after, field="success"):
             - before["inference_stats"][field]["count"])
 
 
-def perf_run(port, model, args) -> dict:
+def perf_run(port, model, args, server_times=True) -> dict:
     """One run of the port's perf-analyzer against ``model`` with ``args``:
     its ``--json-summary``, CSV rows and profile export, held to the
     guards (no error, every completed request booked by the server,
-    non-zero server queue and compute times in every row, no region left
-    registered)."""
+    non-zero server queue and compute times in every row, unless
+    ``server_times`` is off, no region left registered). The harness's
+    stdout is kept under ``stdout``."""
     with tempfile.TemporaryDirectory() as tmp:
         csv_path, export_path = os.path.join(tmp, "out.csv"), os.path.join(tmp, "export.json")
         before = _stats(port, model)
         t0 = time.perf_counter()
         out = _harness("client_tpu_torch.perf", [
-            "-m", model, "-u", f"127.0.0.1:{port}", *args, *HARNESS_WINDOWS,
+            "-m", model, "-u", f"127.0.0.1:{port}", *HARNESS_WINDOWS, *args,
             "-f", csv_path, "--profile-export-file", export_path, "--json-summary"])
         wall = time.perf_counter() - t0
         after = _stats(port, model)
@@ -2158,7 +2196,8 @@ def perf_run(port, model, args) -> dict:
         raise AssertionError(f"{model} {args}: the server booked {_booked(before, after)} "
                              f"successes for {len(requests)} completed requests")
     for row in rows:
-        if not (float(row["Server Queue"]) > 0 and float(row["Server Compute Infer"]) > 0):
+        if server_times and not (float(row["Server Queue"]) > 0
+                                 and float(row["Server Compute Infer"]) > 0):
             raise AssertionError(f"{model} {args}: server times missing from {row}")
     executions = after["execution_count"] - before["execution_count"]
     return {
@@ -2174,6 +2213,8 @@ def perf_run(port, model, args) -> dict:
         / max(1, executions),
         "completed": len(requests),
         "wall_s": wall,
+        "summary": summary,
+        "stdout": out,
     }
 
 
@@ -2227,6 +2268,8 @@ def perf_image(port) -> dict:
     for route in ("none", "system", "tpu"):
         rows[route] = perf_run(port, "image_classifier",
                                ["-b", "4", "--concurrency-range", "8", "--shared-memory", route])
+        for key in ("summary", "stdout"):
+            rows[route].pop(key)
     rows["in-process"] = local_twin(port, "image_classifier", 4, 8)
     for route, row in rows.items():
         row.update(route=route, images_per_s=4 * row["infer_per_s"])
@@ -2240,6 +2283,9 @@ def perf_image(port) -> dict:
     opened = perf_run(port, "image_classifier",
                       ["-b", "1", "--request-rate-range", f"{target:.3f}",
                        "--request-distribution", "poisson", "--shared-memory", "tpu"])
+    for run in (closed, opened):
+        for key in ("summary", "stdout"):
+            run.pop(key)
     result = {"closed_c8": closed, "open": opened, "target_per_s": target,
               "achieved_per_s": opened["infer_per_s"],
               "achieved_share": opened["infer_per_s"] / target}
@@ -2276,6 +2322,7 @@ def genai_perf_7b(port, engine, n_layers) -> dict:
     counted as phase 4 counts them."""
     t0 = time.perf_counter()
     before = _stats(port, "llm_engine")
+    scraped = _scrape(port)
     steps0 = engine.steps
     with tempfile.TemporaryDirectory() as tmp:
         # -- counters zeroed just before, read just after --
@@ -2321,10 +2368,465 @@ def genai_perf_7b(port, engine, n_layers) -> dict:
     result = dict(summary, completed=len(requests), decode_steps=decode_steps,
                   k1_launches=launches, wall_s=time.perf_counter() - t0)
     print("perf 9d (genai-perf): " + json.dumps(result) + f" [{card()}]", flush=True)
+    # phase 10c over 9d: the engine's families against its own counters
+    # (every stream finished, so statistics, engine and scrape agree)
+    tokens_counted = sum(len(r["response_timestamps"]) for r in requests)
+    llm = llm_metrics_guards(port, scraped, before, engine.steps - steps0, tokens_counted)
+    result["metrics_10c"] = llm
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the remaining built-ins, llm_decode and the observability surface
+# ---------------------------------------------------------------------------
+
+
+def _scrape(port) -> dict:
+    """The server's ``/metrics``, parsed (the port's own parser)."""
+    from client_tpu_torch.observability.metrics import parse_exposition
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        response = conn.getresponse()
+        body = response.read().decode()
+    finally:
+        conn.close()
+    if response.status != 200:
+        raise AssertionError(f"/metrics answered {response.status}: {body[:200]}")
+    return parse_exposition(body)
+
+
+def _http(port, path, method="GET", doc=None):
+    """(status, headers, body text) of one request to the server, with
+    ``doc`` as its JSON body."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        body = json.dumps(doc).encode() if doc is not None else None
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"} if body else {})
+        response = conn.getresponse()
+        payload = response.read()
+    finally:
+        conn.close()
+    text = payload.decode(errors="replace")
+    return response.status, dict(response.getheaders()), text
+
+
+def _hist_count(families, name, model) -> float:
+    from client_tpu_torch.observability.metrics import histogram_totals
+
+    return histogram_totals(families.get(name), {"model": model})["count"]
+
+
+def _counter(families, name, model) -> float:
+    from client_tpu_torch.observability.metrics import counter_total
+
+    return counter_total(families.get(name), {"model": model})
+
+
+def _duration_count_guard(model, scraped, after_scraped, before, after) -> int:
+    """Per model: the duration histogram's ``_count`` delta equals the
+    statistics route's ``success.count`` delta. Returns the delta."""
+    counted = _hist_count(after_scraped, "tpu_inference_request_duration", model) - \
+        _hist_count(scraped, "tpu_inference_request_duration", model)
+    booked = _booked(before, after)
+    if counted != booked:
+        raise AssertionError(f"{model}: tpu_inference_request_duration _count moved "
+                             f"{counted}, the statistics' success.count {booked}")
+    return booked
+
+
+def llm_metrics_guards(port, scraped, before, steps, tokens_counted) -> dict:
+    """Phase 10c over 9d: ``tpu_llm_step_batch_size`` counts the engine's
+    steps, ``tpu_llm_generated_tokens_total`` at least the tokens
+    genai-perf counted, and the duration histogram the booked streams."""
+    after_scraped = _scrape(port)
+    after = _stats(port, "llm_engine")
+    streams = _duration_count_guard("llm_engine", scraped, after_scraped, before, after)
+    step_count = (_hist_count(after_scraped, "tpu_llm_step_batch_size", "llm_engine")
+                  - _hist_count(scraped, "tpu_llm_step_batch_size", "llm_engine"))
+    tokens = (_counter(after_scraped, "tpu_llm_generated_tokens_total", "llm_engine")
+              - _counter(scraped, "tpu_llm_generated_tokens_total", "llm_engine"))
+    if step_count != steps:
+        raise AssertionError(f"tpu_llm_step_batch_size counted {step_count} steps, the "
+                             f"engine {steps}")
+    if not tokens >= tokens_counted > 0:
+        raise AssertionError(f"tpu_llm_generated_tokens_total moved {tokens}, genai-perf "
+                             f"counted {tokens_counted} tokens")
+    result = {"streams_booked": streams, "steps": steps, "step_batch_count": step_count,
+              "generated_tokens": tokens, "tokens_counted_by_genai_perf": tokens_counted}
+    print("metrics 10c (9d): " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def image_metrics(port) -> dict:
+    """Phase 10c: 9a's TPU-shm run again with ``--collect-metrics``
+    (scrapes every 0.5 s: the flag is in seconds in both packages) and
+    ``/metrics`` scraped around it. Guards: the duration histogram's
+    ``_count`` delta equals ``success.count``'s; device memory above 0 and
+    within the card; the duty cycle in (0, 1], from the harness's report
+    and from the busy-ns counter over the run."""
+    from client_tpu_torch.observability.metrics import gauge_values
+
+    before, scraped, t0 = _stats(port, "image_classifier"), _scrape(port), time.monotonic()
+    run = perf_run(port, "image_classifier",
+                   ["-b", "4", "--concurrency-range", "8", "--shared-memory", "tpu",
+                    "--collect-metrics", "--metrics-interval", "0.5"])
+    after, after_scraped, t1 = _stats(port, "image_classifier"), _scrape(port), time.monotonic()
+    booked = _duration_count_guard("image_classifier", scraped, after_scraped, before, after)
+    memory = gauge_values(after_scraped.get("tpu_device_memory_bytes"))
+    _free, total = torch.cuda.mem_get_info()
+    if not (memory and 0 < max(memory) <= total):
+        raise AssertionError(f"tpu_device_memory_bytes {memory} outside (0, {total}]")
+    busy = (sum(gauge_values(after_scraped["tpu_device_compute_ns_total"]))
+            - sum(gauge_values(scraped["tpu_device_compute_ns_total"])))
+    duty = busy / ((t1 - t0) * 1e9)
+    summary = run["summary"]
+    for name, value in (("busy-ns duty over the run", duty),
+                        ("harness duty avg", summary["server_duty_avg"]),
+                        ("harness duty max", summary["server_duty_max"])):
+        if not 0 < value <= 1:
+            raise AssertionError(f"{name} {value} outside (0, 1]")
+    section = run["stdout"].split("Server metrics (", 1)
+    if len(section) != 2:
+        raise AssertionError("the harness printed no Server metrics section")
+    report = ("Server metrics (" + section[1]).split("\n\n", 1)[0]
+    print("metrics 10c: the harness's report, ResNet-50 -b 4 c=8 TPU shm:\n" + report
+          + f"\n[{card()}]", flush=True)
+    result = {"infer_per_s": run["infer_per_s"], "duty_avg": summary["server_duty_avg"],
+              "duty_max": summary["server_duty_max"],
+              "batch_avg": summary["server_batch_avg"], "busy_ns_duty": duty,
+              "device_memory_bytes": max(memory), "card_total_bytes": total,
+              "requests_booked": booked}
+    print("metrics 10c: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+# the leaf frames of a parked thread in the wall sampler's stacks
+IDLE_LEAVES = ("threading.py:wait", "queue.py:get", "selectors.py:select",
+               "socket.py:readinto", "thread.py:_worker",
+               "threading.py:_wait_for_tstate_lock")
+
+
+def _profile_child(conn) -> None:
+    """The server process of phase 10d (``multiprocessing`` spawn)."""
+    faulthandler.enable()
+    try:
+        import numpy as np
+
+        from client_tpu_torch.models import resnet
+        from client_tpu_torch.models.serving import ImageClassifierModel
+
+        config, size = resnet.resnet50(), 224
+        params = perturbed_classifier(config, torch.Generator(device=DEVICE).manual_seed(0),
+                                      (0.1, 0.3))
+        model = ImageClassifierModel(image_size=size, config=config, params=params,
+                                     device=DEVICE)
+        model.warmup()
+        images = np.random.default_rng(0).normal(size=[4, size, size, 3]).astype(np.float32)
+        with http_server(model) as port:
+            conn.send(("ok", thread_profile(port, images)))
+    except BaseException as e:  # noqa: BLE001 - reported to, and raised by, the parent
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+    finally:
+        conn.close()
+
+
+def server_thread_profile() -> dict:
+    """Phase 10d in a server process of its own: phase 7b's ResNet-50
+    (the same seed-0 weights) behind ``http_server`` in a spawned process
+    that holds nothing else, as a deployed server would. (In this
+    process, after phases 2-9 and their own ``torch.profiler`` sessions,
+    the route's capture crashed the process twice, NVIDIA H100 80GB HBM3,
+    700 W; see PERF.md.)"""
+    import multiprocessing
+
+    context = multiprocessing.get_context("spawn")
+    parent, child = context.Pipe(duplex=False)
+    proc = context.Process(target=_profile_child, args=(child,))
+    proc.start()
+    child.close()
+    try:
+        if not parent.poll(900):
+            raise AssertionError("the 10d server process gave no answer in 900 s")
+        try:
+            status, payload = parent.recv()
+        except EOFError:
+            status, payload = "error", "the process ended without an answer"
+    finally:
+        proc.join(120)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok" or proc.exitcode != 0:
+        raise AssertionError(f"10d server process (exit {proc.exitcode}): {payload}")
+    return payload
+
+
+def thread_profile(port, images) -> dict:
+    """Phase 10d, the server's threads under load: a 9a-shaped ResNet-50
+    run (``-b 1``, c=8, TPU shm, three 2 s windows) with
+    ``--profile-server``; once the load is on, ``/v2/debug/profile`` for
+    2 s with a ``torch.profiler`` Chrome trace under the temp directory.
+    Prints the stage CPU table, the five stacks with the most samples,
+    each thread's share of samples not parked, and the trace's CUDA
+    kernel events, which must exist. Then ``/v2/debug/requests`` must return
+    slowest exemplars, and ``trace_rate`` 1 must write five-stamp
+    records."""
+    import numpy as np
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    base = _stats(port, "image_classifier")["inference_stats"]["success"]["count"]
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "client_tpu_torch.perf", "-m", "image_classifier",
+             "-u", f"127.0.0.1:{port}", "-b", "1", "--concurrency-range", "8",
+             "--shared-memory", "tpu", "--profile-server", *HARNESS_WINDOWS,
+             "--json-summary"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = time.monotonic() + 120
+            while (_stats(port, "image_classifier")["inference_stats"]["success"]["count"]
+                   < base + 64):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("the 10d load did not start")
+                time.sleep(0.05)
+            trace_dir = os.path.join(tmp, "device_trace")
+            status, headers, collapsed = _http(
+                port, f"/v2/debug/profile?duration_s=2&hz=99&jax_trace_dir={trace_dir}")
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"10d harness exited {proc.returncode}:\n{out[-2000:]}\n"
+                                 f"{err[-2000:]}")
+        if status != 200:
+            raise AssertionError(f"/v2/debug/profile answered {status}: {collapsed[:300]}")
+        with open(headers["X-Device-Trace"]) as f:
+            events = json.load(f)["traceEvents"]
+    summary = json.loads(out.strip().splitlines()[-1])
+    if summary["errors"] or not summary["count"]:
+        raise AssertionError(f"10d harness: {summary['errors']} errors of {summary['count']}")
+    stage_table = "Wire-gap attribution" + out.split("Wire-gap attribution", 1)[1].split(
+        "\n\n", 1)[0]
+    stacks = []
+    for line in collapsed.strip().splitlines():
+        stack, count = line.rsplit(" ", 1)
+        stacks.append((int(count), stack.split(";")))
+    total = sum(c for c, _ in stacks)
+    top = sorted(stacks, key=lambda e: -e[0])[:5]
+    # per thread: its samples, and the share of them not parked
+    per_thread, busy = {}, {}
+    for count, frames in stacks:
+        per_thread[frames[0]] = per_thread.get(frames[0], 0) + count
+        if frames[-1] not in IDLE_LEAVES:
+            busy[frames[0]] = busy.get(frames[0], 0) + count
+    busy = {name: busy.get(name, 0) / n for name, n in per_thread.items()}
+    kernels = [e for e in events if e.get("cat") in ("kernel", "Kernel")]
+    if not kernels:
+        raise AssertionError(f"the Chrome trace holds no CUDA kernel events "
+                             f"({len(events)} events)")
+    kernel_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print("profile 10d: " + stage_table + f"\n[{card()}]", flush=True)
+    print(f"profile 10d: {total} thread samples over 2 s at "
+          f"{headers['X-Profile-Hz-Effective']} Hz; the five stacks with the most "
+          f"[{card()}]:", flush=True)
+    for count, frames in top:
+        print(f"  {100 * count / total:5.1f} %  {frames[0]}: {';'.join(frames[-4:])}",
+              flush=True)
+    print("profile 10d: share of each thread's samples not parked: " + ", ".join(
+        f"{name} {100 * share:.1f} % of {per_thread[name]}" for name, share in
+        sorted(busy.items(), key=lambda e: -e[1])) + f" [{card()}]", flush=True)
+    print(f"profile 10d: the Chrome trace holds {len(kernels)} CUDA kernel events, "
+          f"{kernel_ms:.1f} ms of kernel time in the 2 s window [{card()}]", flush=True)
+
+    # the flight recorder's slowest exemplars, and five-stamp trace records
+    status, _, body = _http(port, "/v2/debug/requests?model=image_classifier&limit=5")
+    slowest = json.loads(body)["slowest"]
+    if status != 200 or not slowest or "compute_us" not in slowest[0]["stages"]:
+        raise AssertionError(f"/v2/debug/requests: {status} {body[:300]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_file = os.path.join(tmp, "trace.jsonl")
+        setting = "/v2/models/image_classifier/trace/setting"
+        status, _, body = _http(port, setting, "POST", {
+            "trace_level": ["TIMESTAMPS"], "trace_rate": "1", "log_frequency": "1",
+            "trace_file": trace_file})
+        if status != 200:
+            raise AssertionError(f"trace setting refused: {status} {body}")
+        try:
+            with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+                way = _ClientRoute(client, "none")
+                for image in images:
+                    way.infer("image_classifier", [("INPUT", "FP32", image[None])],
+                              [("OUTPUT", np.float32, [1, 1000])])
+        finally:
+            _http(port, setting, "POST", {key: None for key in (
+                "trace_level", "trace_rate", "log_frequency", "trace_file")})
+        with open(trace_file) as f:
+            records = [json.loads(line) for line in f]
+    stamps = ["REQUEST_START", "QUEUE_START", "COMPUTE_START", "COMPUTE_END", "REQUEST_END"]
+    if len(records) != len(images) or any(
+            [t["name"] for t in r["timestamps"]] != stamps for r in records):
+        raise AssertionError(f"trace_rate 1: {len(records)} records for {len(images)} "
+                             f"requests, first {records[:1]}")
+    result = {"stage_cpu_us": summary.get("server_stage_cpu_us"),
+              "infer_per_s": summary["throughput"], "samples": total,
+              "top_stacks": [(count / total, ";".join(frames)) for count, frames in top],
+              "busy_share_by_thread": busy,
+              "kernel_events": len(kernels), "kernel_ms_in_2s": kernel_ms,
+              "slowest_total_us": slowest[0]["total_us"], "trace_records": len(records)}
+    print("profile 10d: " + json.dumps({k: v for k, v in result.items() if k != "top_stacks"})
+          + f" [{card()}]", flush=True)
+    return result
+
+
+def builtins_on_card() -> dict:
+    """Phase 10a: the built-ins on the card through the port's HTTP
+    client: ``add_sub_chain`` exact at batch 1 and from 8 concurrent
+    clients; ``sequence_accumulate`` driven by the port's harness in
+    sequence mode, then by hand across the int32 wrap; ``repeat_int32``
+    streamed through ``ServerCore.infer_decoupled`` with ``delay_us``, and
+    refused by ``/infer``."""
+    import asyncio
+
+    import numpy as np
+
+    from client_tpu_torch.server.core import CoreRequest, CoreTensor
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    with http_server(builtins=True) as port:
+        def chain(a, b):
+            def send(way):
+                got = way.infer("add_sub_chain", [("INPUT0", "INT32", a), ("INPUT1", "INT32", b)],
+                                [("OUTPUT0", np.int32, list(a.shape)),
+                                 ("OUTPUT1", np.int32, list(a.shape))])
+                if not (np.array_equal(got["OUTPUT0"], 2 * a)
+                        and np.array_equal(got["OUTPUT1"], 2 * b)):
+                    raise AssertionError("add_sub_chain answered other than 2*IN0, 2*IN1")
+                return True
+            return send
+
+        def pair(rows):
+            return [rng.integers(-2**20, 2**20, size=[rows, 16], dtype=np.int32)
+                    for _ in range(2)]
+
+        with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+            chain(*pair(1))(_ClientRoute(client, "none"))
+        work = [chain(*pair(1)) for _ in range(64)]
+        _, _, wall = _concurrently(port, 8, lambda c, w: _ClientRoute(c, "none"), work)
+        chain_stats = _stats(port, "add_sub_chain")
+
+        seq = perf_run(port, "sequence_accumulate",
+                       ["--sequence-length", "8", "--num-of-sequences", "4",
+                        "--concurrency-range", "4", "--measurement-interval", "1000"],
+                       server_times=False)
+        values = [2**31 - 5, 7, 2**31 - 1, -2**31, -9, 2**30]
+        sums = []
+        with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+            for i, value in enumerate(values):
+                inp = client_http.InferInput("INPUT", [1], "INT32")
+                inp.set_data_from_numpy(np.array([value], dtype=np.int32))
+                answer = client.infer("sequence_accumulate", [inp], sequence_id=99,
+                                      sequence_start=i == 0, sequence_end=i == len(values) - 1)
+                sums.append(int(answer.as_numpy("OUTPUT")[0]))
+            refused = None
+            inp = client_http.InferInput("IN", [3], "INT32")
+            inp.set_data_from_numpy(np.arange(3, dtype=np.int32))
+            try:
+                client.infer("repeat_int32", [inp])
+            except Exception as e:  # noqa: BLE001 - the refusal is the point
+                refused = str(e)
+        want = [int(v) for v in np.cumsum(np.array(values, dtype=np.int64))
+                .astype(np.uint32).astype(np.int32)]
+        if sums != want:
+            raise AssertionError(f"sequence_accumulate sums {sums}, want {want}")
+        if not refused or "is decoupled; use streaming" not in refused:
+            raise AssertionError(f"/infer on repeat_int32: {refused!r}")
+
+        core, loop = SERVING[port]
+        repeat = rng.integers(-1000, 1000, size=12).astype(np.int32)
+        delay_us = 2000
+
+        async def stream():
+            request = CoreRequest("repeat_int32", parameters={"delay_us": delay_us},
+                                  inputs=[CoreTensor("IN", "INT32", [12], repeat)])
+            start = time.perf_counter()
+            out = [([int(v) for v in r.outputs[0].data.reshape(-1)],
+                    bool(r.parameters.get("triton_final_response")))
+                   async for r in core.infer_decoupled(request)]
+            return out, time.perf_counter() - start
+
+        responses, stream_s = asyncio.run_coroutine_threadsafe(stream(), loop).result(60)
+        if responses != [([int(v)], i == 11) for i, v in enumerate(repeat)]:
+            raise AssertionError(f"repeat_int32 streamed {responses}")
+        if stream_s < 11 * delay_us / 1e6:
+            raise AssertionError(f"repeat_int32 took {stream_s} s for 11 delays of {delay_us} us")
+    result = {"add_sub_chain_requests": 65, "add_sub_chain_8_clients_wall_s": wall,
+              "add_sub_chain_rows_per_execution":
+                  chain_stats["inference_count"] / max(1, chain_stats["execution_count"]),
+              "sequence_harness_infer_per_s": seq["infer_per_s"],
+              "sequence_harness_completed": seq["completed"],
+              "wrapped_sums": sums, "repeat_stream_s": stream_s,
+              "wall_s": time.perf_counter() - t0}
+    print("builtins 10a: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def llm_decode_7b(params) -> dict:
+    """Phase 10b: ``llm_decode`` at Llama-7B widths on phase 4's weights,
+    through the OpenAI route's default model (no ``model`` in the body),
+    32 tokens a stream: two prompts in turn, then the same two at once.
+    Each stream must equal ``llama.generate`` on the same weights and
+    prompt; TTFT and ITL are printed. A step holds the serving loop."""
+    from client_tpu_torch.genai_perf.tokenizer import SyntheticTokenizer
+    from client_tpu_torch.models.serving import LlmDecodeModel
+
+    config = llama.LlamaConfig()
+    prompts = _prompts()[:2]
+    tokenizer = SyntheticTokenizer(config.vocab_size)
+    with torch.inference_mode():
+        want = [llama.generate(params, torch.tensor([tokenizer.encode(p)], dtype=torch.int32,
+                                                      device=DEVICE), config, SERVE_TOKENS)
+                [0].tolist() for p in prompts]
+    t0 = time.perf_counter()
+    model = LlmDecodeModel(config=config, params=params, device=DEVICE)
+    with http_server(model) as port:
+        load_s = time.perf_counter() - t0
+        runs = {}
+        for mode in ("in turn", "at once"):
+            records = [dict() for _ in prompts]
+            threads = [threading.Thread(target=_stream_one, args=(port, p, SERVE_TOKENS, r, None))
+                       for p, r in zip(prompts, records)]
+            start = time.perf_counter()
+            for thread in threads:
+                thread.start()
+                if mode == "in turn":
+                    thread.join(600)
+            for thread in threads:
+                thread.join(600)
+            wall = time.perf_counter() - start
+            for i, record in enumerate(records):
+                if record.get("status") != 200 or not record.get("done"):
+                    raise AssertionError(f"10b {mode} stream {i} failed: {record}")
+                if record["tokens"] != want[i]:
+                    raise AssertionError(f"10b {mode} stream {i} differs from generate: "
+                                         f"{record['tokens']} vs {want[i]}")
+            runs[mode] = latency(records, wall)
+        stats = _stats(port, "llm_decode")
+    if stats["inference_stats"]["success"]["count"] != 4:
+        raise AssertionError(f"llm_decode booked {stats['inference_stats']}")
+    result = {"load_s": load_s, **{mode: run for mode, run in runs.items()},
+              "streams_equal_to_generate": 4}
+    print("llm_decode 10b: " + json.dumps(result) + f" [{card()}]", flush=True)
     return result
 
 
 def main() -> int:
+    faulthandler.enable()  # a fault in native code prints every thread's stack
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card()}", flush=True)
@@ -2338,6 +2840,7 @@ def main() -> int:
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
     served_spec = serve_7b_speculative(params, plain_streams)
+    llm_decode_7b(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2348,6 +2851,8 @@ def main() -> int:
     data_plane()
     client_correctness()
     data_plane_procs()
+    server_thread_profile()
+    builtins_on_card()
     line = {
         "kernels": [
             {

@@ -261,12 +261,17 @@ class LlmEngineModel(Model):
             self.engine.close()
 
     def bind_core(self, core) -> None:
-        """Run the engine's device calls on the serving core's executor
-        (called by ``ServerCore.infer_decoupled`` on first use)."""
+        """Wire the engine into the server it serves under (called by
+        ``ServerCore.infer_decoupled`` on first use): its metrics book
+        into the core's registry, its device calls run on the core's
+        executor, its errors go to the core's structured log."""
         if self._core is core or self.engine is None:
             return
         self._core = core
+        self.engine.metrics = core.metrics
         self.engine._executor = core._executor
+        self.engine.logger = core.logger
+        self.engine._publish()
 
     async def execute_decoupled(
         self, inputs: Dict[str, np.ndarray], parameters: Dict[str, Any]

@@ -4,17 +4,19 @@
 serving half of BASELINE.json's "image_client.py ResNet-50" configuration;
 ``text_encoder`` (:class:`TextEncoderModel`, BERT-family embeddings) that
 of its "perf_analyzer concurrency sweep: BERT-large";
-``llm_engine`` (``client_tpu_torch/llm/serving.py``) serves streaming
-generation.
+``llm_decode`` (:class:`LlmDecodeModel`, dense greedy decode, one stream
+at a time) and ``llm_engine`` (``client_tpu_torch/llm/serving.py``,
+continuous batching over paged attention) serve streaming generation.
 """
 
+import asyncio
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, AsyncIterator, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from client_tpu_torch.models import bert, resnet
+from client_tpu_torch.models import bert, llama, resnet
 from client_tpu_torch.server.model_repository import Model
 from client_tpu_torch.server.models import pad_batch_bucket, run_bucketed
 from client_tpu_torch.utils import (
@@ -179,18 +181,103 @@ class TextEncoderModel(Model):
         return {"EMBEDDING": embedding}
 
 
+class LlmDecodeModel(Model):
+    """Decoupled dense LLM decode: INPUT_IDS -> one OUTPUT_IDS token a
+    response (greedy), ``max_tokens`` (a request parameter, 16 by
+    default) responses, the last flagged ``triton_final_response``; on
+    ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+
+    ``config`` defaults to the tiny Llama with ``max_seq_len`` 512, as
+    the reference's does. ``params`` (the dict :func:`llama.init_params`
+    or :func:`llama.params_from_jax` returns) must already live on
+    ``device``; without them warmup draws random weights from seed 0.
+
+    Each stream prefills its prompt unpadded into a dense cache of
+    ``prompt + max_tokens`` positions and decodes with
+    :func:`llama.decode_step`: exactly the calls :func:`llama.generate`
+    makes, so a stream equals ``generate`` token for token. The
+    reference pads the prompt to a power-of-two bucket only to bound XLA
+    retraces; the port is eager. As in the reference, every step runs on
+    the serving loop, which it holds for the step's length, and yields
+    to it between tokens.
+    """
+
+    decoupled = True
+    max_batch_size = 0
+    inputs = [{"name": "INPUT_IDS", "datatype": "INT32", "shape": [-1]}]
+    outputs = [{"name": "OUTPUT_IDS", "datatype": "INT32", "shape": [1]}]
+
+    def __init__(self, name: str = "llm_decode",
+                 config: Optional[llama.LlamaConfig] = None,
+                 params: Optional[Dict[str, Any]] = None, device=None):
+        self.name = name
+        self.device = resolve_device(device)
+        self._config = config or llama.LlamaConfig.tiny(max_seq_len=512)
+        self._params = params
+
+    @property
+    def vocab_size(self) -> int:
+        return self._config.vocab_size
+
+    def warmup(self) -> None:
+        if self._params is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            self._params = llama.init_params(generator, self._config, self.device)
+        prompt = torch.zeros([1, 8], dtype=torch.int32, device=self.device)
+        llama.generate(self._params, prompt, self._config, 2)
+
+    async def execute_decoupled(
+        self, inputs: Dict[str, np.ndarray], parameters: Dict[str, Any]
+    ) -> AsyncIterator[Dict[str, np.ndarray]]:
+        if "INPUT_IDS" not in inputs:
+            raise InferenceServerException(
+                f"model '{self.name}' expects input INPUT_IDS"
+            )
+        config = self._config
+        prompt = np.asarray(inputs["INPUT_IDS"], dtype=np.int32).reshape(1, -1)
+        max_tokens = int(parameters.get("max_tokens", 16))
+        prompt_len = prompt.shape[1]
+        if prompt_len + max_tokens > config.max_seq_len:
+            raise InferenceServerException(
+                f"prompt ({prompt_len}) + max_tokens ({max_tokens}) exceeds "
+                f"max sequence length {config.max_seq_len}"
+            )
+        if prompt.size and (prompt.min() < 0 or prompt.max() >= config.vocab_size):
+            # an out-of-range id would fault the device's embedding read
+            raise InferenceServerException(
+                f"INPUT_IDS must lie in [0, {config.vocab_size})"
+            )
+        with torch.inference_mode():
+            cache = llama.init_kv_cache(config, 1, prompt_len + max_tokens, device=self.device)
+            logits, cache = llama.prefill_with_cache(
+                self._params, numpy_to_tensor(prompt, self.device), cache, config)
+            token = logits.argmax(dim=-1).to(torch.int32)
+        for i in range(max_tokens):
+            (host,) = tensors_to_numpy([token])
+            yield {"OUTPUT_IDS": host, "__final__": i == max_tokens - 1}
+            if i == max_tokens - 1:
+                break
+            with torch.inference_mode():
+                logits, cache = llama.decode_step(
+                    self._params, token, prompt_len + i, cache, config)
+                token = logits.argmax(dim=-1).to(torch.int32)
+            # let other streams' requests interleave
+            await asyncio.sleep(0)
+
+
 def register_zoo_models(repository, small: bool = True, device=None) -> None:
     """Install the model-zoo adapters on ``device``: ``image_classifier``
     (64 x 64 images through the thin ResNet-18 when ``small``, else 224 x
-    224 through ResNet-50), ``llm_engine`` (the tiny Llama) and
-    ``text_encoder`` (the tiny BERT when ``small``, else BERT-large's
-    widths), random weights from seed 0."""
+    224 through ResNet-50), ``llm_decode`` and ``llm_engine`` (the tiny
+    Llama) and ``text_encoder`` (the tiny BERT when ``small``, else
+    BERT-large's widths), random weights from seed 0."""
     from client_tpu_torch.llm.serving import LlmEngineModel
 
     repository.add_model(ImageClassifierModel(
         image_size=64 if small else 224,
         config=resnet.resnet18_thin() if small else resnet.resnet50(), device=device,
     ))
+    repository.add_model(LlmDecodeModel(device=device))
     repository.add_model(LlmEngineModel(device=device))
     repository.add_model(TextEncoderModel(
         config=bert.BertConfig.tiny() if small else bert.BertConfig(), device=device

@@ -295,17 +295,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--stage-breakdown",
         action="store_true",
-        help="refused: not ported yet",
+        help="trace every request client-side (observability spans) and "
+        "report a serialize/transport/deserialize stage breakdown next "
+        "to the server queue/compute stats (kserve http only)",
     )
     parser.add_argument(
         "--trace-export-file",
         default=None,
-        help="refused: implies --stage-breakdown, not ported yet",
+        help="write the client-side spans as JSONL to this file "
+        "(implies --stage-breakdown)",
     )
     parser.add_argument(
         "--collect-metrics",
         action="store_true",
-        help="refused: the port's server has no /metrics route yet",
+        help="scrape the server's Prometheus /metrics during the run and "
+        "report a 'Server metrics' section (TPU duty cycle, memory, "
+        "queue/compute, batch sizes)",
     )
     def _positive_interval(value: str) -> float:
         interval = float(value)
@@ -318,43 +323,61 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--metrics-interval",
         type=_positive_interval,
-        default=None,
-        help="refused: /metrics scrape interval (--collect-metrics)",
+        default=1.0,
+        help="seconds between /metrics scrapes (with --collect-metrics)",
     )
     parser.add_argument(
         "--metrics-url",
         default=None,
-        help="refused: the port's server has no /metrics route yet",
+        help="metrics endpoint (host:port[/metrics]); implies "
+        "--collect-metrics. Default: the -u "
+        "host/port for HTTP runs, port 8000 on the -u host otherwise. "
+        "A comma list of several replicas (the fleet view) is refused: "
+        "not ported yet",
     )
     parser.add_argument(
         "--profile-server",
         action="store_true",
-        help="refused: the port's server has no profiling routes yet",
+        help="enable the server's per-stage CPU accounting for this run "
+        "(POST /v2/debug/profiling on the metrics host; restored after) "
+        "and print a 'Wire-gap attribution' table decomposing server "
+        "CPU us/req by stage; implies --collect-metrics and "
+        "--stage-breakdown",
     )
     parser.add_argument(
         "--flamegraph-out",
         default=None,
         metavar="PATH",
-        help="refused: the port's server has no profiling routes yet",
+        help="capture a wall-stack sample of the server during the "
+        "measurement (GET /v2/debug/profile) and write collapsed stacks "
+        "(flamegraph.pl / speedscope 'import' format) to PATH; implies "
+        "--profile-server",
     )
     parser.add_argument(
         "--profile-hz",
         type=float,
-        default=None,
-        help="refused: sampling rate for --flamegraph-out",
+        default=99.0,
+        help="sampling rate for --flamegraph-out (the server's overhead "
+        "guard may lower the effective rate)",
     )
     parser.add_argument(
         "--dump-slow-requests",
         type=int,
         default=0,
         metavar="N",
-        help="refused: the port's server has no flight recorder yet",
+        help="after the run, fetch the server's flight recorder "
+        "(GET /v2/debug/requests on the metrics host) and print the N "
+        "slowest requests stage-decomposed (queue/compute/package us, "
+        "trace id, error text); kserve http only",
     )
     parser.add_argument(
         "--log-file",
         default=None,
         metavar="PATH",
-        help="refused: the structured event log is not ported yet",
+        help="write the harness's structured JSON event log to PATH "
+        "(run lifecycle, client endpoint failover and circuit-breaker "
+        "transitions, slow-request dump) — the client-side face of the "
+        "server's /v2/logging stream",
     )
     env_world_size, env_rank, env_coordinator = _topology_from_env()
     parser.add_argument(
@@ -376,7 +399,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refusal(args) -> Optional[str]:
     """The one-line error for a flag whose piece the port lacks, naming
     that piece and its ROADMAP item; None when every flag is served."""
-    item_3a = "(ROADMAP Queue 1 item 3a)"
     refused = [
         (args.protocol == "grpc",
          "-i grpc: the port has no gRPC front-end or client yet "
@@ -387,36 +409,10 @@ def refusal(args) -> Optional[str]:
         (args.service_kind in ("tfserving", "torchserve"),
          f"--service-kind {args.service_kind}: the port has no "
          "compat_frontends yet (ROADMAP Queue 1 item 3d)"),
-        (args.collect_metrics,
-         f"--collect-metrics: the port's server has no /metrics route "
-         f"yet {item_3a}"),
-        (args.metrics_url is not None,
-         f"--metrics-url: the port's server has no /metrics route yet "
-         f"{item_3a}"),
-        (args.metrics_interval is not None,
-         f"--metrics-interval: the port's server has no /metrics route "
-         f"yet {item_3a}"),
-        (args.profile_server,
-         f"--profile-server: the port's server has no profiling routes "
-         f"yet {item_3a}"),
-        (args.stage_breakdown,
-         f"--stage-breakdown: the port's server has no /metrics or debug "
-         f"routes yet {item_3a}"),
-        (args.trace_export_file is not None,
-         f"--trace-export-file: implies --stage-breakdown, whose server "
-         f"routes are not ported yet {item_3a}"),
-        (args.flamegraph_out is not None,
-         f"--flamegraph-out: the port's server has no profiling routes "
-         f"yet {item_3a}"),
-        (args.profile_hz is not None,
-         f"--profile-hz: the port's server has no profiling routes yet "
-         f"{item_3a}"),
-        (bool(args.dump_slow_requests),
-         f"--dump-slow-requests: the port's server has no flight "
-         f"recorder (/v2/debug/requests) yet {item_3a}"),
-        (args.log_file is not None,
-         f"--log-file: observability/logging.py is not ported yet "
-         f"{item_3a}"),
+        (args.metrics_url is not None and "," in args.metrics_url,
+         "--metrics-url with several replicas: the fleet view "
+         "(observability/fleet.py) is not ported yet (ROADMAP Queue 1 "
+         "item 7)"),
         (args.fleet is not None,
          "--fleet: perf/fleet_runner.py and repository control are not "
          "ported yet (ROADMAP Queue 1 items 3c and 7)"),
@@ -448,6 +444,19 @@ _PARAM_CASTS = {
     "bool": _cast_bool,
     "string": str,
 }
+
+
+def _server_http_url(args) -> str:
+    """The server's HTTP base for metrics and debug endpoints:
+    ``--metrics-url`` when given, else the -u primary endpoint for HTTP
+    kserve runs, else the conventional HTTP port on the -u host."""
+    if args.metrics_url:
+        return args.metrics_url.strip()
+    primary_url = args.url.split(",")[0].strip()
+    if args.protocol == "http" and args.service_kind == "kserve":
+        return primary_url
+    host = primary_url.rsplit(":", 1)[0] or "localhost"
+    return f"{host}:8000"
 
 
 def parse_request_parameters(specs):
@@ -484,10 +493,38 @@ async def run(args) -> int:
         console_report,
         detailed_report,
         export_profile,
+        format_client_metrics,
+        format_server_metrics,
         write_csv,
     )
     from client_tpu_torch.perf.sequence import SequenceManager
     from client_tpu_torch.utils import InferenceServerException
+
+    if args.flamegraph_out:
+        args.profile_server = True
+    if args.profile_server:
+        if args.service_kind != "kserve":
+            print(
+                "error: --profile-server/--flamegraph-out need the "
+                "kserve http client (server debug endpoints + client-side "
+                "spans)",
+                file=sys.stderr,
+            )
+            return 2
+        # the attribution table reads against the client stage table and
+        # arrives through the /metrics scrape: imply both
+        args.stage_breakdown = True
+        args.collect_metrics = True
+    if args.metrics_url and not args.collect_metrics:
+        args.collect_metrics = True
+    want_tracing = args.stage_breakdown or args.trace_export_file
+    if want_tracing and args.service_kind != "kserve":
+        print(
+            "error: --stage-breakdown/--trace-export-file need the kserve "
+            "http client (client-side spans)",
+            file=sys.stderr,
+        )
+        return 2
 
     if args.hedge_after_s is not None and args.shared_memory != "none":
         print(
@@ -506,10 +543,47 @@ async def run(args) -> int:
             file=sys.stderr,
         )
         return 2
+    if args.dump_slow_requests and args.service_kind != "kserve":
+        print(
+            "error: --dump-slow-requests needs the kserve http client "
+            "(server flight-recorder debug endpoint)",
+            file=sys.stderr,
+        )
+        return 2
+    trace_exporter = None
+    tracer = None
+    collector = None
+    prev_profiling = None
+    profiling_clock_mode = ""
+    flamegraph_task = None
+    run_logger = None
+    if args.log_file:
+        # the harness's own structured event log, also handed to the
+        # kserve client so endpoint failover lands in the same stream
+        from client_tpu_torch.observability.logging import StructuredLogger
+
+        run_logger = StructuredLogger(name="perf")
+        run_logger.update({"log_file": args.log_file, "log_verbose_level": 1})
+        run_logger.info(
+            "run_started",
+            model=args.model_name,
+            url=args.url,
+            protocol=args.protocol,
+            service_kind=args.service_kind,
+        )
     if args.service_kind == "openai":
         backend = create_backend("openai", args.url, endpoint=args.endpoint)
     else:
         backend_kwargs = {}
+        if want_tracing:
+            from client_tpu_torch.observability import JsonlExporter, Tracer
+
+            if args.trace_export_file:
+                trace_exporter = JsonlExporter(args.trace_export_file)
+            tracer = Tracer(exporter=trace_exporter)
+            backend_kwargs["tracer"] = tracer
+        if run_logger is not None:
+            backend_kwargs["logger"] = run_logger
         if args.routing_policy:
             backend_kwargs["routing_policy"] = args.routing_policy
         if args.hedge_after_s is not None:
@@ -532,6 +606,42 @@ async def run(args) -> int:
         return 1
     shm_plane = None
     try:
+        if args.collect_metrics:
+            # scrape the server's Prometheus endpoint alongside the run
+            # (reference --collect-metrics / MetricsManager)
+            from client_tpu_torch.perf.metrics_collector import MetricsCollector
+
+            collector = MetricsCollector(
+                _server_http_url(args),
+                interval_s=args.metrics_interval,
+                model_name=args.model_name,
+            )
+            await collector.start()
+            if args.verbose:
+                print(f"collecting server metrics from {collector.url}")
+        if args.profile_server:
+            # the server's stage CPU accounting on for this run (restored
+            # in the finally); its config names the calibrated clock
+            from client_tpu_torch.perf.metrics_collector import set_stage_cpu
+
+            toggled = await set_stage_cpu(collector.url, True)
+            if toggled is None:
+                print(
+                    "warning: could not enable server stage-CPU "
+                    f"accounting via {collector.url} (is the HTTP "
+                    "front-end reachable?); the attribution table will "
+                    "be empty",
+                    file=sys.stderr,
+                )
+            else:
+                prev_profiling = toggled["previous"]
+                profiling_clock_mode = toggled["current"].get("clock", "")
+                if args.verbose:
+                    print(
+                        "server stage-CPU accounting enabled "
+                        f"(clock: {profiling_clock_mode}, was "
+                        f"{prev_profiling.get('stage_cpu')})"
+                    )
         metadata = await backend.get_model_metadata(
             args.model_name, args.model_version
         )
@@ -640,9 +750,31 @@ async def run(args) -> int:
             args.latency_threshold * 1000 if args.latency_threshold else None
         )
 
+        if args.flamegraph_out:
+            # sample the server mid-measurement: started here, after the
+            # setup, right before the load managers launch
+            from client_tpu_torch.perf.metrics_collector import fetch_profile
+
+            profile_duration_s = min(
+                5.0, max(0.25, args.measurement_interval / 1000.0)
+            )
+
+            async def _capture_flamegraph():
+                await asyncio.sleep(0.5)
+                return await fetch_profile(
+                    collector.url,
+                    duration_s=profile_duration_s,
+                    hz=args.profile_hz,
+                )
+
+            flamegraph_task = asyncio.get_running_loop().create_task(
+                _capture_flamegraph()
+            )
+
         def make_profiler(manager):
             return InferenceProfiler(
                 manager,
+                metrics_collector=collector,
                 measurement_interval_s=args.measurement_interval / 1000.0,
                 stability_pct=args.stability_percentage,
                 max_trials=args.max_trials,
@@ -733,10 +865,71 @@ async def run(args) -> int:
         print()
         print(console_report(experiments))
 
+        server_summary = None
+        if collector is not None:
+            await collector.stop()
+            server_summary = collector.summary()
+            print()
+            print(format_server_metrics(server_summary))
+            if collector.scrape_errors and collector.last_error:
+                print(f"  last scrape error: {collector.last_error}")
+        if args.profile_server and server_summary is not None:
+            from client_tpu_torch.perf.report import format_wire_gap
+
+            print()
+            print(format_wire_gap(server_summary, clock_mode=profiling_clock_mode))
+        if flamegraph_task is not None:
+            collapsed = await flamegraph_task
+            flamegraph_task = None
+            if collapsed:
+                with open(args.flamegraph_out, "w") as f:
+                    f.write(collapsed)
+                print(
+                    f"wrote server flamegraph collapsed stacks to "
+                    f"{args.flamegraph_out} (flamegraph.pl or "
+                    "speedscope.app can open it)"
+                )
+            else:
+                print(
+                    "warning: server profile capture failed; no "
+                    "flamegraph written",
+                    file=sys.stderr,
+                )
+        if args.dump_slow_requests:
+            # end the run with evidence: the server's worst requests,
+            # stage-decomposed
+            from client_tpu_torch.perf.metrics_collector import fetch_debug_requests
+            from client_tpu_torch.perf.report import format_slow_requests
+
+            debug_url = (collector.url if collector is not None
+                         else _server_http_url(args))
+            recorder_snapshot = await fetch_debug_requests(
+                debug_url, model=args.model_name, limit=args.dump_slow_requests)
+            print()
+            if recorder_snapshot is None:
+                print(
+                    "warning: could not fetch /v2/debug/requests from "
+                    f"{debug_url}; no slow-request dump",
+                    file=sys.stderr,
+                )
+            else:
+                print(format_slow_requests(recorder_snapshot, args.dump_slow_requests))
+                if run_logger is not None:
+                    for exemplar in recorder_snapshot.get("slowest", []):
+                        run_logger.info("slow_request", **exemplar)
+
         try:
             pool_snapshot = backend.endpoint_snapshot()
         except Exception:  # noqa: BLE001 - telemetry must not fail the run
             pool_snapshot = None
+        # "Client metrics": whenever client telemetry is live (a tracer,
+        # or the endpoint pool's stats under --collect-metrics)
+        if tracer is not None or (args.collect_metrics and pool_snapshot is not None):
+            print()
+            print(format_client_metrics(
+                tracer.metrics.snapshot() if tracer is not None else None,
+                endpoints=pool_snapshot,
+            ))
 
         if args.filename:
             write_csv(experiments, args.filename)
@@ -787,6 +980,16 @@ async def run(args) -> int:
                     for p, entry in
                     best.status.per_priority_latency_us.items()
                 }
+            if server_summary is not None:
+                summary_doc["server_duty_avg"] = server_summary.duty_avg
+                summary_doc["server_duty_max"] = server_summary.duty_max
+                summary_doc["server_batch_avg"] = server_summary.batch_avg
+                stage_us = server_summary.stage_cpu_us()
+                if stage_us:
+                    summary_doc["server_stage_cpu_us"] = {
+                        stage: round(us, 2)
+                        for stage, us in sorted(stage_us.items())
+                    }
             print(json.dumps(summary_doc))
         return 0
     except InferenceServerException as e:
@@ -797,9 +1000,23 @@ async def run(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:
+        if flamegraph_task is not None:
+            flamegraph_task.cancel()
+        if prev_profiling is not None and not prev_profiling.get("stage_cpu"):
+            # restore the server's pre-run profiling setting (default off)
+            from client_tpu_torch.perf.metrics_collector import set_stage_cpu
+
+            await set_stage_cpu(collector.url, False)
+        if collector is not None:
+            await collector.stop()  # no-op when already stopped above
         if shm_plane is not None:
             await shm_plane.cleanup()
         await backend.close()
+        if trace_exporter is not None:
+            trace_exporter.close()
+        if run_logger is not None:
+            run_logger.info("run_finished")
+            run_logger.close()
 
 
 def main(argv: Optional[List[str]] = None) -> int:

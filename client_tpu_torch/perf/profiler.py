@@ -1,8 +1,6 @@
 """Measurement engine: windows, stability detection, mode sweeps.
 
-The port's own copy of ``client_tpu/perf/profiler.py``, without the
-``/metrics`` collector hook (the port's server has no ``/metrics`` route
-yet). The reference's InferenceProfiler (reference
+The port's own copy of ``client_tpu/perf/profiler.py``. The reference's InferenceProfiler (reference
 inference_profiler.h:192-747): time-based measurement windows repeated
 until the last three are stable (throughput and latency within
 ±stability% of their running mean, latency under the threshold), swept
@@ -52,6 +50,7 @@ class InferenceProfiler:
         warmup_s: float = 0.0,
         warmup_requests: int = 0,
         verbose: bool = False,
+        metrics_collector=None,
     ):
         self.manager = manager
         self.measurement_interval_s = measurement_interval_s
@@ -73,6 +72,10 @@ class InferenceProfiler:
         self.verbose = verbose
         self.experiments: List[ProfileExperiment] = []
         self._binary_answer: Optional[ProfileExperiment] = None
+        # a running MetricsCollector (--collect-metrics): windows bracket
+        # themselves with an extra scrape so window-boundary deltas exist
+        # even when the scrape interval is longer than the window
+        self.metrics_collector = metrics_collector
 
     def _stabilizing_latency(self, status: PerfStatus) -> float:
         if self.stability_percentile is None:
@@ -116,6 +119,8 @@ class InferenceProfiler:
     async def measure_window(self) -> PerfStatus:
         """One measurement window over the live manager."""
         before = await self._server_stats(self.manager.model_name)
+        if self.metrics_collector is not None:
+            await self.metrics_collector.scrape_now()
         self.manager.swap_records()  # discard partial records
         start_ns = time.monotonic_ns()
         if self.count_windows:
@@ -131,6 +136,8 @@ class InferenceProfiler:
         end_ns = time.monotonic_ns()
         records = self.manager.swap_records()
         after = await self._server_stats(self.manager.model_name)
+        if self.metrics_collector is not None:
+            await self.metrics_collector.scrape_now()
         status = compute_window_status(
             records, start_ns, end_ns, self.percentiles
         )

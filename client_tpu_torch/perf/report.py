@@ -1,8 +1,7 @@
 """Reporting: console summary, CSV, and profile-export JSON.
 
-The port's own copy of ``client_tpu/perf/report.py``, without the
-server-metrics, wire-gap, fleet and slow-request blocks, whose inputs
-(``/metrics`` and the debug routes) the port's server does not serve yet.
+The port's own copy of ``client_tpu/perf/report.py``, without the fleet
+block (``observability/fleet.py`` is not ported yet).
 Console/CSV mirror the reference's ReportWriter output columns
 (reference report_writer.cc); the profile export follows the shape of the
 reference's ProfileDataExporter document (experiments with per-request
@@ -14,6 +13,7 @@ import json
 from typing import Any, Dict, Optional, Sequence
 
 from client_tpu_torch.perf.profiler import ProfileExperiment
+from client_tpu_torch.perf.records import ServerMetricsSummary
 
 
 def console_report(
@@ -179,6 +179,178 @@ def format_shm_delta(
     return line
 
 
+def _format_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024.0
+    return f"{n:.1f} GiB"  # pragma: no cover - loop always returns
+
+
+def format_server_metrics(summary: ServerMetricsSummary) -> str:
+    """The "Server metrics" block printed when --collect-metrics scraped
+    the server during the run (reference MetricsManager report role)."""
+    lines = [
+        f"Server metrics ({summary.scrape_count} scrapes over "
+        f"{summary.window_s:.1f} s"
+        + (
+            f", {summary.scrape_errors} failed"
+            if summary.scrape_errors
+            else ""
+        )
+        + "):"
+    ]
+    lines.append(
+        f"  TPU duty cycle: avg {summary.duty_avg * 100:.1f}%, "
+        f"max {summary.duty_max * 100:.1f}%"
+    )
+    if len(summary.device_duty) > 1:
+        # per-chip view (mesh-sharded servers): each device's own busy
+        # delta over the window, plus the spread as the skew signal
+        per = ", ".join(
+            f"dev{device}: {duty * 100:.1f}%"
+            for device, duty in sorted(summary.device_duty.items())
+        )
+        values = list(summary.device_duty.values())
+        low, high = min(values), max(values)
+        skew = f" (skew {high / low:.2f}x)" if low > 0 else ""
+        lines.append(f"  Per-device duty: {per}{skew}")
+    if summary.memory_peak_bytes:
+        lines.append(
+            f"  TPU memory: peak {_format_bytes(summary.memory_peak_bytes)} "
+            "used"
+        )
+    if summary.request_count:
+        lines.append(
+            f"  Requests: {summary.success_count} ok, "
+            f"{summary.failure_count} failed, avg "
+            f"{summary.avg_request_us:.0f} usec in server"
+        )
+        lines.append(
+            f"  Queue/compute: avg queue {summary.avg_queue_us:.0f} usec, "
+            f"avg compute {summary.avg_compute_us:.0f} usec "
+            f"(ratio {summary.queue_compute_ratio:.2f})"
+        )
+    if summary.batch_avg:
+        dist = ", ".join(
+            f"<={int(le) if float(le).is_integer() else le}: {int(count)}"
+            for le, count in summary.batch_buckets
+            if count > 0
+        )
+        lines.append(
+            f"  Batch size: avg {summary.batch_avg:.1f} rows/execution"
+            + (f" [{dist}]" if dist else "")
+        )
+    if summary.scrape_count == 0 or (
+        not summary.request_count and not summary.duty_max
+    ):
+        lines.append(
+            "  (no server activity captured; is the metrics endpoint the "
+            "right server?)"
+        )
+    return "\n".join(lines)
+
+
+def format_wire_gap(
+    summary: ServerMetricsSummary,
+    clock_mode: str = "",
+    inproc_us_per_req: float = 0.0,
+) -> str:
+    """The "Wire-gap attribution" table (``--profile-server``): the
+    server's per-stage thread-CPU µs per request, from the
+    ``tpu_request_cpu_seconds{stage}`` deltas the collector scraped.
+
+    Splits the stages into wire-only work (decode/encode/rpc — CPU the
+    in-process path never pays: the directly-attributable slice of the
+    wire gap) and shared work (assembly/device_put/compute/readback).
+    ``inproc_us_per_req`` (when the caller measured an in-process
+    baseline, e.g. bench.py) adds the explicit gap line.
+    """
+    from client_tpu_torch.observability.profiling import STAGES, WIRE_ONLY_STAGES
+
+    per_request = summary.stage_cpu_us()
+    header = "Wire-gap attribution (server stage CPU per request"
+    if clock_mode and clock_mode != "thread_cpu":
+        header += f"; clock: {clock_mode}"
+    header += "):"
+    if not per_request:
+        return (
+            header
+            + "\n  no stage-CPU samples captured (is the server's"
+            " /v2/debug/profiling endpoint reachable?)"
+        )
+    lines = [header]
+    ordered = [s for s in STAGES if s in per_request] + sorted(
+        set(per_request) - set(STAGES)
+    )
+    inference_stages = [s for s in ordered if s != "rpc"]
+    total_us = sum(per_request[s] for s in inference_stages)
+    for stage in ordered:
+        us = per_request[stage]
+        entry = summary.stage_cpu[stage]
+        if stage == "rpc":
+            # booked per method call, not per request: report the run
+            # total so scrape/statistics overhead stays visible
+            lines.append(
+                f"  {stage:<15s} {entry['cpu_s'] * 1e3:8.2f} ms total "
+                f"({int(entry['count'])} non-inference calls)"
+            )
+            continue
+        share = us / total_us * 100 if total_us else 0.0
+        line = f"  {stage:<15s} {us:8.1f} us/req  ({share:4.1f}%)"
+        if stage == "queue_wait" and summary.avg_queue_us:
+            line += f"  [wall {summary.avg_queue_us:.1f} us/req]"
+        lines.append(line)
+    lines.append(f"  {'total':<15s} {total_us:8.1f} us/req")
+    wire_stages = [s for s in inference_stages if s in WIRE_ONLY_STAGES]
+    shared_stages = [
+        s for s in inference_stages if s not in WIRE_ONLY_STAGES
+    ]
+    wire_us = sum(per_request[s] for s in wire_stages)
+    shared_us = total_us - wire_us
+    lines.append(
+        f"  wire-only stages ({'+'.join(wire_stages)}) {wire_us:.1f} "
+        f"us/req vs shared stages ({'+'.join(shared_stages)}) "
+        f"{shared_us:.1f} us/req"
+    )
+    if inproc_us_per_req > 0:
+        lines.append(
+            f"  in-process baseline {inproc_us_per_req:.1f} us/req -> "
+            f"directly-attributed wire gap {wire_us:.1f} us/req"
+        )
+    return "\n".join(lines)
+
+
+def format_shm_delta(
+    shm_infer_per_sec: float,
+    native_infer_per_sec: float,
+    tensor_bytes: int = 0,
+    label: str = "shm",
+) -> str:
+    """The shm-vs-inline verdict as a named number.
+
+    BENCH_r05 buried an inversion (tpu-shm slower than inline gRPC at
+    small tensor sizes) in an unlabeled JSON field for four rounds; this
+    renders the delta explicitly and FLAGS the loss, so a shm path that
+    stops paying for itself is a headline, not an easter egg.
+    """
+    if shm_infer_per_sec <= 0 or native_infer_per_sec <= 0:
+        return ""
+    ratio = shm_infer_per_sec / native_infer_per_sec
+    delta_pct = (ratio - 1.0) * 100.0
+    size = f" at {tensor_bytes} B/tensor" if tensor_bytes else ""
+    line = (
+        f"{label} vs inline wire{size}: {shm_infer_per_sec:.0f} vs "
+        f"{native_infer_per_sec:.0f} infer/sec ({delta_pct:+.1f}%)"
+    )
+    if ratio < 1.0:
+        line += (
+            f"  ** {label.upper()} LOSES at this tensor size — the "
+            "copy savings do not cover its per-request overhead **"
+        )
+    return line
+
+
 def format_client_metrics(
     snapshot: Optional[Dict[str, Any]],
     endpoints: Optional[Dict[str, Any]] = None,
@@ -244,6 +416,54 @@ def format_client_metrics(
             )
     if len(lines) == 1:
         lines.append("  (no client telemetry recorded)")
+    return "\n".join(lines)
+
+
+def format_slow_requests(
+    snapshot: Dict[str, Any], limit: Optional[int] = None
+) -> str:
+    """Render the flight recorder's slowest-request exemplars
+    (``GET /v2/debug/requests``) stage-decomposed — the end-of-run answer
+    to "which requests were the worst, and where did their time go"."""
+    slowest = snapshot.get("slowest", [])
+    if limit is not None:
+        slowest = slowest[:limit]
+    lines = ["Slowest requests (server flight recorder):"]
+    if not slowest:
+        lines.append("  (no exemplars recorded)")
+        return "\n".join(lines)
+    header = (
+        f"  {'total_us':>10} {'queue_us':>10} {'compute_us':>10} "
+        f"{'package_us':>10}  {'model':<16} {'path':<9} {'status':<8} detail"
+    )
+    lines.append(header)
+    for exemplar in slowest:
+        stages = exemplar.get("stages", {})
+        detail = []
+        if exemplar.get("request_id"):
+            detail.append(f"id={exemplar['request_id']}")
+        if exemplar.get("trace_id"):
+            detail.append(f"trace={exemplar['trace_id']}")
+        if exemplar.get("error"):
+            detail.append(f"error={exemplar['error']}")
+        lines.append(
+            f"  {exemplar.get('total_us', 0):>10.0f}"
+            f" {stages.get('queue_us', 0):>10.0f}"
+            f" {stages.get('compute_us', 0):>10.0f}"
+            f" {stages.get('package_us', 0):>10.0f}"
+            f"  {exemplar.get('model', ''):<16}"
+            f" {exemplar.get('path', ''):<9}"
+            f" {exemplar.get('status', ''):<8}"
+            f" {' '.join(detail)}".rstrip()
+        )
+    errors = snapshot.get("error_total", 0)
+    rejected = snapshot.get("rejected_total", 0)
+    if errors or rejected:
+        lines.append(
+            f"  ({errors} errored / {rejected} rejected requests recorded;"
+            " full exemplars in the 'errors' section of"
+            " GET /v2/debug/requests)"
+        )
     return "\n".join(lines)
 
 

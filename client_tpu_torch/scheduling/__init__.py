@@ -208,6 +208,10 @@ class PriorityQueue:
     def __len__(self) -> int:
         return self._size
 
+    def depths(self) -> Dict[int, int]:
+        """Queued entries per level."""
+        return {i + 1: len(lane) for i, lane in enumerate(self._levels)}
+
     def push(self, value: Any, level: int = 1,
              deadline_ns: Optional[int] = None) -> QueueItem:
         """Enqueue at ``level`` (clamped to the configured range)."""

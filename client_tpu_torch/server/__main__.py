@@ -2,11 +2,13 @@
 
 Starts the HTTP front-end over a model repository holding the built-in
 models (``simple``, ``identity_fp32``, ``identity_bf16``,
-``identity_bytes``; ``--no-builtin-models`` leaves them out);
+``identity_bytes``, ``repeat_int32``, ``sequence_accumulate``,
+``add_sub_chain``; ``--no-builtin-models`` leaves them out);
 ``--zoo-models`` adds ``image_classifier`` (64 x 64 images, the thin
-ResNet-18), ``llm_engine`` (the tiny Llama) and ``text_encoder`` (the tiny
-BERT), random weights from seed 0. Every model runs on
-``--device`` (default ``cuda``).
+ResNet-18), ``llm_decode`` and ``llm_engine`` (the tiny Llama) and
+``text_encoder`` (the tiny BERT), random weights from seed 0. Every model
+runs on ``--device`` (default ``cuda``), which is also the device
+``/metrics`` reports the memory of.
 """
 
 import argparse
@@ -24,13 +26,14 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--no-builtin-models",
         action="store_true",
-        help="skip the built-in models (simple, identity_*)",
+        help="skip the built-in models (simple, identity_*, repeat_int32, "
+        "sequence_accumulate, add_sub_chain)",
     )
     parser.add_argument(
         "--zoo-models",
         action="store_true",
-        help="also register the model-zoo adapters (image_classifier, llm_engine, "
-        "text_encoder)",
+        help="also register the model-zoo adapters (image_classifier, llm_decode, "
+        "llm_engine, text_encoder)",
     )
     parser.add_argument(
         "--device",
@@ -56,7 +59,7 @@ def main(argv=None) -> int:
     for entry in repository.index():
         print(f"model {entry['name']}: {entry['state']} {entry['reason']}".rstrip(),
               flush=True)
-    core = ServerCore(repository)
+    core = ServerCore(repository, device=args.device)
 
     async def serve() -> None:
         server = await serve_http(core, args.host, args.http_port)

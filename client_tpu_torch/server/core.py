@@ -25,9 +25,19 @@ may instead name a slot of a shared-memory ring
 (:attr:`ServerCore.shm_rings`, ``server/shm_ring.py``): the front-end
 reads its inputs from the slot and writes its response back there.
 
-Not ported yet: metrics, profiling, exemplars, traces, drain and
-lifecycle, the direct (pump-thread) batch path, rate limiting and the
-admission gate of the unbatched path.
+Observability, as the reference has it: every booking path feeds the
+statistics and the Prometheus families of :attr:`ServerCore.metrics`
+(``server/metrics.py``) alike, so a duration histogram's ``_count``
+equals the statistics' ``success.count``; device executions add to the
+busy-ns counter the duty cycle derives from (models on the CPU book
+none); each request lands in the flight recorder (``/v2/debug/requests``)
+and, when sampled, in a trace record with five stamps; decoupled streams
+get per-response statistics; stage CPU accounting (off by default) books
+the executions' ``compute``, ``device_put`` and ``readback``.
+
+Not ported yet: drain and lifecycle, repository control, the direct
+(pump-thread) batch path, rate limiting and the admission gate of the
+unbatched path.
 """
 
 import asyncio
@@ -40,6 +50,15 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 import numpy as np
 import torch
 
+from client_tpu_torch.observability.logging import StructuredLogger
+from client_tpu_torch.observability.profiling import (
+    StageCpuAccounting,
+    execution_scope,
+    prime_device_tracing,
+    transfer_scope,
+)
+from client_tpu_torch.observability.recorder import FlightRecorder
+from client_tpu_torch.observability.server import TraceManager
 from client_tpu_torch.scheduling import (
     SCHEDULING_PARAM_KEYS,
     PriorityQueue,
@@ -53,6 +72,7 @@ from client_tpu_torch.server.model_repository import (
     Model,
     ModelRepository,
 )
+from client_tpu_torch.server.metrics import ServerMetrics, device_label
 from client_tpu_torch.server.models import pad_batch_bucket
 from client_tpu_torch.server.shm import SharedMemoryManager
 from client_tpu_torch.server.shm_ring import RingRegistry
@@ -62,6 +82,7 @@ from client_tpu_torch.utils import (
     deserialize_bytes_tensor,
     np_to_triton_dtype,
     num_elements,
+    resolve_device,
     serialize_bf16_tensor,
     serialize_byte_tensor,
     tensors_to_numpy,
@@ -79,6 +100,9 @@ SERVER_EXTENSIONS = [
     "statistics",
     "system_shared_memory",
     "tpu_shared_memory",
+    "trace",
+    "logging",
+    "live_telemetry",
 ]
 
 
@@ -108,6 +132,9 @@ class CoreRequest:
     inputs: List[CoreTensor] = field(default_factory=list)
     outputs: List[CoreRequestedOutput] = field(default_factory=list)
     parameters: Dict[str, Any] = field(default_factory=dict)
+    # server trace attached by the front-end (observability.server's
+    # ServerTrace); the execution paths stamp its stages
+    trace: Optional[Any] = None
     # scheduling fields stamped at admission (QueuePolicy.stamp): the
     # effective queue level (1 = highest) and the absolute queue deadline
     # in monotonic ns (None = no deadline)
@@ -117,6 +144,26 @@ class CoreRequest:
     # front-end when the request sourced its inputs from a ring slot;
     # the front-end routes the response back through ticket.complete()
     shm_ring: Optional[Any] = None
+
+
+def _trace_id_of(request) -> str:
+    """The request's trace id ("" when untraced): the duration
+    histogram's exemplar, linking a ``/metrics`` bucket to the same
+    request's ``/v2/debug/requests`` entry."""
+    trace = request.trace
+    return trace.trace_id if trace is not None else ""
+
+
+def _trace_stages(trace, queue_start_ns: int, compute_start_ns: int,
+                  compute_end_ns: int, request_end_ns: int) -> None:
+    """Stamp the Triton-style stages on a server trace (no-op when
+    untraced); the front-end stamped REQUEST_START."""
+    if trace is None:
+        return
+    trace.event("QUEUE_START", queue_start_ns)
+    trace.event("COMPUTE_START", compute_start_ns)
+    trace.event("COMPUTE_END", compute_end_ns)
+    trace.event("REQUEST_END", request_end_ns)
 
 
 @dataclass(slots=True)
@@ -132,29 +179,42 @@ class CoreResponse:
 
 
 class _Stats:
-    """Cumulative per-model statistics (counts + ns)."""
+    """Cumulative per-model statistics (counts + ns). ``metrics`` (the
+    core's :class:`ServerMetrics`) gets the same events, outside the
+    lock, so the statistics extension and the Prometheus families never
+    disagree."""
 
     FIELDS = ("success", "fail", "queue", "compute_input", "compute_infer", "compute_output")
+    RESPONSE_FIELDS = ("success", "fail", "cancel", "compute_infer", "compute_output",
+                       "empty_response")
 
-    def __init__(self):
+    def __init__(self, metrics: ServerMetrics, model_name: str):
+        self._metrics = metrics
+        self._model = model_name
         self.lock = threading.Lock()
         self.counts = {f: 0 for f in self.FIELDS}
         self.ns = {f: 0 for f in self.FIELDS}
         self.inference_count = 0
         self.execution_count = 0
         self.last_inference = 0
+        # decoupled per-response statistics keyed by response index
+        # (Triton's response_stats: key "0" aggregates first responses)
+        self.response_stats: Dict[str, Dict[str, List[int]]] = {}
 
     def record(self, field_name: str, duration_ns: int) -> None:
         with self.lock:
             self.counts[field_name] += 1
             self.ns[field_name] += duration_ns
+        if field_name == "fail":
+            self._metrics.observe_failure(self._model)
 
     def record_success(self, batch: int, queue_ns, in_ns, infer_ns, out_ns,
-                       executions: int = 1) -> None:
+                       executions: int = 1, trace_id: str = "") -> None:
         """Account one successful request. ``executions`` is 0 for requests
         that shared a dynamically batched execution with an earlier
         request of the same batch (Triton semantics: inference_count
-        counts rows, execution_count device executions)."""
+        counts rows, execution_count device executions). ``trace_id``
+        becomes the duration histogram's exemplar."""
         now_ms = int(time.time() * 1000)
         total = queue_ns + in_ns + infer_ns + out_ns
         with self.lock:
@@ -170,15 +230,46 @@ class _Stats:
             ):
                 self.counts[f] += 1
                 self.ns[f] += ns
+        self._metrics.observe_success(self._model, queue_ns, in_ns + infer_ns + out_ns,
+                                      total, trace_id=trace_id)
 
     def record_execution(self) -> None:
         """Count a device execution whose every request failed packaging."""
         with self.lock:
             self.execution_count += 1
 
+    def _response_entry(self, index: int) -> Dict[str, List[int]]:
+        return self.response_stats.setdefault(
+            str(index), {f: [0, 0] for f in self.RESPONSE_FIELDS})
+
+    def record_response(self, index: int, infer_ns: int, out_ns: int,
+                        latency_ns: int, empty: bool) -> None:
+        """Account one decoupled response: ``infer_ns`` is the model's
+        time since the previous response, ``out_ns`` its packaging,
+        ``latency_ns`` the time since the stream started. An empty
+        response is not a success and carries no compute samples."""
+        with self.lock:
+            entry = self._response_entry(index)
+            if empty:
+                entry["empty_response"][0] += 1
+                entry["empty_response"][1] += latency_ns
+                return
+            for f, ns in (("success", latency_ns), ("compute_infer", infer_ns),
+                          ("compute_output", out_ns)):
+                entry[f][0] += 1
+                entry[f][1] += ns
+
+    def record_response_failure(self, index: int, latency_ns: int,
+                                cancelled: bool = False) -> None:
+        """Account the response slot a stream failed (or was cancelled) at."""
+        with self.lock:
+            entry = self._response_entry(index)["cancel" if cancelled else "fail"]
+            entry[0] += 1
+            entry[1] += latency_ns
+
     def snapshot(self) -> Dict[str, Any]:
         with self.lock:
-            return {
+            snap = {
                 "inference_count": self.inference_count,
                 "execution_count": self.execution_count,
                 "last_inference": self.last_inference,
@@ -187,6 +278,12 @@ class _Stats:
                     for f in self.FIELDS
                 },
             }
+            if self.response_stats:
+                snap["response_stats"] = {
+                    key: {f: {"count": v[0], "ns": v[1]} for f, v in fields.items()}
+                    for key, fields in self.response_stats.items()
+                }
+            return snap
 
 
 def _to_host(raw: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -382,8 +479,9 @@ class _ModelBatcher:
         rows = self.meta.validate(request)
         policy = self.policy
         if policy.max_queue_size and len(self.pending) >= policy.max_queue_size:
-            self.core._stats_for(self.model.name).record("fail", 0)
-            raise QueueFullError(self.model.name, policy.max_queue_size)
+            error = QueueFullError(self.model.name, policy.max_queue_size)
+            self.core._book_rejection(self.model.name, request, error)
+            raise error
         arrival_ns = time.monotonic_ns()
         policy.stamp(request, arrival_ns)
         loop = asyncio.get_running_loop()
@@ -393,6 +491,7 @@ class _ModelBatcher:
             level=request.priority_level,
             deadline_ns=request.deadline_ns,
         )
+        self._publish_depths()
         if not self.running:
             self.running = True
             self._drain_task = loop.create_task(self._drain())
@@ -414,14 +513,17 @@ class _ModelBatcher:
     def _expire_pending(self) -> None:
         """Fail queued entries whose deadline passed."""
         now_ns = time.monotonic_ns()
-        stats = self.core._stats_for(self.model.name)
-        for item in self.pending.expire(now_ns):
+        expired = self.pending.expire(now_ns)
+        for item in expired:
             request, future, _sig, _rows, arrival_ns = item.value
-            stats.record("fail", now_ns - arrival_ns)
+            error = QueueTimeoutError(
+                self.model.name, self.policy.timeout_us_of(request.parameters))
+            self.core._book_rejection(self.model.name, request, error,
+                                      latency_ns=now_ns - arrival_ns)
             if not future.done():
-                future.set_exception(QueueTimeoutError(
-                    self.model.name, self.policy.timeout_us_of(request.parameters)
-                ))
+                future.set_exception(error)
+        if expired:
+            self._publish_depths()
 
     def _take_batch(self) -> List[Any]:
         """Pop the highest-priority oldest request plus every compatible
@@ -443,27 +545,49 @@ class _ModelBatcher:
             taken.append(entry)
             rows += entry[3]
         self.pending.remove(taken_items)
+        self._publish_depths()
         return taken
+
+    def _publish_depths(self) -> None:
+        self.core.metrics.set_queue_depth(self.model.name, self.pending.depths())
 
     async def _execute_batch(self, entries: List[Any]) -> None:
         loop = asyncio.get_running_loop()
         model, core = self.model, self.core
         stats = core._stats_for(model.name)
+        prof = core.profiling
         exec_start = time.monotonic_ns()
         requests = [e[0] for e in entries]
+        n = len(entries)
+        # one take() covers the whole batch's stage brackets
+        measured = prof.take()
         try:
-            merged = self.meta.merge_inputs(requests)
+            if measured:
+                # queue_wait is wall time (no thread attached): CPU 0
+                prof.account("queue_wait", 0,
+                             wall_ns=sum(exec_start - e[4] for e in entries), count=n)
+                a0 = prof.cpu_now()
+                merged = self.meta.merge_inputs(requests)
+                prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
+            else:
+                merged = self.meta.merge_inputs(requests)
             parameters = requests[0].parameters
 
             def run():
-                return _to_host(model.execute(merged, parameters))
+                return core._execute_measured(model, merged, parameters, measured, n)
 
             raw = await loop.run_in_executor(core._executor, run)
             infer_end = time.monotonic_ns()
+            core.add_busy_ns(model, infer_end - exec_start)
+            core.metrics.observe_execution(model.name, sum(e[3] for e in entries))
         except Exception as e:  # noqa: BLE001 - fail every request in the batch
+            core._log_request_error("batch_execution_failed", model.name, e, path="batch")
             now = time.monotonic_ns()
-            for _req, future, _sig, _rows, arrival in entries:
+            for req, future, _sig, _rows, arrival in entries:
                 stats.record("fail", now - arrival)
+                core._record_exemplar(model.name, req, path="batch", status="error",
+                                      error=str(e), arrival_ns=arrival,
+                                      exec_start_ns=exec_start, end_ns=now)
                 if not future.done():
                     future.set_exception(e)
             return
@@ -478,7 +602,7 @@ class _ModelBatcher:
                     sliced = raw
                 else:
                     sliced = {k: v[offset:offset + rows] for k, v in raw.items()}
-                response = core._package_outputs(model, request, sliced)
+                response = core._package_profiled(model, request, sliced)
                 out_end = time.monotonic_ns()
                 stats.record_success(
                     rows,
@@ -487,12 +611,23 @@ class _ModelBatcher:
                     infer_ns=infer_end - exec_start,
                     out_ns=out_end - infer_end,
                     executions=execution_pending,
+                    trace_id=_trace_id_of(request),
                 )
+                _trace_stages(request.trace, arrival, exec_start, infer_end, out_end)
+                core._record_exemplar(model.name, request, path="batch",
+                                      arrival_ns=arrival, exec_start_ns=exec_start,
+                                      infer_end_ns=infer_end, end_ns=out_end, rows=rows)
                 execution_pending = 0
                 if not future.done():
                     future.set_result(response)
             except Exception as e:  # noqa: BLE001 - per-request packaging error
-                stats.record("fail", time.monotonic_ns() - arrival)
+                core._log_request_error("packaging_failed", model.name, e, path="batch")
+                now = time.monotonic_ns()
+                stats.record("fail", now - arrival)
+                core._record_exemplar(model.name, request, path="batch", status="error",
+                                      error=str(e), arrival_ns=arrival,
+                                      exec_start_ns=exec_start, infer_end_ns=infer_end,
+                                      end_ns=now, rows=rows)
                 if not future.done():
                     future.set_exception(e)
             offset += rows
@@ -503,21 +638,46 @@ class _ModelBatcher:
 class ServerCore:
     """The protocol-independent inference engine: model lookup, the
     dynamic batchers, the executor that device calls run on, statistics,
-    and the streaming path."""
+    the streaming path, and the server's observability (metrics, traces,
+    structured log, flight recorder, stage CPU accounting).
+
+    ``device`` is the server's device: the one ``/metrics`` reports the
+    memory of and server metadata lists (``cuda`` unless the caller
+    passes ``"cpu"``; with no card, those two raise). Models carry their
+    own device."""
 
     def __init__(self, repository: Optional[ModelRepository] = None,
-                 max_workers: int = 32):
+                 max_workers: int = 32, device=None):
         self.repository = repository or ModelRepository()
+        self.device = device
         self.stats: Dict[str, _Stats] = {}
         self._stats_lock = threading.Lock()
         self._batchers: Dict[str, _ModelBatcher] = {}
         self.shm = SharedMemoryManager()
-        # rings over registered regions, validated once per registration
-        self.shm_rings = RingRegistry(self.shm)
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="client-tpu-torch-exec"
         )
         self.live = True
+        # the trace extension: sampling, per-model settings, records
+        self.trace_manager = TraceManager()
+        # cumulative busy ns of device executions, in all and per device:
+        # the monotone counter the duty cycle derives from
+        self._busy_lock = threading.Lock()
+        self._device_busy_ns = 0
+        self._device_busy: Dict[str, int] = {}
+        self.metrics = ServerMetrics(self, device=device)
+        # rings over registered regions, validated once per registration
+        self.shm_rings = RingRegistry(self.shm, metrics=self.metrics)
+        # stage CPU accounting, off until POST /v2/debug/profiling
+        self.profiling = StageCpuAccounting(metrics_hook=self.metrics.observe_stage_cpu)
+        if torch.cuda.is_available() and torch.device(device or "cuda").type == "cuda":
+            # /v2/debug/profile's device trace runs on an executor thread:
+            # the profiler's CUDA tracing must first start on this one
+            prime_device_tracing()
+        # the logging extension: /v2/logging settings gate what it emits
+        self.logger = StructuredLogger(name="server")
+        # recent, failed and slowest requests (GET /v2/debug/requests)
+        self.flight_recorder = FlightRecorder()
 
     @property
     def ready(self) -> bool:
@@ -528,7 +688,8 @@ class ServerCore:
 
     def close(self) -> None:
         """Stop model-owned machinery (the LLM engine's step loop) and the
-        executor, and unmap every registered shared-memory region."""
+        executor, unmap every registered shared-memory region, and flush
+        the trace records and the log."""
         self.live = False
         for entry in self.repository.index():
             shutdown = getattr(self.repository.peek(entry["name"]), "shutdown", None)
@@ -536,12 +697,123 @@ class ServerCore:
                 shutdown()
         self._executor.shutdown(wait=False, cancel_futures=True)
         self.shm.unregister_all()
+        self.trace_manager.close()
+        self.logger.close()
 
     def _stats_for(self, model_name: str) -> _Stats:
         with self._stats_lock:
             if model_name not in self.stats:
-                self.stats[model_name] = _Stats()
+                self.stats[model_name] = _Stats(metrics=self.metrics, model_name=model_name)
             return self.stats[model_name]
+
+    # -- flight recorder, structured log, rejections --------------------------
+
+    def _record_exemplar(self, model_name: str, request: CoreRequest, path: str,
+                         status: str = "ok", error: str = "", arrival_ns: int = 0,
+                         exec_start_ns: Optional[int] = None,
+                         infer_end_ns: Optional[int] = None,
+                         end_ns: Optional[int] = None, rows: int = 1,
+                         responses: Optional[int] = None) -> None:
+        """Book one completed request into the flight recorder, split at
+        the same monotonic reads the statistics book (queue = arrival to
+        execution, compute = execution to its end, package = the rest)."""
+        if end_ns is None:
+            end_ns = time.monotonic_ns()
+        exec_start = exec_start_ns if exec_start_ns is not None else end_ns
+        infer_end = infer_end_ns if infer_end_ns is not None else exec_start
+        self.flight_recorder.record(
+            model_name,
+            request_id=request.id,
+            trace_id=_trace_id_of(request),
+            status=status,
+            error=error,
+            path=path,
+            queue_us=(exec_start - arrival_ns) / 1e3 if arrival_ns else 0.0,
+            compute_us=(infer_end - exec_start) / 1e3,
+            package_us=(end_ns - infer_end) / 1e3,
+            total_us=((end_ns - arrival_ns) if arrival_ns else (end_ns - exec_start)) / 1e3,
+            rows=rows,
+            priority=request.priority_level,
+            responses=responses,
+        )
+
+    def _log_request_error(self, event: str, model_name: str, exc: BaseException,
+                           path: str) -> None:
+        """The server-side record of a failure otherwise only sent to the
+        client; rate-limited per (event, model)."""
+        self.logger.error(event, model=model_name, exc=exc,
+                          rate_key=(event, model_name), path=path)
+
+    def _book_rejection(self, model_name: str, request: CoreRequest,
+                        error: SchedulingError, latency_ns: int = 0) -> None:
+        """An admission rejection, booked everywhere it shows: the reject
+        counter by reason, the statistics' fail field, the trace, the
+        flight recorder and the verbose log."""
+        self.metrics.observe_rejection(model_name, error.reason)
+        if request.trace is not None:
+            request.trace.event("QUEUE_REJECTED")
+        self._stats_for(model_name).record("fail", latency_ns)
+        now_ns = time.monotonic_ns()
+        self._record_exemplar(model_name, request, path="admission", status="rejected",
+                              error=error.message(), arrival_ns=now_ns - latency_ns,
+                              exec_start_ns=now_ns, end_ns=now_ns)
+        self.logger.verbose("request_rejected", model=model_name, reason=error.reason,
+                            request_id=request.id)
+
+    # -- device busy accounting (duty cycle) ----------------------------------
+
+    def add_busy_ns(self, model: Model, duration_ns: int) -> None:
+        """Credit one device execution's ns to the busy counter of the
+        model's device. Models on the CPU never count."""
+        device = getattr(model, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return
+        label = device_label(device)
+        with self._busy_lock:
+            self._device_busy_ns += duration_ns
+            self._device_busy[label] = self._device_busy.get(label, 0) + duration_ns
+
+    def _default_device_label_value(self) -> str:
+        """The label of the server's device (exported at 0 before the
+        first device execution)."""
+        return device_label(resolve_device(self.device))
+
+    @property
+    def device_busy_ns_total(self) -> int:
+        with self._busy_lock:
+            return self._device_busy_ns
+
+    def device_busy_by_device(self) -> Dict[str, int]:
+        """Cumulative busy ns per device label (empty until the first
+        device execution)."""
+        with self._busy_lock:
+            return dict(self._device_busy)
+
+    # -- stage CPU accounting ---------------------------------------------------
+
+    def _execute_measured(self, model: Model, inputs, parameters, measured: bool,
+                          count: int = 1) -> Dict[str, np.ndarray]:
+        """Executor-side ``model.execute`` and the one device-to-host read;
+        when ``measured``, books ``compute``, ``readback`` and the
+        ``device_put`` the model marks on this thread's CPU clock."""
+        if not measured:
+            return _to_host(model.execute(inputs, parameters))
+        with execution_scope(self.profiling, count=count):
+            raw = model.execute(inputs, parameters)
+            with transfer_scope("readback"):
+                return _to_host(raw)
+
+    def _package_profiled(self, model: Model, request: CoreRequest,
+                          raw: Dict[str, np.ndarray]) -> CoreResponse:
+        """:meth:`_package_outputs` with its CPU booked as ``package``."""
+        prof = self.profiling
+        if not prof.take():
+            return self._package_outputs(model, request, raw)
+        c0 = prof.cpu_now()
+        try:
+            return self._package_outputs(model, request, raw)
+        finally:
+            prof.account("package", prof.cpu_now() - c0)
 
     def statistics(self, model_name: str = "", model_version: str = "") -> Dict[str, Any]:
         """The statistics extension's document for one model or all."""
@@ -558,6 +830,64 @@ class ServerCore:
             snap.update({"name": name, "version": model.version})
             result.append(snap)
         return {"model_stats": result}
+
+    # -- introspection ----------------------------------------------------------
+
+    def device_topology(self) -> Dict[str, Any]:
+        """The ``devices`` block of server metadata and ``debug_state()``:
+        the server's device platform and its devices (every CUDA card of
+        the process, or the CPU). The port has no mesh-sharded models, so
+        ``models`` is empty."""
+        device = resolve_device(self.device)
+        if device.type == "cuda":
+            devices = [{"id": i, "kind": torch.cuda.get_device_name(i), "process": 0}
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [{"id": 0, "kind": device.type, "process": 0}]
+        return {"platform": device.type, "device_count": len(devices),
+                "devices": devices, "models": {}}
+
+    def debug_state(self) -> Dict[str, Any]:
+        """One snapshot of the server's live internals
+        (``GET /v2/debug/state``), each subsystem under its own lock."""
+        queues = {
+            name: {
+                "depths": {str(level): depth
+                           for level, depth in batcher.pending.depths().items()},
+                "max_queue_size": batcher.policy.max_queue_size,
+            }
+            for name, batcher in list(self._batchers.items())
+        }
+        # engine-backed models: the document engine.stats() returns
+        llm: Dict[str, Any] = {}
+        for entry in self.repository.index():
+            engine = getattr(self.repository.peek(entry["name"]), "engine", None)
+            stats = getattr(engine, "stats", None)
+            if callable(stats):
+                llm[entry["name"]] = stats()
+        return {
+            "server": {"name": SERVER_NAME, "version": SERVER_VERSION,
+                       "live": self.live, "ready": self.ready, "recovering": False},
+            "llm": llm,
+            "devices": self.device_topology(),
+            "queues": queues,
+            "models": self.repository.index(),
+            "log_settings": self.logger.settings(),
+            "log_model_overrides": self.logger.model_overrides(),
+            "trace": {
+                "settings": self.trace_manager.settings(),
+                "started": self.trace_manager.started_count,
+                "completed": self.trace_manager.completed_count,
+            },
+            "profiling": self.profiling.config(),
+            "flight_recorder": self.flight_recorder.stats(),
+            "slo": self.metrics.telemetry.summary(),
+        }
+
+    def debug_slo(self) -> Dict[str, Any]:
+        """``GET /v2/debug/slo``: every model's rolling latency windows and
+        the error-budget status of models that declare an ``slo``."""
+        return self.metrics.telemetry.snapshot()
 
     # -- inference -----------------------------------------------------------
 
@@ -592,8 +922,7 @@ class ServerCore:
             return int(shape[0])
         return 1
 
-    @staticmethod
-    def _run_model(model: Model, request: CoreRequest,
+    def _run_model(self, model: Model, request: CoreRequest,
                    policy: QueuePolicy) -> Dict[str, np.ndarray]:
         """Executor-side body of the unbatched path."""
         if request.deadline_ns is not None and time.monotonic_ns() > request.deadline_ns:
@@ -606,7 +935,8 @@ class ServerCore:
                     f"'{model.name}'"
                 )
         inputs = {t.name: t.data for t in request.inputs}
-        return _to_host(model.execute(inputs, request.parameters))
+        return self._execute_measured(model, inputs, request.parameters,
+                                      self.profiling.take())
 
     def _package_outputs(self, model: Model, request: CoreRequest,
                          raw: Dict[str, np.ndarray]) -> CoreResponse:
@@ -676,9 +1006,13 @@ class ServerCore:
             raise InferenceServerException(
                 f"model '{model.name}' is decoupled; use streaming inference"
             )
-        if model.max_batch_size > 1 and self._has_batch_dim(model, request):
-            return await self._submit_batched(model, request)
-        return await self._infer_single(model, request)
+        self.metrics.pending_inc(model.name)
+        try:
+            if model.max_batch_size > 1 and self._has_batch_dim(model, request):
+                return await self._submit_batched(model, request)
+            return await self._infer_single(model, request)
+        finally:
+            self.metrics.pending_dec(model.name)
 
     def _submit_batched(self, model: Model,
                         request: CoreRequest) -> "asyncio.Future[CoreResponse]":
@@ -710,18 +1044,35 @@ class ServerCore:
                 self._executor, self._run_model, model, request, policy
             )
             t2 = time.monotonic_ns()
-            response = self._package_outputs(model, request, raw)
+            response = self._package_profiled(model, request, raw)
             t3 = time.monotonic_ns()
-        except Exception:
-            stats.record("fail", time.monotonic_ns() - t0)
+        except SchedulingError as e:  # the queue deadline passed
+            self._book_rejection(model.name, request, e,
+                                 latency_ns=time.monotonic_ns() - t0)
             raise
+        except Exception as e:
+            now = time.monotonic_ns()
+            stats.record("fail", now - t0)
+            self._log_request_error("request_failed", model.name, e, path="single")
+            self._record_exemplar(model.name, request, path="single", status="error",
+                                  error=str(e), arrival_ns=t0, end_ns=now)
+            raise
+        self.add_busy_ns(model, t2 - t1)
+        rows = self._resolve_batch(model, request)
+        self.metrics.observe_execution(model.name, rows)
         stats.record_success(
-            self._resolve_batch(model, request),
+            rows,
             queue_ns=t1 - t0,
             in_ns=0,
             infer_ns=t2 - t1,
             out_ns=t3 - t2,
+            trace_id=_trace_id_of(request),
         )
+        if self.profiling.take():
+            self.profiling.account("queue_wait", 0, wall_ns=t1 - t0)
+        _trace_stages(request.trace, t0, t1, t2, t3)
+        self._record_exemplar(model.name, request, path="single", arrival_ns=t0,
+                              exec_start_ns=t1, infer_end_ns=t2, end_ns=t3, rows=rows)
         return response
 
     async def infer_decoupled(
@@ -730,40 +1081,101 @@ class ServerCore:
         """Execute a streaming inference; yields 0..N responses, the last
         marked ``triton_final_response``. A non-decoupled model yields
         exactly one response, booked by :meth:`infer`, so a streaming
-        front-end serves both kinds (Triton semantics). A decoupled
-        stream that runs to its end is booked as one successful request."""
+        front-end serves both kinds (Triton semantics).
+
+        A decoupled stream is booked as one request, as the reference
+        books it: queue 0, ``compute_infer`` its life less the packaging of
+        its responses, ``compute_output`` that packaging; each response
+        also books per-response statistics. A stream whose consumer stops
+        after the final response is complete; one stopped earlier books a
+        cancelled response, and one that fails a failure. Only the time
+        spent waiting for the model's next item counts as device busy:
+        the time the consumer takes is not the card's."""
         model = self.repository.get(request.model_name, request.model_version)
         if not model.decoupled:
             yield await self.infer(request)
             return
         # engine-backed models run their device calls on this core's
-        # executor; one getattr per stream start, idempotent per core
+        # executor and book into its metrics; idempotent per core
         bind = getattr(model, "bind_core", None)
         if bind is not None:
             bind(self)
-        # a stream is booked as one request, as the reference books it:
-        # queue 0, compute_infer its life less the packaging of its
-        # responses, compute_output that packaging; a stream that fails
-        # (not one its consumer closes) is booked as a failure
         stats = self._stats_for(model.name)
         t0 = time.monotonic_ns()
         packaging_ns = 0
+        model_wait_ns = 0
+        prev_ns = t0
+        index = 0
+        final_delivered = False
+
+        def book_success() -> None:
+            t1 = time.monotonic_ns()
+            self.add_busy_ns(model, model_wait_ns)
+            stats.record_success(self._resolve_batch(model, request), queue_ns=0,
+                                 in_ns=0, infer_ns=t1 - t0 - packaging_ns,
+                                 out_ns=packaging_ns, trace_id=_trace_id_of(request))
+            _trace_stages(request.trace, t0, t0, t1, t1)
+            self._record_exemplar(model.name, request, path="decoupled", arrival_ns=t0,
+                                  exec_start_ns=t0, infer_end_ns=t1 - packaging_ns,
+                                  end_ns=t1, responses=index)
+
+        self.metrics.pending_inc(model.name)
         inputs = {t.name: t.data for t in request.inputs}
+        prof = self.profiling
         try:
+            resume_ns = time.monotonic_ns()
+            # the loop thread's CPU between resuming the model and its next
+            # item is the step's compute (other tasks on the loop blur it)
+            measure_step = prof.take()
+            cpu_resume = prof.cpu_now() if measure_step else 0
             async for raw in model.execute_decoupled(inputs, request.parameters):
-                p0 = time.monotonic_ns()
                 final = raw.pop("__final__", False)
-                response = self._package_outputs(model, request, raw)
+                p0 = time.monotonic_ns()
+                model_wait_ns += p0 - resume_ns
+                if measure_step:
+                    prof.account("compute", prof.cpu_now() - cpu_resume)
+                if raw:
+                    response = self._package_profiled(model, request, raw)
+                else:
+                    response = CoreResponse(model.name, model.version, request.id, [])
                 if final:
                     response.parameters["triton_final_response"] = True
-                packaging_ns += time.monotonic_ns() - p0
+                p1 = time.monotonic_ns()
+                packaging_ns += p1 - p0
+                stats.record_response(index, infer_ns=p0 - prev_ns, out_ns=p1 - p0,
+                                      latency_ns=p1 - t0, empty=not raw)
+                if request.trace is not None:
+                    request.trace.event(f"RESPONSE_{index}", p1)
+                prev_ns = p1
+                index += 1
+                # a close while suspended here means this response WAS
+                # delivered: after the final one, the stream is complete
+                final_delivered = final
                 yield response
-        except Exception:
-            stats.record("fail", time.monotonic_ns() - t0)
+                resume_ns = time.monotonic_ns()
+                measure_step = prof.take()
+                if measure_step:
+                    cpu_resume = prof.cpu_now()
+        except (asyncio.CancelledError, GeneratorExit):
+            if final_delivered:
+                book_success()
+            else:
+                stats.record_response_failure(index, time.monotonic_ns() - t0,
+                                              cancelled=True)
             raise
-        t1 = time.monotonic_ns()
-        stats.record_success(self._resolve_batch(model, request), queue_ns=0, in_ns=0,
-                             infer_ns=t1 - t0 - packaging_ns, out_ns=packaging_ns)
+        except Exception as e:
+            now = time.monotonic_ns()
+            stats.record_response_failure(index, now - t0)
+            stats.record("fail", now - t0)
+            self._log_request_error("stream_failed", model.name, e, path="decoupled")
+            self._record_exemplar(model.name, request, path="decoupled", status="error",
+                                  error=str(e), arrival_ns=t0, end_ns=now,
+                                  responses=index)
+            raise
+        else:
+            book_success()
+        finally:
+            self.metrics.pending_dec(model.name)
 
     # -- wire-side input decoding -------------------------------------------
 

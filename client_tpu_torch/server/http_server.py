@@ -17,6 +17,14 @@ for it. An inference request may name a shared-memory ring slot
 (``shm_ring_region``/``shm_ring_slot``/``shm_ring_seq`` parameters,
 ``server/shm_ring.py``): its inputs are read from the slot and its
 outputs written back there.
+
+The observability routes are the reference's: ``/metrics`` (Prometheus
+text, ``?exemplars=true`` for OpenMetrics exemplars), the trace and
+logging settings (``/v2/trace/setting``, ``/v2/logging``, global and per
+model), ``/v2/debug/{requests,state,slo}``, the stage CPU toggle
+``/v2/debug/profiling`` and the on-demand sampler ``/v2/debug/profile``
+(``jax_trace_dir`` adds a ``torch.profiler`` Chrome trace; one run at a
+time, a second gets 409).
 """
 
 import asyncio
@@ -25,15 +33,24 @@ import binascii
 import gzip
 import json
 import logging
+import os
 import re
+import tempfile
 import zlib
 from dataclasses import dataclass, field
 from http import HTTPStatus
 from typing import Any, Dict, List, Optional
+from urllib.parse import parse_qsl
 
 import numpy as np
 
 from client_tpu_torch.http._utils import read_chunked
+from client_tpu_torch.observability.profiling import (
+    WallProfiler,
+    maybe_torch_trace,
+    stage_scope,
+)
+from client_tpu_torch.observability.trace import TRACEPARENT_HEADER
 from client_tpu_torch.server import shm_ring
 from client_tpu_torch.server.core import (
     SERVER_EXTENSIONS,
@@ -128,6 +145,7 @@ class Request:
     params: Dict[str, str]  # path parameters of the matched route
     writer: asyncio.StreamWriter
     streamed: bool = False
+    query: Dict[str, str] = field(default_factory=dict)
 
     def json(self) -> Any:
         return json.loads(self.body or b"null")
@@ -143,8 +161,8 @@ class Request:
 
 
 async def _read_request(reader: asyncio.StreamReader):
-    """(method, path, version, headers, body) of the next request, or
-    None at a clean end of stream."""
+    """(method, path, query string, version, headers, body) of the next
+    request, or None at a clean end of stream."""
     try:
         head = await reader.readuntil(b"\r\n\r\n")
     except asyncio.IncompleteReadError as e:
@@ -185,8 +203,8 @@ async def _read_request(reader: asyncio.StreamReader):
             body = await reader.readexactly(length) if length else b""
         except asyncio.IncompleteReadError:
             raise HttpError(400, "truncated request body") from None
-    path = target.split("?", 1)[0]
-    return method, path, version, headers, body
+    path, _, query = target.partition("?")
+    return method, path, query, version, headers, body
 
 
 class HttpServer:
@@ -198,6 +216,9 @@ class HttpServer:
         self.core = core
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by close()
+        # one sampling run at a time: a second concurrent
+        # /v2/debug/profile gets 409 instead of doubling the overhead
+        self._profiling_busy = False
         openai = OpenAiFrontend(core)
         model = r"/v2/models/(?P<model>[^/]+)(/versions/(?P<version>[^/]+))?"
         self._routes = [
@@ -209,8 +230,23 @@ class HttpServer:
             ("GET", re.compile(model + "/ready"), self.handle_model_ready),
             ("GET", re.compile(model + "/config"), self.handle_model_config),
             ("POST", re.compile(model + "/infer"), self.handle_infer),
+            ("GET", re.compile(model + "/trace/setting"), self.handle_get_trace),
+            ("POST", re.compile(model + "/trace/setting"), self.handle_update_trace),
+            ("GET", re.compile(model + "/logging"), self.handle_get_logging),
+            ("POST", re.compile(model + "/logging"), self.handle_update_logging),
             ("GET", re.compile(model), self.handle_model_metadata),
             *self._shm_routes(),
+            ("GET", re.compile(r"/v2/trace/setting"), self.handle_get_trace),
+            ("POST", re.compile(r"/v2/trace/setting"), self.handle_update_trace),
+            ("GET", re.compile(r"/v2/logging"), self.handle_get_logging),
+            ("POST", re.compile(r"/v2/logging"), self.handle_update_logging),
+            ("GET", re.compile(r"/v2/debug/requests"), self.handle_debug_requests),
+            ("GET", re.compile(r"/v2/debug/state"), self.handle_debug_state),
+            ("GET", re.compile(r"/v2/debug/slo"), self.handle_debug_slo),
+            ("GET", re.compile(r"/metrics"), self.handle_metrics),
+            ("GET", re.compile(r"/v2/debug/profiling"), self.handle_get_profiling),
+            ("POST", re.compile(r"/v2/debug/profiling"), self.handle_update_profiling),
+            ("GET", re.compile(r"/v2/debug/profile"), self.handle_profile),
             ("GET", re.compile(r"/v1/models"), openai.handle_models),
             ("POST", re.compile(r"/v1/chat/completions"), openai.handle_chat),
             ("POST", re.compile(r"/v1/completions"), openai.handle_chat),
@@ -250,8 +286,9 @@ class HttpServer:
                     return
                 if parsed is None:
                     return
-                method, path, version, headers, body = parsed
-                request = Request(method, path, headers, body, {}, writer)
+                method, path, query, version, headers, body = parsed
+                request = Request(method, path, headers, body, {}, writer,
+                                  query=dict(parse_qsl(query)))
                 response = await self._dispatch(request)
                 if response is not None:
                     await self._write(writer, response)
@@ -295,8 +332,9 @@ class HttpServer:
                     raise ConnectionResetError("stream failed") from e
                 if isinstance(e, InferenceServerException):
                     return error_response(e)
-                _log.exception("internal error on %s %s", request.method,
-                               request.path)
+                self.core.logger.error("internal_error", exc=e,
+                                       rate_key=("internal_error", request.path),
+                                       path=request.path, protocol="http")
                 return json_response({"error": f"internal error: {e}"}, status=500)
         if allowed:
             return json_response({"error": "method not allowed"}, status=405,
@@ -322,6 +360,7 @@ class HttpServer:
             "name": SERVER_NAME,
             "version": SERVER_VERSION,
             "extensions": SERVER_EXTENSIONS,
+            "devices": self.core.device_topology(),
         })
 
     def _model(self, request: Request):
@@ -336,9 +375,156 @@ class HttpServer:
         return json_response(self._model(request).config())
 
     async def handle_stats(self, request: Request) -> Response:
-        return json_response(self.core.statistics(
-            request.params.get("model", ""), request.params.get("version", "")
-        ))
+        # the harness's per-window snapshots are part of the server's CPU
+        # bill: booked as the "rpc" stage
+        with stage_scope(self.core.profiling, "rpc"):
+            return json_response(self.core.statistics(
+                request.params.get("model", ""), request.params.get("version", "")
+            ))
+
+    async def handle_metrics(self, request: Request) -> Response:
+        """Prometheus text from the core's registry; its render is booked
+        as the "rpc" stage, so the harness's own scrapes show up."""
+        exemplars = request.query.get("exemplars", "").lower() in ("1", "true", "yes")
+        with stage_scope(self.core.profiling, "rpc"):
+            text = self.core.metrics.render(exemplars=exemplars)
+        return Response(200, text.encode(), {"Content-Type": "text/plain; charset=utf-8"})
+
+    # -- trace / logging settings ---------------------------------------------
+
+    @staticmethod
+    def _settings_body(request: Request) -> Dict[str, Any]:
+        if not request.body:
+            return {}
+        try:
+            updates = request.json()
+        except (UnicodeDecodeError, ValueError) as e:
+            raise InferenceServerException(f"malformed settings request: {e}") from None
+        if not isinstance(updates, dict):
+            raise InferenceServerException("settings request must be a JSON object")
+        return updates
+
+    async def handle_get_trace(self, request: Request) -> Response:
+        return json_response(self.core.trace_manager.settings(request.params.get("model", "")))
+
+    async def handle_update_trace(self, request: Request) -> Response:
+        # the manager validates the whole update before applying any of
+        # it; a null value clears a per-model override / resets a setting
+        return json_response(self.core.trace_manager.update(
+            self._settings_body(request), request.params.get("model", "")))
+
+    async def handle_get_logging(self, request: Request) -> Response:
+        return json_response(self.core.logger.settings(request.params.get("model", "")))
+
+    async def handle_update_logging(self, request: Request) -> Response:
+        """The model scope is the route's or a "model" key of the body."""
+        updates = self._settings_body(request)
+        model = request.params.get("model", "")
+        body_model = updates.pop("model", None)
+        if body_model is not None:
+            if not isinstance(body_model, str):
+                raise InferenceServerException(
+                    f"log setting 'model' expects a string, got {body_model!r}")
+            model = body_model
+        return json_response(self.core.logger.update(updates, model))
+
+    # -- flight recorder, live state, profiling ---------------------------------
+
+    async def handle_debug_requests(self, request: Request) -> Response:
+        """Recent, failed and slowest requests (``?model=``, ``?limit=``)."""
+        limit = request.query.get("limit")
+        if limit is not None:
+            try:
+                limit = int(limit)
+            except ValueError:
+                raise InferenceServerException(
+                    f"debug requests limit must be an integer, got '{limit}'") from None
+        return json_response(self.core.flight_recorder.snapshot(
+            model=request.query.get("model") or None, limit=limit))
+
+    async def handle_debug_state(self, request: Request) -> Response:
+        return json_response(self.core.debug_state())
+
+    async def handle_debug_slo(self, request: Request) -> Response:
+        return json_response(self.core.debug_slo())
+
+    async def handle_get_profiling(self, request: Request) -> Response:
+        return json_response(self.core.profiling.config())
+
+    async def handle_update_profiling(self, request: Request) -> Response:
+        """Turn stage CPU accounting on or off (``{"stage_cpu": bool}``)."""
+        updates = self._settings_body(request)
+        unknown = set(updates) - {"stage_cpu"}
+        if unknown:
+            raise InferenceServerException(
+                f"unknown profiling setting '{sorted(unknown)[0]}'")
+        value = updates.get("stage_cpu")
+        if value is not None:
+            if not isinstance(value, bool):
+                raise InferenceServerException(
+                    f"profiling setting 'stage_cpu' expects a boolean, got {value!r}")
+            if value:
+                # enabling calibrates the clocks (up to ~20 ms): off the loop
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self.core.profiling.enable)
+            else:
+                self.core.profiling.disable()
+        return json_response(self.core.profiling.config())
+
+    async def handle_profile(self, request: Request) -> Response:
+        """On-demand wall-stack sampling: ``?duration_s=&hz=&format=
+        collapsed|speedscope[&jax_trace_dir=]``. The sampler runs on an
+        executor thread and leaves its own out. ``jax_trace_dir`` (the JAX
+        package's name, kept for both harnesses) must lie inside the
+        server's temp directory; the ``torch.profiler`` Chrome trace is
+        written there and named in ``X-Device-Trace``."""
+        query = request.query
+        try:
+            duration_s = float(query.get("duration_s", "1.0"))
+            hz = float(query.get("hz", "99"))
+        except ValueError as e:
+            raise InferenceServerException(f"malformed profile request: {e}") from None
+        if not 0 < duration_s <= 120:
+            raise InferenceServerException(
+                f"profile duration_s must be in (0, 120], got {duration_s}")
+        if not 1 <= hz <= 1000:
+            raise InferenceServerException(f"profile hz must be in [1, 1000], got {hz}")
+        fmt = query.get("format", "collapsed")
+        if fmt not in ("collapsed", "speedscope"):
+            raise InferenceServerException(
+                f"profile format must be 'collapsed' or 'speedscope', got '{fmt}'")
+        trace_dir = query.get("jax_trace_dir") or None
+        if trace_dir is not None:
+            # a wire-controlled write target stays inside the temp dir
+            temp_root = os.path.realpath(tempfile.gettempdir())
+            resolved = os.path.realpath(trace_dir)
+            if not (resolved == temp_root or resolved.startswith(temp_root + os.sep)):
+                raise InferenceServerException(
+                    f"jax_trace_dir must be inside the server's temp directory ({temp_root})")
+            trace_dir = resolved
+        if self._profiling_busy:
+            return json_response({"error": "a profiling run is already in progress"},
+                                 status=409)
+        self._profiling_busy = True
+        try:
+            profiler = WallProfiler(hz=hz)
+
+            def run():
+                with maybe_torch_trace(trace_dir) as trace:
+                    result = profiler.run(duration_s)
+                return result, trace.get("path", "")
+
+            result, trace_path = await asyncio.get_running_loop().run_in_executor(None, run)
+        finally:
+            self._profiling_busy = False
+        headers = {"X-Profile-Samples": str(result.sample_count),
+                   "X-Profile-Hz-Effective": f"{result.hz_effective:.1f}"}
+        if trace_path:
+            headers["X-Device-Trace"] = trace_path
+        if fmt == "speedscope":
+            return json_response(result.speedscope(), headers=headers)
+        headers["Content-Type"] = "text/plain; charset=utf-8"
+        return Response(200, result.collapsed().encode(), headers)
 
     # -- shared memory -------------------------------------------------------
 
@@ -401,7 +587,64 @@ class HttpServer:
     # -- inference -----------------------------------------------------------
 
     async def handle_infer(self, request: Request) -> Response:
-        body = _inflate(request.body, request.headers.get("content-encoding", ""))
+        core = self.core
+        prof = core.profiling
+        # one take() covers this request's decode and encode brackets
+        measured = prof.take()
+        decode_cpu0 = prof.cpu_now() if measured else 0
+        try:
+            body = _inflate(request.body, request.headers.get("content-encoding", ""))
+            payload, binary = self._parse_infer_body(request, body)
+            core_request = self._build_core_request(
+                request.params["model"], request.params.get("version", ""), payload,
+                binary,
+            )
+        except InferenceServerException:
+            # refused before the core: the statistics never see it
+            core.metrics.observe_frontend_error("http")
+            raise
+        if measured:
+            prof.account("frontend_decode", prof.cpu_now() - decode_cpu0)
+        # sampling, or a sampled W3C traceparent, opens a server trace
+        trace = core.trace_manager.begin(
+            core_request.model_name, model_version=core_request.model_version,
+            traceparent=request.headers.get(TRACEPARENT_HEADER.lower()),
+            request_id=core_request.id,
+        )
+        core_request.trace = trace
+        ticket = core_request.shm_ring
+        try:
+            try:
+                core_response = await core.infer(core_request)
+            except BaseException:
+                if ticket is not None:
+                    ticket.fail()
+                raise
+            encode_cpu0 = prof.cpu_now() if measured else 0
+            if ticket is not None:
+                core_response = ticket.complete(core_response)
+            response = self._build_response(
+                payload, core_response, request.headers.get("accept-encoding", "")
+            )
+            if measured:
+                prof.account("encode", prof.cpu_now() - encode_cpu0)
+        except BaseException as e:
+            if trace is not None:
+                trace.end(error=str(e))
+            if core.logger.verbose_hot:
+                core.logger.verbose("request", model=core_request.model_name,
+                                    protocol="http", status="error", error=str(e))
+            raise
+        if trace is not None:
+            trace.end()
+        if core.logger.verbose_hot:
+            core.logger.verbose("request", model=core_request.model_name, protocol="http",
+                                status="ok", request_id=core_request.id)
+        return response
+
+    @staticmethod
+    def _parse_infer_body(request: Request, body: bytes):
+        """(JSON header, binary tail) of an inference request body."""
         header_len = request.headers.get(HEADER_CONTENT_LENGTH.lower())
         try:
             if header_len is not None:
@@ -420,30 +663,19 @@ class HttpServer:
             raise InferenceServerException(
                 f"malformed inference request: {e}"
             ) from None
+        return payload, binary
+
+    def _build_core_request(self, model_name: str, model_version: str,
+                            payload: Dict[str, Any], binary: bytes) -> CoreRequest:
         try:
-            core_request = self._build_core_request(
-                request.params["model"], request.params.get("version", ""), payload,
-                binary,
-            )
+            return self._decode_core_request(model_name, model_version, payload, binary)
         except (AttributeError, KeyError, TypeError, ValueError) as e:
             raise InferenceServerException(
                 f"malformed inference request: {e!r}"
             ) from None
-        ticket = core_request.shm_ring
-        try:
-            core_response = await self.core.infer(core_request)
-        except BaseException:
-            if ticket is not None:
-                ticket.fail()
-            raise
-        if ticket is not None:
-            core_response = ticket.complete(core_response)
-        return self._build_response(
-            payload, core_response, request.headers.get("accept-encoding", "")
-        )
 
-    def _build_core_request(self, model_name: str, model_version: str,
-                            payload: Dict[str, Any], binary: bytes) -> CoreRequest:
+    def _decode_core_request(self, model_name: str, model_version: str,
+                             payload: Dict[str, Any], binary: bytes) -> CoreRequest:
         parameters = dict(payload.get("parameters", {}))
         parameters.pop("binary_data_output", None)  # an encoding choice, read by _build_response
         request = CoreRequest(

@@ -65,6 +65,12 @@ class Model:
     priority_levels: int = 0
     default_priority_level: int = 0
     queue_policy: Optional[Dict[str, Any]] = None
+    # Scheduler declarations, rendered by config() so clients (the perf
+    # harness's scheduler detection) see how to drive the model.
+    # dynamic_batching is declared for batchable models that declare
+    # neither of these (the core's batcher is always on for them).
+    sequence_batching: Optional[Dict[str, Any]] = None
+    ensemble_scheduling: Optional[Dict[str, Any]] = None
 
     def metadata(self) -> Dict[str, Any]:
         def entry(tensor):
@@ -100,9 +106,13 @@ class Model:
             "output": [entry(o) for o in self.outputs],
             "model_transaction_policy": {"decoupled": self.decoupled},
         }
-        if self.max_batch_size > 1:
+        if self.sequence_batching is not None:
+            config["sequence_batching"] = dict(self.sequence_batching)
+        elif self.max_batch_size > 1 and self.ensemble_scheduling is None:
             # batchable models ride the core's dynamic batcher; declare it
             # the way Triton configs do so clients can see the scheduler
+            # (never on an ensemble: the proto's scheduling choice is a
+            # oneof)
             dynamic_batching: Dict[str, Any] = {}
             if self.priority_levels:
                 dynamic_batching["priority_levels"] = self.priority_levels
@@ -117,6 +127,10 @@ class Model:
                     "max_queue_size": int(qp.get("max_queue_size", 0)),
                 }
             config["dynamic_batching"] = dynamic_batching
+        if self.ensemble_scheduling is not None:
+            config["ensemble_scheduling"] = {
+                "step": [dict(s) for s in self.ensemble_scheduling.get("step", [])]
+            }
         return config
 
     def labels(self, output_name: str) -> Optional[List[str]]:

@@ -109,8 +109,10 @@ def _max_tokens(body: Dict[str, Any]):
 
 
 def _output_ids(core_response):
+    """The token ids of a response: ``OUTPUT_IDS`` (the LLM models) or
+    ``OUT`` (``repeat_int32``); None for a response without either."""
     for tensor in core_response.outputs:
-        if tensor.name == "OUTPUT_IDS":
+        if tensor.name in ("OUTPUT_IDS", "OUT"):
             return np.asarray(tensor.data).reshape(-1).tolist()
     return None
 
@@ -128,7 +130,7 @@ def _sse(doc: Any) -> bytes:
 
 
 class OpenAiFrontend:
-    def __init__(self, core: ServerCore, default_model: str = "llm_engine"):
+    def __init__(self, core: ServerCore, default_model: str = "llm_decode"):
         self.core = core
         self.default_model = default_model
         self._counter = 0

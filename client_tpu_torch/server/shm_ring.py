@@ -1,9 +1,8 @@
 """Server side of the fixed-layout shared-memory ring.
 
 An own copy of ``client_tpu/server/shm_ring.py`` over the port's
-:class:`~client_tpu_torch.server.shm.SharedMemoryManager`. The server's
-metrics are not ported yet, so the slots in use are counted on each
-ring and exported nowhere.
+:class:`~client_tpu_torch.server.shm.SharedMemoryManager`; the slots in
+use export as ``tpu_shm_ring_slots_in_use{region}``.
 
 Framing and layout live in :mod:`client_tpu_torch.utils.tpu_shared_memory.ring`
 (one source of truth for both ends); this module adds what only the
@@ -83,7 +82,7 @@ class RingTicket:
 class ServerShmRing:
     """A validated ring over one registered region's mapping."""
 
-    def __init__(self, name: str, region):
+    def __init__(self, name: str, region, metrics=None):
         import numpy as np
 
         self.name = name
@@ -94,6 +93,7 @@ class ServerShmRing:
         # byte view of the whole mapping, for output-aliasing detection
         # (np.may_share_memory is a cheap bounds check)
         self._np_view = np.frombuffer(buf, dtype=np.uint8)
+        self._metrics = metrics
         self._lock = threading.Lock()
         self._in_use = 0
 
@@ -113,6 +113,9 @@ class ServerShmRing:
     def _book(self, delta: int) -> None:
         with self._lock:
             self._in_use += delta
+            value = self._in_use
+        if self._metrics is not None:
+            self._metrics.set_ring_slots(self.name, value)
 
     def read_request(self, slot: int, seq: int) -> List[Any]:
         """Validate + read the request tensors from ``slot`` (zero-copy
@@ -243,8 +246,9 @@ class RingRegistry:
     server restart, which empties the manager) can never serve a stale
     mapping."""
 
-    def __init__(self, shm_manager):
+    def __init__(self, shm_manager, metrics=None):
         self._shm = shm_manager
+        self._metrics = metrics
         self._rings: Dict[str, ServerShmRing] = {}
         self._lock = threading.Lock()
 
@@ -261,6 +265,9 @@ class RingRegistry:
             ]
             for name in stale:
                 del self._rings[name]
+        if self._metrics is not None:
+            for name in stale:
+                self._metrics.remove_ring_region(name)
 
     def get(self, name: str) -> ServerShmRing:
         self.prune()
@@ -275,7 +282,7 @@ class RingRegistry:
             ring = self._rings.get(name)
             if ring is not None and ring.region is region:
                 return ring
-        ring = ServerShmRing(name, region)
+        ring = ServerShmRing(name, region, metrics=self._metrics)
         with self._lock:
             current = self._rings.get(name)
             if current is not None and current.region is region:

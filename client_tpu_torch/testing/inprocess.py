@@ -27,11 +27,12 @@ class InProcessServer:
         http_port: int = 0,
         device=None,
     ):
-        """``builtin_models`` installs ``simple`` and the identities on
-        ``device`` (``cuda`` unless the caller passes ``"cpu"``; with no
-        card the default raises). ``http_port`` 0 takes any free port."""
+        """``builtin_models`` installs the built-in models on ``device``
+        (``cuda`` unless the caller passes ``"cpu"``; with no card the
+        default raises), which is also the device of the core made here.
+        ``http_port`` 0 takes any free port."""
         if core is None:
-            core = ServerCore(ModelRepository())
+            core = ServerCore(ModelRepository(), device=device)
         self.core = core
         if builtin_models:
             from client_tpu_torch.server.models import register_builtin_models

@@ -9,9 +9,10 @@
   harness's CLI and genai-perf's among them).
 - On a host with no card, an entry point called without
   ``device="cpu"`` (the LLM engine, the text encoder, the image
-  classifier, the built-in models, the server CLI, the TPU shared-memory
-  import onto the device, the HTTP client's tensor import and export)
-  raises instead of running on the CPU.
+  classifier, the built-in models, ``llm_decode``, the server's device
+  memory metrics and device topology, the server CLI, the TPU
+  shared-memory import onto the device, the HTTP client's tensor import
+  and export) raises instead of running on the CPU.
 """
 
 import ast
@@ -52,7 +53,14 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.genai_perf", "client_tpu_torch.genai_perf.tokenizer",
                  "client_tpu_torch.genai_perf.logging", "client_tpu_torch.genai_perf.inputs",
                  "client_tpu_torch.genai_perf.metrics", "client_tpu_torch.genai_perf.plots",
-                 "client_tpu_torch.genai_perf.main", "client_tpu_torch.genai_perf.__main__")
+                 "client_tpu_torch.genai_perf.main", "client_tpu_torch.genai_perf.__main__",
+                 "client_tpu_torch.observability.metrics",
+                 "client_tpu_torch.observability.window", "client_tpu_torch.observability.slo",
+                 "client_tpu_torch.observability.recorder",
+                 "client_tpu_torch.observability.logging",
+                 "client_tpu_torch.observability.server",
+                 "client_tpu_torch.observability.profiling", "client_tpu_torch.server.metrics",
+                 "client_tpu_torch.perf.metrics_collector")
 
 
 def _port_files():
@@ -160,7 +168,38 @@ def test_kserve_entry_points_raise_without_a_card(no_card):
     assert TextEncoderModel(device="cpu").device.type == "cpu"
     repository = ModelRepository()
     models.register_builtin_models(repository, device="cpu")
-    assert [m["state"] for m in repository.index()] == ["READY"] * 4
+    assert [m["state"] for m in repository.index()] == ["READY"] * 7
+
+
+def test_observability_and_new_builtins_raise_without_a_card(no_card):
+    from client_tpu_torch.models.serving import LlmDecodeModel
+    from client_tpu_torch.server import models
+    from client_tpu_torch.server.core import ServerCore
+    from client_tpu_torch.server.model_repository import ModelRepository
+
+    core = ServerCore(ModelRepository(), max_workers=1)
+    try:
+        for make in (
+            lambda: LlmDecodeModel(),
+            lambda: LlmDecodeModel(device="cuda"),
+            lambda: models.RepeatModel(),
+            lambda: models.SequenceAccumulatorModel(),
+            lambda: models.EnsembleModel("e", ModelRepository(), [], [], []),
+            lambda: core.metrics.render(),
+            lambda: core.device_topology(),
+        ):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    finally:
+        core.close()
+    # the CPU is there when asked for
+    cpu_core = ServerCore(ModelRepository(), max_workers=1, device="cpu")
+    try:
+        assert 'tpu_device_memory_bytes{device="cpu"} 0' in cpu_core.metrics.render()
+        assert cpu_core.device_topology()["platform"] == "cpu"
+    finally:
+        cpu_core.close()
+    assert models.RepeatModel(device="cpu").device.type == "cpu"
 
 
 def test_image_and_shm_entry_points_raise_without_a_card(no_card):

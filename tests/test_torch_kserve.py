@@ -86,7 +86,7 @@ class PortServer:
     """The port's ``ServerCore`` + HTTP front-end on a loopback port."""
 
     def __init__(self, repository):
-        self.core = ServerCore(repository, max_workers=4)
+        self.core = ServerCore(repository, max_workers=4, device="cpu")
         self._loop = asyncio.new_event_loop()
         self._box = {}
         started = threading.Event()

@@ -15,6 +15,12 @@ package's (``client_tpu.perf``).
 - ``LocalPerfBackend`` on the port's ``ServerCore``, and the OpenAI
   backend's stdlib SSE reader on scripted servers: keep-alive, chunked
   and connection-delimited bodies, one timestamp per event, ``[DONE]``.
+- The observability flags (``--collect-metrics``, ``--metrics-url``,
+  ``--metrics-interval``, ``--profile-server``, ``--stage-breakdown``,
+  ``--trace-export-file``, ``--flamegraph-out``, ``--profile-hz``,
+  ``--dump-slow-requests``, ``--log-file``) against the port's server
+  print their report sections and write their files, and each
+  package's harness reads the other's server.
 - Every flag the port does not serve yet exits 2 and names its ROADMAP
   item.
 
@@ -27,6 +33,7 @@ import csv
 import json
 import os
 import re
+import urllib.request
 
 import numpy as np
 import pytest
@@ -955,16 +962,7 @@ def test_openai_transport_errors_are_inference_server_exceptions():
     (["--stream-mode"], "item 4"),
     (["--service-kind", "tfserving"], "item 3d"),
     (["--service-kind", "torchserve"], "item 3d"),
-    (["--collect-metrics"], "item 3a"),
-    (["--metrics-url", "localhost:8000"], "item 3a"),
-    (["--metrics-interval", "2"], "item 3a"),
-    (["--profile-server"], "item 3a"),
-    (["--stage-breakdown"], "item 3a"),
-    (["--trace-export-file", "spans.jsonl"], "item 3a"),
-    (["--flamegraph-out", "fg.txt"], "item 3a"),
-    (["--profile-hz", "50"], "item 3a"),
-    (["--dump-slow-requests", "5"], "item 3a"),
-    (["--log-file", "log.jsonl"], "item 3a"),
+    (["--metrics-url", "localhost:8000,localhost:8001"], "item 7"),
     (["--fleet", "2"], "items 3c and 7"),
     (["--rolling-restart", "1"], "items 3c and 7"),
     (["--world-size", "2"], "item 7"),
@@ -975,6 +973,79 @@ def test_unported_flags_are_refused(flags, item, capsys):
     assert len(err.splitlines()) == 1
     assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
     assert cli.build_parser().parse_args(["-m", "x"] + flags)  # parsed, then refused
+
+
+# ---------------------------------------------------------------------------
+# the observability flags, served by the port's server
+# ---------------------------------------------------------------------------
+
+
+def _run_observed(harness, url, flags, capsys):
+    code = harness(["-m", "simple", "-u", url, "--concurrency-range", "2",
+                    "--measurement-interval", "150", "--stability-percentage", "100",
+                    "--max-trials", "3", "--json-summary"] + flags)
+    out = capsys.readouterr().out
+    assert code == 0, out
+    return out, json.loads(out.strip().splitlines()[-1])
+
+
+def _file_check(kind):
+    def check(path, out, summary):
+        text = path.read_text()
+        if kind == "spans":
+            assert all(json.loads(line)["trace_id"] for line in text.splitlines())
+        elif kind == "collapsed":
+            lines = text.splitlines()
+            assert lines and all(line.rsplit(" ", 1)[1].isdigit() for line in lines)
+        else:
+            events = [json.loads(line)["event"] for line in text.splitlines()]
+            assert events[0] == "run_started" and events[-1] == "run_finished"
+            assert "slow_request" in events
+    return check
+
+
+@pytest.mark.parametrize("flags,section,file_kind", [
+    (["--collect-metrics"], "Server metrics (", None),
+    (["--metrics-url", "{url}"], "Server metrics (", None),
+    (["--collect-metrics", "--metrics-interval", "0.05"], "Server metrics (", None),
+    (["--profile-server"], "Wire-gap attribution", None),
+    (["--stage-breakdown"], "Client metrics", None),
+    (["--trace-export-file", "{path}"], "Client metrics", "spans"),
+    (["--flamegraph-out", "{path}"], "wrote server flamegraph", "collapsed"),
+    (["--flamegraph-out", "{path}", "--profile-hz", "50"], "wrote server flamegraph",
+     "collapsed"),
+    (["--dump-slow-requests", "3"], "Slowest requests (server flight recorder):", None),
+    (["--log-file", "{path}", "--dump-slow-requests", "2"], "Slowest requests", "log"),
+], ids=["collect", "metrics_url", "interval", "profile_server", "stage_breakdown",
+        "trace_export", "flamegraph", "profile_hz", "slow_requests", "log_file"])
+def test_observability_flags_against_the_ports_server(servers, flags, section, file_kind,
+                                                       tmp_path, capsys):
+    url = servers["port"].http_url
+    path = tmp_path / "out.txt"
+    flags = [f.format(url=url, path=path) for f in flags]
+    out, summary = _run_observed(cli.main, url, flags, capsys)
+    assert section in out
+    if "Server metrics (" in out:
+        block = out.split("Server metrics (", 1)[1]
+        assert "Requests: " in block and " 0 failed" in block
+        assert "server_duty_avg" in summary and summary["server_batch_avg"] >= 1
+    if "--profile-server" in flags or "--flamegraph-out" in flags:
+        assert {"frontend_decode", "compute", "encode"} <= summary["server_stage_cpu_us"].keys()
+        with urllib.request.urlopen(f"http://{url}/v2/debug/profiling") as answer:
+            assert json.load(answer)["stage_cpu"] is False  # the toggle was restored
+    if file_kind is not None:
+        _file_check(file_kind)(path, out, summary)
+
+
+@pytest.mark.parametrize("harness,server", [("jax", "port"), ("port", "jax")])
+def test_observability_flags_cross_the_packages(servers, harness, server, capsys):
+    """Each package's harness reads the other's /metrics, debug and
+    profiling routes."""
+    out, summary = _run_observed(HARNESSES[harness], servers[server].http_url,
+                                 ["--profile-server", "--dump-slow-requests", "2"], capsys)
+    for section in ("Server metrics (", "Wire-gap attribution", "Slowest requests"):
+        assert section in out
+    assert summary["server_batch_avg"] >= 1 and summary["server_stage_cpu_us"]["compute"] > 0
 
 
 def test_every_reference_flag_is_parsed():

@@ -107,8 +107,8 @@ def test_health_and_model_config(server):
 def test_streamed_chat_completion_carries_jax_generate_tokens(server):
     port, jax_params = server
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-    body = {"messages": [{"role": "user", "content": PROMPT}], "max_tokens": 8,
-            "stream": True}
+    body = {"model": "llm_engine", "messages": [{"role": "user", "content": PROMPT}],
+            "max_tokens": 8, "stream": True}
     conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
                  headers={"Content-Type": "application/json"})
     response = conn.getresponse()
@@ -128,7 +128,7 @@ def test_streamed_chat_completion_carries_jax_generate_tokens(server):
 def test_unstreamed_completion_matches_the_stream(server):
     port, jax_params = server
     status, body = _request(port, "POST", "/v1/completions",
-                            {"prompt": PROMPT, "max_tokens": 8})
+                            {"model": "llm_engine", "prompt": PROMPT, "max_tokens": 8})
     assert status == 200
     doc = json.loads(body)
     tokens = [int(word[len("tok"):]) for word in doc["choices"][0]["text"].split()]
@@ -140,7 +140,8 @@ def test_unstreamed_completion_matches_the_stream(server):
 def test_bad_max_tokens_is_a_400(server, max_tokens):
     port, _ = server
     status, body = _request(port, "POST", "/v1/chat/completions",
-                            {"messages": [{"content": PROMPT}], "max_tokens": max_tokens})
+                            {"model": "llm_engine", "messages": [{"content": PROMPT}],
+                             "max_tokens": max_tokens})
     assert status == 400
     assert json.loads(body)["error"]["param"] == "max_tokens"
 
@@ -152,11 +153,13 @@ def test_bad_max_tokens_is_a_400(server, max_tokens):
         ("GET", "/v2/models/nope/config", None, 400),
         ("GET", "/v2/no/such/route", None, 404),
         ("GET", "/v1/chat/completions", None, 405),
-        ("POST", "/v1/chat/completions", {"messages": ["not an object"]}, 400),
+        ("POST", "/v1/chat/completions",
+         {"model": "llm_engine", "messages": ["not an object"]}, 400),
         ("POST", "/v1/chat/completions", [1, 2], 400),
         # prompt (9 words) + max_tokens past the model's 64-token context
         ("POST", "/v1/chat/completions",
-         {"messages": [{"content": PROMPT}], "max_tokens": 60, "stream": True}, 400),
+         {"model": "llm_engine", "messages": [{"content": PROMPT}], "max_tokens": 60,
+          "stream": True}, 400),
     ],
     ids=["unknown-model", "unknown-config", "no-route", "wrong-method", "bad-messages",
          "body-not-object", "too-long"],
