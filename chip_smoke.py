@@ -112,6 +112,35 @@ result line:
    trace's CUDA kernel events (there must be some), the flight
    recorder's slowest requests and five-stamp trace records at
    ``trace_rate`` 1 (``profile 10d:``).
+11. lifecycle, admission and repository control, and the TFS and
+   TorchServe front-ends: (a) inside phase 4, after 9d, the 8 streams
+   again with ``llm_engine`` unloaded after their first tokens: while the
+   unload drains a new stream gets 503 and the OpenAI error body and the
+   index reads UNLOADING, then "unloaded"; the 8 streams equal phase 4's;
+   ``POST .../load`` re-warms it (a new pool, the old engine closed after
+   the probes) and the 8 streams equal phase 4's again, K1 launched >= 32
+   x decode steps, every block back (``lifecycle 11a:``, the reload's
+   peak memory); (b)-(e) ``python -m client_tpu_torch.server
+   --model-repository`` spawned with the card, serving ``resnet50`` and
+   ``resnet50_sched`` (ResNet-50's widths, seed 0; the second with two
+   priority levels, a queue of 16 with the "continue" timeout action and
+   one ``card`` rate-limiter resource) from ``<name>/model.py`` files, the
+   harness in subprocesses: (b) one image through KServe, TFS ``:predict``
+   and TorchServe, each within 2 % of KServe's largest |logit| with its
+   top-1, and the harness's tfserving, torchserve and KServe kinds at c=8
+   (``compat 11b:``); (c) c=32 at priorities 1,2 on ``resnet50_sched``:
+   its 429s against ``tpu_queue_rejected_total``, priority 1's p99 no
+   higher than priority 2's, the ``card`` pool back at 1 (``admission
+   11c:``); (d) ``--rolling-restart 1`` for 6 s: >= 3 cycles, only 503
+   failures, a probe image's answer unchanged, device memory grown by no
+   more than one copy of the weights (``rolling 11d:``); (e) SIGTERM
+   under a c=8 load while a request to the ``drain_hold`` identity sleeps
+   4 s on the server: readiness 503 with ``Retry-After``, liveness 200,
+   the harness sees 503s only, the process exits 0 inside its 20 s drain
+   timeout with ``drain_started`` and ``drain_completed`` in its log
+   (``drain 11e:``); (f) ``client_tpu_torch.server.embedded.start()`` in
+   this process: ``simple`` exact through its binary wire (``embedded
+   11f:``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -476,9 +505,10 @@ def _prompts(vocab_words: int = 400):
 
 
 def _stream_one(port: int, prompt: str, max_tokens: int, record: dict,
-                model: str = "llm_engine") -> None:
+                model: str = "llm_engine", started=None) -> None:
     """One streaming chat completion for ``model`` (None: the route's
-    default model) into ``record``."""
+    default model) into ``record``; ``started`` (an Event) is set at the
+    first token."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         doc = {"stream": True, "max_tokens": max_tokens,
@@ -510,6 +540,8 @@ def _stream_one(port: int, prompt: str, max_tokens: int, record: dict,
             if content:
                 stamps.append(time.perf_counter())
                 tokens.extend(int(t[3:]) for t in content.split())
+                if started is not None:
+                    started.set()
         record.update(start=t0, stamps=stamps, tokens=tokens, done=done)
     finally:
         conn.close()
@@ -773,22 +805,27 @@ def serve_7b() -> tuple:
         probe = np.zeros([1, 16], dtype=np.int32)
         probe[0, :5] = [1, 2, 3, 4, 5]
         table = np.zeros([pool.max_blocks_per_seq], dtype=np.int32)
-        logits, _ = engine._prefill(probe, table, engine._pages, 4, 0)
+        # [0]: a name for the returned pool would keep it alive past 11a
+        logits = engine._prefill(probe, table, engine._pages, 4, 0)[0]
         if logits.shape != (1, config.vocab_size) or not np.isfinite(logits).all():
             raise AssertionError(f"7B prefill logits: shape {logits.shape}, finite "
                                  f"{np.isfinite(logits).all()}")
         profile_step(engine, [len(p.split()) + SERVE_TOKENS for p in _prompts()])
         served_by_harness = genai_perf_7b(port, engine, config.n_layers)
+        # 11a reloads the engine: nothing here may keep the old pool alive
+        del engine
+        lifecycle = lifecycle_7b(port, model, config, [r["tokens"] for r in records])
 
     result = latency(records, wall)
     result.update(decode_steps=decode_steps, k1_launches=launches,
                   prefix_blocks_shared=prefix_hits)
     print("serve: " + json.dumps(result) + f" [{card()}]", flush=True)
     result["genai_perf"] = served_by_harness
+    result["lifecycle_11a"] = lifecycle
     params = model._params
     # only one 17 GB pool at a time: drop this engine and its pool
     model.engine = None
-    del model, engine
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return result, params, [r["tokens"] for r in records]
@@ -2825,6 +2862,543 @@ def llm_decode_7b(params) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: lifecycle, admission and repository control, the compat routes
+# ---------------------------------------------------------------------------
+
+
+def _index_entry(port, name) -> tuple:
+    """(state, reason) of ``name`` in ``POST /v2/repository/index``."""
+    status, _, text = _http(port, "/v2/repository/index", "POST")
+    if status != 200:
+        raise AssertionError(f"/v2/repository/index answered {status}: {text[:200]}")
+    entry = {m["name"]: m for m in json.loads(text)}[name]
+    return entry["state"], entry["reason"]
+
+
+def _wait_for_entry(port, name, want, timeout_s=300.0) -> float:
+    """Poll the index until ``name`` reads ``want``; returns the seconds."""
+    t0 = time.perf_counter()
+    while _index_entry(port, name) != want:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{name} never reached {want}: {_index_entry(port, name)}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+# a greedy bf16 stream may leave phase 4's only where the dense forward's
+# two leading logits lie within this share of its largest |logit| (4 bf16
+# ulps): there the batch a step ran in decides the token (phase 5's own
+# stream 0 leaves phase 4's at index 18 in some runs)
+TIE_SHARE = 2.0 ** -6
+
+
+def _same_or_tie(params, config, prompt, want, got) -> dict:
+    """``got`` equals ``want`` (phase 4's stream for ``prompt``), or the
+    two part at a near-tie: at their first differing index the dense
+    forward over the prompt and ``want``'s tokens before it ranks both
+    tokens first and second within ``TIE_SHARE`` of its largest |logit|.
+    Raises otherwise; returns where and by how much they part."""
+    from client_tpu_torch.genai_perf.tokenizer import SyntheticTokenizer
+
+    k = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if k is None and len(want) == len(got):
+        return {}
+    if k is None:
+        raise AssertionError(f"stream lengths {len(got)} and {len(want)}")
+    ids = SyntheticTokenizer(config.vocab_size).encode(prompt) + list(want[:k])
+    tokens = torch.tensor([ids], dtype=torch.int32, device=DEVICE)
+    with torch.inference_mode():
+        cache = llama.init_kv_cache(config, 1, max_len=len(ids), device=DEVICE)
+        logits = llama.prefill_with_cache(params, tokens, cache, config)[0][0].float()
+    top2 = [int(t) for t in logits.topk(2).indices]
+    gap = abs(float(logits[want[k]] - logits[got[k]]))
+    scale = float(logits.abs().max())
+    if sorted(top2) != sorted([want[k], got[k]]) or gap > TIE_SHARE * scale:
+        raise AssertionError(f"a stream left phase 4's at index {k}: tokens {want[k]} / "
+                             f"{got[k]}, dense top-2 {top2}, gap {gap:.4f} of {scale:.2f}")
+    return {"index": k, "gap_share": gap / scale}
+
+
+def lifecycle_7b(port, model, config, plain_streams) -> dict:
+    """Phase 11a on phase 4's server: the 8 streams again; after their
+    first tokens ``llm_engine`` is unloaded. While the unload drains, a
+    new stream is refused with 503 and the OpenAI error body and the index
+    reads UNLOADING, then "unloaded"; the 8 streams finish equal to phase
+    4's. The programmatic re-warm (``POST .../load``) builds a new pool
+    and closes the old engine after its probes; the 8 streams once more
+    equal phase 4's. K1's counter is zeroed around both runs, and every
+    KV block comes back."""
+    t_phase = time.perf_counter()
+    old = model.engine
+    steps0 = old.steps
+    gc.collect()
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    prompts = _prompts()
+    records = [dict() for _ in prompts]
+    started = [threading.Event() for _ in prompts]
+    threads = [threading.Thread(target=_stream_one, args=(port, p, SERVE_TOKENS, r),
+                                kwargs={"started": e})
+               for p, r, e in zip(prompts, records, started)]
+    # -- the main path: counters zeroed just before, read just after --
+    pa.paged_attention_cuda.launches = 0
+    for thread in threads:
+        thread.start()
+    for event in started:
+        if not event.wait(300):
+            raise AssertionError(f"a stream gave no first token: {records}")
+    t_unload = time.perf_counter()
+    status, _, text = _http(port, "/v2/repository/models/llm_engine/unload", "POST")
+    if status != 200:
+        raise AssertionError(f"unload answered {status}: {text[:200]}")
+    unloading = _index_entry(port, "llm_engine")
+    refused = _http(port, "/v1/chat/completions", "POST",
+                    {"model": "llm_engine", "stream": True, "max_tokens": 4,
+                     "messages": [{"role": "user", "content": prompts[0]}]})
+    unload_s = time.perf_counter() - t_unload + _wait_for_entry(
+        port, "llm_engine", ("UNAVAILABLE", "unloaded"))
+    for thread in threads:
+        thread.join(600)
+    if unloading != ("UNLOADING", "unloading"):
+        raise AssertionError(f"the index read {unloading} while the unload drained")
+    body = json.loads(refused[2])
+    if refused[0] != 503 or "not ready" not in body.get("error", {}).get("message", ""):
+        raise AssertionError(f"a stream during the unload got {refused[0]}: {refused[2][:200]}")
+    ties = {}
+    for i, record in enumerate(records):
+        if record.get("status") != 200 or not record.get("done"):
+            raise AssertionError(f"stream {i} in flight at the unload failed: {record}")
+        tie = _same_or_tie(model._params, config, prompts[i], plain_streams[i],
+                           record["tokens"])
+        if tie:
+            ties[f"in_flight_{i}"] = tie
+    old_steps = old.steps - steps0
+    old_blocks = old.allocator.blocks_in_use
+    del old
+    torch.cuda.reset_peak_memory_stats()
+    t_load = time.perf_counter()
+    status, _, text = _http(port, "/v2/repository/models/llm_engine/load", "POST")
+    load_s = time.perf_counter() - t_load
+    if status != 200 or _index_entry(port, "llm_engine") != ("READY", ""):
+        raise AssertionError(f"load answered {status}: {text[:200]}")
+    engine = model.engine
+    steps1 = engine.steps
+    again, wall = stream_all(port, SERVE_TOKENS, config.vocab_size)
+    launches = pa.paged_attention_cuda.launches
+    # -------------------------------------------------------------------
+    decode_steps = old_steps + engine.steps - steps1
+    if launches < config.n_layers * decode_steps:
+        raise AssertionError(f"K1 launched {launches} times for {decode_steps} decode steps "
+                             f"x {config.n_layers} layers")
+    for i, record in enumerate(again):
+        tie = _same_or_tie(model._params, config, prompts[i], plain_streams[i],
+                           record["tokens"])
+        if tie:
+            ties[f"reloaded_{i}"] = tie
+    peak_bytes = torch.cuda.max_memory_allocated()
+    deadline = time.monotonic() + 60
+    while engine.allocator.blocks_in_use and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if old_blocks or engine.allocator.blocks_in_use:
+        raise AssertionError(f"KV blocks leaked: {old_blocks} in the old engine, "
+                             f"{engine.allocator.blocks_in_use} in the new")
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    after_bytes = torch.cuda.memory_allocated()
+    # the old engine's pool goes once nothing names it: a reload that
+    # kept it would hold a second 16 GiB pool for good
+    if after_bytes > before_bytes + 2**30:
+        raise AssertionError(f"{(after_bytes - before_bytes) / 2**30:.2f} GiB more allocated "
+                             f"after the reload than before the unload")
+    result = {"unload_to_unloaded_ms": unload_s * 1e3, "load_s": load_s,
+              "peak_gib_across_reload": peak_bytes / 2**30,
+              "allocated_gib_before_unload": before_bytes / 2**30,
+              "allocated_gib_after_reload": after_bytes / 2**30,
+              "decode_steps": decode_steps, "k1_launches": launches,
+              "refused_status": refused[0], "tokens_per_s_after_reload":
+              sum(len(r["tokens"]) for r in again) / wall,
+              "streams_equal_to_phase_4": 16 - len(ties), "parted_at_near_ties": ties,
+              "wall_s": time.perf_counter() - t_phase}
+    print("lifecycle 11a: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+# the model directory phases 11b-11e serve from: create_model() takes the
+# server's --device through its device keyword
+RESNET_MODEL_PY = """
+from client_tpu_torch.models import resnet
+from client_tpu_torch.models.serving import ImageClassifierModel
+
+
+def create_model(device):
+    model = ImageClassifierModel(image_size=224, config=resnet.resnet50(), device=device)
+{extra}    return model
+"""
+SCHED_DECLARATIONS = """    model.priority_levels = 2
+    model.queue_policy = {"max_queue_size": 16, "timeout_action": "continue"}
+    model.rate_limiter = {"resources": [{"name": "card", "count": 1}]}
+"""
+# 11e holds the drain open with one request that sleeps ``hold_s`` on the
+# server, so that the probes and the harness see the draining server
+HOLD_MODEL_PY = """
+import time
+
+from client_tpu_torch.server.models import IdentityModel
+
+
+class Hold(IdentityModel):
+    def execute(self, inputs, parameters):
+        time.sleep(float(parameters.get("hold_s", 0)))
+        return super().execute(inputs, parameters)
+
+
+def create_model(device):
+    return Hold(device=device)
+"""
+
+
+def _one_window(args) -> dict:
+    """One 2 s window (``--max-trials 1``) of the port's perf-analyzer in
+    a subprocess that cannot see the card; its ``--json-summary``."""
+    out = _harness("client_tpu_torch.perf", [*args, "--measurement-interval", "2000",
+                                              "--max-trials", "1", "--json-summary"])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _image_answer(port, model, image):
+    import numpy as np
+
+    with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+        x = client_http.InferInput("INPUT", list(image.shape), "FP32")
+        x.set_data_from_numpy(image, binary_data=True)
+        out = client_http.InferRequestedOutput("OUTPUT", binary_data=True)
+        return np.asarray(client.infer(model, [x], outputs=[out]).as_numpy("OUTPUT"))
+
+
+def _metric_sum(port, name, match) -> float:
+    from client_tpu_torch.observability.metrics import counter_total
+
+    return counter_total(_scrape(port).get(name), match)
+
+
+def compat_11b(port, image) -> dict:
+    """11b: one image through KServe binary, TFS ``:predict`` and
+    TorchServe ``/predictions``; the harness's tfserving, torchserve and
+    KServe kinds, one 2 s window each at c=8."""
+    import numpy as np
+
+    kserve = _image_answer(port, "resnet50", image).reshape(-1)
+    status, _, text = _http(port, "/v1/models/resnet50:predict", "POST",
+                            {"instances": image.tolist()})
+    if status != 200:
+        raise AssertionError(f"TFS :predict answered {status}: {text[:200]}")
+    tfs = np.asarray(json.loads(text)["predictions"], dtype=np.float32).reshape(-1)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", "/predictions/resnet50", body=image.tobytes(),
+                     headers={"Content-Type": "application/octet-stream"})
+        response = conn.getresponse()
+        payload = response.read()
+    finally:
+        conn.close()
+    if response.status != 200:
+        raise AssertionError(f"TorchServe answered {response.status}: {payload[:200]}")
+    torchserve = np.asarray(json.loads(payload), dtype=np.float32).reshape(-1)
+    tol = 2e-2 * float(np.abs(kserve).max())
+    errs = {}
+    for kind, answer in (("tfserving", tfs), ("torchserve", torchserve)):
+        err = float(np.abs(answer - kserve).max())
+        if not (answer.shape == kserve.shape and err <= tol
+                and int(answer.argmax()) == int(kserve.argmax())):
+            raise AssertionError(f"{kind}: max err {err} (limit {tol}), top-1 "
+                                 f"{int(answer.argmax())} vs {int(kserve.argmax())}")
+        errs[kind] = err / tol
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "data"), "wb") as f:
+            f.write(image.tobytes())
+        url = f"127.0.0.1:{port}"
+        for kind, extra in (("tfserving", ["--shape", "INPUT:1,224,224,3"]),
+                            ("torchserve", ["--input-data", tmp]),
+                            ("kserve", [])):
+            summary = _one_window(["-m", "resnet50", "-u", url, "--service-kind", kind,
+                                   "--concurrency-range", "8", *extra])
+            if summary["errors"] or not summary["count"]:
+                raise AssertionError(f"harness --service-kind {kind}: {summary}")
+            rows[kind] = {"infer_per_s": summary["throughput"],
+                          "p50_ms": summary["p50_us"] / 1e3, "p99_ms": summary["p99_us"] / 1e3}
+    result = {"rows": rows, "err_share_of_limit": errs}
+    print("compat 11b: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def admission_11c(port) -> dict:
+    """11c: the harness at c=32 on ``resnet50_sched`` (2 priority levels,
+    a queue of 16 with the "continue" action, one ``card`` resource)."""
+    match = {"model": "resnet50_sched"}
+    before = _metric_sum(port, "tpu_queue_rejected_total", match)
+    stats0 = _stats(port, "resnet50_sched")
+    summary = _one_window(["-m", "resnet50_sched", "-u", f"127.0.0.1:{port}",
+                           "--concurrency-range", "32", "--request-priority", "1,2",
+                           "--queue-timeout-us", "2000000"])
+    rise = _metric_sum(port, "tpu_queue_rejected_total", match) - before
+    failed = _booked(stats0, _stats(port, "resnet50_sched"), "fail")
+    p99 = summary.get("per_priority_p99_us", {})
+    state = json.loads(_http(port, "/v2/debug/state")[2])
+    pool = state["rate_limiter"].get("card")
+    # the harness counts the 429s of the requests that completed inside
+    # its window; the counter counts every one, those at the window's two
+    # edges (at most the 32 in flight at each) included
+    if not (0 < summary["rejected"] <= rise <= summary["rejected"] + 64):
+        raise AssertionError(f"429s: the harness's window counted {summary['rejected']}, "
+                             f"tpu_queue_rejected_total rose {rise}")
+    if rise != failed:
+        raise AssertionError(f"tpu_queue_rejected_total rose {rise}, the statistics' fail "
+                             f"count {failed}")
+    if summary["errors"] != summary["rejected"] + summary["timeouts"]:
+        raise AssertionError(f"errors other than admission rejections: {summary}")
+    if not ("1" in p99 and "2" in p99 and p99["1"] <= p99["2"]):
+        raise AssertionError(f"priority-1 p99 above priority-2's: {p99}")
+    if pool != {"capacity": 1, "used": 0, "waiters": 0}:
+        raise AssertionError(f"the card resource did not come back: {pool}")
+    result = {"infer_per_s": summary["throughput"], "rejected_in_window": summary["rejected"],
+              "rejected_counter_rise": rise, "shed_rate": summary["shed_rate"],
+              "p99_ms_by_priority": {k: v / 1e3 for k, v in p99.items()},
+              "card_pool_after": pool}
+    print("admission 11c: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def rolling_11d(port, image, plain) -> dict:
+    """11d: ``--rolling-restart 1`` on ``resnet50`` at c=8 for 6 s: every
+    cycle reloads the directory model on the card; one cycle by hand
+    first times the load, which stalls the serving loop for the model's
+    warmup (the reference's design). ``plain`` is 11b's KServe row, the
+    same load without cycles."""
+    import numpy as np
+
+    from client_tpu_torch.models import resnet
+
+    # one copy of the weights: what the model's init allocates on the card
+    allocated = torch.cuda.memory_allocated()
+    params = resnet.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                                resnet.resnet50(), DEVICE)
+    weight_bytes = torch.cuda.memory_allocated() - allocated
+    del params
+    torch.cuda.empty_cache()
+    probe = _image_answer(port, "resnet50", image)
+    memory = {"device": "cuda:0"}
+    mem0 = _metric_sum(port, "tpu_device_memory_bytes", memory)
+    status, _, text = _http(port, "/v2/repository/models/resnet50/unload", "POST")
+    if status != 200:
+        raise AssertionError(f"unload answered {status}: {text[:200]}")
+    _wait_for_entry(port, "resnet50", ("UNAVAILABLE", "unloaded"), 60)
+    t0 = time.perf_counter()
+    status, _, text = _http(port, "/v2/repository/models/resnet50/load", "POST")
+    stall_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"load answered {status}: {text[:200]}")
+    url = f"127.0.0.1:{port}"
+    out = _harness("client_tpu_torch.perf", [
+        "-m", "resnet50", "-u", url, "--concurrency-range", "8", "--rolling-restart", "1",
+        "--measurement-interval", "6000", "--max-trials", "1", "--json-summary"])
+    rolled = json.loads(out.strip().splitlines()[-1])
+    after = _image_answer(port, "resnet50", image)
+    mem1 = _metric_sum(port, "tpu_device_memory_bytes", memory)
+    if rolled.get("rolling_restart_cycles", 0) < 3:
+        raise AssertionError(f"{rolled.get('rolling_restart_cycles')} rolling-restart cycles")
+    if rolled["errors"] != rolled["dropped_unavailable"]:
+        raise AssertionError(f"failures without a 503/UNAVAILABLE token: {rolled}")
+    if not np.array_equal(probe, after):
+        raise AssertionError(f"the probe's answer moved across the reloads: max diff "
+                             f"{float(np.abs(probe - after).max())}")
+    if mem1 - mem0 > weight_bytes:
+        raise AssertionError(f"device memory grew {mem1 - mem0} bytes, more than one copy of "
+                             f"the weights ({weight_bytes})")
+    result = {"cycles": rolled["rolling_restart_cycles"], "unavailable": rolled["errors"],
+              "rerouted": rolled["rerouted"], "infer_per_s": rolled["throughput"],
+              "p99_ms_during_cycles": rolled["p99_us"] / 1e3,
+              "p99_ms_without": plain["p99_ms"],
+              "infer_per_s_without": plain["infer_per_s"], "load_stall_ms": stall_ms,
+              "memory_growth_bytes": mem1 - mem0, "weight_bytes": weight_bytes,
+              "report_line": next((line for line in out.splitlines()
+                                   if line.startswith("Rolling restart:")), "")}
+    print("rolling 11d: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def drain_11e(proc, port, log) -> dict:
+    """11e: SIGTERM under a c=8 harness load on ``resnet50``. One request
+    to ``drain_hold`` that sleeps 4 s on the server holds the drain open:
+    meanwhile readiness answers 503 with ``Retry-After``, liveness 200,
+    and the harness's requests 503. The process must exit 0 inside its
+    20 s drain timeout, its log holding ``drain_started`` and
+    ``drain_completed`` with ``drained: true``."""
+    import signal
+
+    import numpy as np
+
+    url = f"127.0.0.1:{port}"
+    base = _stats(port, "resnet50")["inference_stats"]["success"]["count"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    harness = subprocess.Popen(
+        [sys.executable, "-m", "client_tpu_torch.perf", "-m", "resnet50", "-u", url,
+         "--concurrency-range", "8", "--measurement-interval", "3000", "--max-trials", "1",
+         "--json-summary"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    held = {}
+
+    def hold():
+        try:
+            with client_http.InferenceServerClient(url, network_timeout=60) as client:
+                x = client_http.InferInput("INPUT0", [4], "FP32")
+                x.set_data_from_numpy(np.arange(4, dtype=np.float32))
+                held["answer"] = client.infer("drain_hold", [x], parameters={"hold_s": 4.0}
+                                              ).as_numpy("OUTPUT0").tolist()
+        except Exception as e:  # noqa: BLE001 - reported below
+            held["error"] = repr(e)
+
+    try:
+        deadline = time.monotonic() + 120
+        while _stats(port, "resnet50")["inference_stats"]["success"]["count"] < base + 50:
+            if time.monotonic() > deadline or harness.poll() is not None:
+                raise AssertionError("the harness's load never reached the server")
+            time.sleep(0.05)
+        holder = threading.Thread(target=hold)
+        holder.start()
+        time.sleep(0.3)  # the held request is in flight
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        time.sleep(0.2)
+        ready = _http(port, "/v2/health/ready")
+        live = _http(port, "/v2/health/live")
+        out, err = harness.communicate(timeout=120)
+        holder.join(60)
+        code = proc.wait(30)
+        exit_ms = (time.perf_counter() - t_sig) * 1e3
+    finally:
+        if harness.poll() is None:
+            harness.kill()
+            harness.wait()
+    if harness.returncode != 0:
+        raise AssertionError(f"harness exited {harness.returncode}: {out[-1000:]}{err[-1000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    if ready[0] != 503 or "Retry-After" not in ready[1] or live[0] != 200:
+        raise AssertionError(f"while draining: ready {ready[0]} {ready[1]}, live {live[0]}")
+    if held.get("answer") != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"the request in flight at SIGTERM: {held}")
+    if summary["errors"] != summary["dropped_unavailable"] or not summary["count"]:
+        raise AssertionError(f"the harness saw errors other than 503: {summary}")
+    events = [json.loads(line) for line in log if line.startswith("{")]
+    names = [e["event"] for e in events]
+    completed = [e for e in events if e["event"] == "drain_completed"]
+    if code != 0 or exit_ms > 20e3:
+        raise AssertionError(f"the server exited {code} after {exit_ms:.0f} ms")
+    if not ("drain_started" in names and completed and completed[0]["drained"] is True
+            and names.index("drain_started") < names.index("drain_completed")):
+        raise AssertionError(f"the drain's log: {names}")
+    result = {"sigterm_to_exit_ms": exit_ms, "ready_during_drain": ready[0],
+              "retry_after": ready[1]["Retry-After"], "live_during_drain": live[0],
+              "harness_errors_503": summary["errors"], "harness_count": summary["count"]}
+    print("drain 11e: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def lifecycle_server() -> dict:
+    """Phases 11b-11e on ``python -m client_tpu_torch.server
+    --no-builtin-models --model-repository <dir> --drain-timeout 20``,
+    spawned with the card, whose directory holds ``resnet50`` (ResNet-50's
+    widths, 224 x 224, 1000 classes, bf16, seed-0 weights),
+    ``resnet50_sched`` (the same with two priority levels, a queue of 16
+    with the "continue" timeout action and one ``card`` rate-limiter
+    resource) and the 11e ``drain_hold`` identity. The harness runs in
+    subprocesses that cannot see the card."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in (("resnet50", RESNET_MODEL_PY.format(extra="")),
+                           ("resnet50_sched", RESNET_MODEL_PY.format(extra=SCHED_DECLARATIONS)),
+                           ("drain_hold", HOLD_MODEL_PY)):
+            os.makedirs(os.path.join(tmp, name))
+            with open(os.path.join(tmp, name, "model.py"), "w") as f:
+                f.write(text)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "client_tpu_torch.server", "--no-builtin-models",
+             "--model-repository", tmp, "--drain-timeout", "20", "--http-port", "0",
+             "--host", "127.0.0.1"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        log = []
+        reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
+        reader.start()
+        try:
+            port = None
+            for line in proc.stdout:
+                match = re.search(r"serving HTTP on [^:]+:(\d+)", line)
+                if match:
+                    port = int(match.group(1))
+                    break
+            if port is None:
+                raise AssertionError(f"the server did not start: {''.join(log)[-2000:]}")
+            threading.Thread(target=lambda: proc.stdout.read(), daemon=True).start()
+            if _http(port, "/v2/health/ready")[0] != 200:
+                raise AssertionError("the spawned server is not ready")
+            start_s = time.perf_counter() - t0
+            image = np.random.default_rng(0).normal(size=[1, 224, 224, 3]).astype(np.float32)
+            compat = compat_11b(port, image)
+            result = {"server_start_s": start_s, "compat_11b": compat,
+                      "admission_11c": admission_11c(port),
+                      "rolling_11d": rolling_11d(port, image, compat["rows"]["kserve"])}
+            result["drain_11e"] = drain_11e(proc, port, log)
+            reader.join(30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"lifecycle 11b-11e: {result['wall_s']:.1f} s (the server up in "
+          f"{result['server_start_s']:.1f} s)", flush=True)
+    return result
+
+
+def embedded_11f() -> dict:
+    """11f: ``client_tpu_torch.server.embedded.start()`` in this process,
+    on the card: one ``simple`` request through its binary wire (status,
+    header length, body), exact."""
+    import struct
+
+    import numpy as np
+
+    from client_tpu_torch.server import embedded
+
+    a = np.arange(16, dtype=np.int32)[None]
+    b = np.full([1, 16], 7, dtype=np.int32)
+    head = json.dumps({"inputs": [
+        {"name": "INPUT0", "datatype": "INT32", "shape": [1, 16],
+         "parameters": {"binary_data_size": 64}},
+        {"name": "INPUT1", "datatype": "INT32", "shape": [1, 16],
+         "parameters": {"binary_data_size": 64}}],
+        "outputs": [{"name": "OUTPUT0", "parameters": {"binary_data": True}},
+                    {"name": "OUTPUT1", "parameters": {"binary_data": True}}]}).encode()
+    runner = embedded.start()
+    try:
+        answer = runner.infer("simple", head + a.tobytes() + b.tobytes(), len(head))
+    finally:
+        runner.shutdown()
+    status, header_len = struct.unpack("<IQ", answer[:12])
+    doc = json.loads(answer[12:12 + header_len])
+    data = np.frombuffer(answer[12 + header_len:], dtype=np.int32)
+    names = [o["name"] for o in doc["outputs"]]
+    if status != 0 or names != ["OUTPUT0", "OUTPUT1"] or not (
+            np.array_equal(data[:16], (a + b)[0]) and np.array_equal(data[16:], (a - b)[0])):
+        raise AssertionError(f"embedded simple: status {status}, {doc}")
+    result = {"status": status, "header_bytes": header_len, "body_bytes": len(answer) - 12}
+    print("embedded 11f: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
 def main() -> int:
     faulthandler.enable()  # a fault in native code prints every thread's stack
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2853,6 +3427,8 @@ def main() -> int:
     data_plane_procs()
     server_thread_profile()
     builtins_on_card()
+    lifecycle_server()
+    embedded_11f()
     line = {
         "kernels": [
             {
@@ -2870,6 +3446,7 @@ def main() -> int:
                 "serve_ms": k1["serve_ms"],
                 "serve_bound_ms": k1["serve_bound_ms"],
                 "serve_library_ms": k1["serve_library_ms"],
+                "lifecycle_11a_launches": served["lifecycle_11a"]["k1_launches"],
             },
             {
                 "name": "paged_attention_decode_mq",

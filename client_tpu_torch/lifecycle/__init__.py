@@ -1,7 +1,13 @@
-"""Client endpoint failover, routing and hedging.
+"""Graceful lifecycle: drain-aware shutdown and client endpoint failover.
 
-An own copy of the client side of ``client_tpu/lifecycle``: the
-server-side drain controller (``drain.py``) is not ported yet.
+An own copy of ``client_tpu/lifecycle``.
+
+:class:`DrainController`, :class:`ServerDrainingError`
+    The server's SERVING -> DRAINING -> STOPPED states with an in-flight
+    census over every ``ServerCore`` execution path: draining flips
+    readiness false (liveness stays true), rejects new inferences with
+    503 + ``Retry-After``, and lets in-flight and queued work finish up
+    to a drain deadline.
 
 :class:`EndpointPool`
     Accepted everywhere a ``url`` is (``urls=[...]`` or an explicit
@@ -16,6 +22,15 @@ server-side drain controller (``drain.py``) is not ported yet.
     A second attempt for the tail; first response wins.
 """
 
+from client_tpu_torch.lifecycle.drain import (
+    DRAINING,
+    RECOVERING,
+    SERVING,
+    STATE_VALUES,
+    STOPPED,
+    DrainController,
+    ServerDrainingError,
+)
 from client_tpu_torch.lifecycle.hedge import (
     HedgePolicy,
     hedged_send_async,
@@ -39,9 +54,15 @@ from client_tpu_torch.lifecycle.routing import (
 )
 
 __all__ = [
+    "DRAINING",
+    "RECOVERING",
     "ROUTING_POLICY_NAMES",
+    "SERVING",
+    "STATE_VALUES",
+    "STOPPED",
     "UNAVAILABLE_TOKENS",
     "ConsistentHashPolicy",
+    "DrainController",
     "Endpoint",
     "EndpointPool",
     "HedgePolicy",
@@ -49,6 +70,7 @@ __all__ = [
     "PowerOfTwoPolicy",
     "RoundRobinPolicy",
     "RoutingPolicy",
+    "ServerDrainingError",
     "failover_retry_policy",
     "hedged_send_async",
     "resolve_hedge_policy",

@@ -160,13 +160,15 @@ class LlmEngineModel(Model):
         1) and at T = spec_k + 1 (all writes land in the trash block).
         One kernel is picked for the device — the CUDA kernels on a card —
         and a probe that fails fails the load with its error, as does a
-        malformed speculation declaration."""
+        malformed speculation declaration.
+
+        A reload (``ModelRepository.load``) builds and probes the new pool
+        and engine first and closes the running engine only after that,
+        in the reference's order: a reload whose probe fails leaves the
+        old engine serving. For that moment both pools are on the
+        device."""
         config = self._config
         engine_config = self.engine_config
-        if self.engine is not None:
-            # a reload replaces the engine and its pool wholesale
-            self.engine.close()
-            self.engine = None
         with torch.inference_mode():
             if self._params is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
@@ -217,10 +219,14 @@ class LlmEngineModel(Model):
                     np.zeros([1, rows], dtype=np.int32),
                     np.zeros([1], dtype=np.int32), table[None, :nb], pages,
                 )
+        engine = LlmEngine(prefill, decode, pages, engine_config, model_name=self.name,
+                           decode_multi_fn=decode_multi, proposer=proposer)
+        # a reload replaces the engine and its pool wholesale, only now
+        # that the new one passed its probes
+        if self.engine is not None:
+            self.engine.close()
         self.decode_kernel = name
-        self.engine = LlmEngine(prefill, decode, pages, engine_config,
-                                model_name=self.name,
-                                decode_multi_fn=decode_multi, proposer=proposer)
+        self.engine = engine
         self._core = None  # rebind the executor after a reload
 
     def config(self) -> Dict[str, Any]:

@@ -7,14 +7,16 @@ interface, a backend over the port's HTTP client
 (:mod:`client_tpu_torch.http.aio`), an in-process backend calling a
 :class:`~client_tpu_torch.server.core.ServerCore` directly (measures
 client-overhead-free server performance), a mock backend with injectable
-latency and errors, and an OpenAI backend that reads SSE streams event by
-event over stdlib asyncio streams.
+latency and errors, and the REST backends — OpenAI (SSE streams read
+event by event), TensorFlow-Serving and TorchServe — over stdlib asyncio
+streams (the reference's run on aiohttp, which the port does not use).
 
-The gRPC, TensorFlow-Serving and TorchServe backends are not ported: the
-port has no gRPC front-end and no compat front-ends yet.
+The gRPC backend is not ported: the port has no gRPC front-end yet
+(ROADMAP Queue 1 item 4).
 """
 
 import asyncio
+import base64
 import contextlib
 import json
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -24,7 +26,7 @@ import numpy as np
 
 from client_tpu_torch.http.aio import _request_head
 from client_tpu_torch.resilience import sequence_is_idempotent
-from client_tpu_torch.utils import InferenceServerException
+from client_tpu_torch.utils import TF_TO_KSERVE_DTYPE, InferenceServerException
 
 
 class PerfInferInput:
@@ -391,16 +393,11 @@ class LocalPerfBackend(PerfBackend):
         return self._core.statistics(model_name)
 
     async def unload_model(self, model_name):
-        raise InferenceServerException(
-            "the port's ServerCore has no repository control yet "
-            "(ROADMAP Queue 1 item 3c)"
-        )
+        # drain-aware: through the core, not the bare repository
+        self._core.unload_model(model_name)
 
     async def load_model(self, model_name):
-        raise InferenceServerException(
-            "the port's ServerCore has no repository control yet "
-            "(ROADMAP Queue 1 item 3c)"
-        )
+        self._core.load_model(model_name)
 
     async def infer(
         self,
@@ -818,6 +815,158 @@ class OpenAiPerfBackend(_RestSessionMixin, PerfBackend):
             )
 
 
+class TfsPerfBackend(_PreparedRequestCacheMixin, _RestSessionMixin, PerfBackend):
+    """TensorFlow-Serving REST backend (reference
+    client_backend/tensorflow_serving/ role): row-format ``:predict``,
+    metadata normalized from the signature block. Unlike the reference's,
+    it builds a corpus entry's JSON body once and resends it (the
+    prepared-request cache the KServe backend has): a ResNet-50 image is
+    3.2 MB of JSON, whose build would otherwise be what the harness
+    measures."""
+
+    kind = "tfserving"
+
+    def __init__(self, url: str):
+        self._base = url if url.startswith("http") else f"http://{url}"
+        self._init_prepared()
+
+    async def _get_json(self, url: str, what: str):
+        async with self._rest("GET", url) as resp:
+            body = await resp.read()
+            if resp.status != 200:
+                raise InferenceServerException(f"{what} returned HTTP {resp.status}")
+        try:
+            return json.loads(body)
+        except ValueError as e:
+            raise InferenceServerException(f"{what}: malformed JSON: {e}") from None
+
+    async def get_model_metadata(self, model_name, model_version=""):
+        doc = await self._get_json(f"{self._base}/v1/models/{model_name}/metadata",
+                                   "TFS metadata")
+        sig = (doc.get("metadata", {}).get("signature_def", {})
+               .get("signature_def", {}).get("serving_default", {}))
+
+        def convert(block):
+            tensors = []
+            for name, desc in block.items():
+                dtype = TF_TO_KSERVE_DTYPE.get(desc.get("dtype", ""))
+                if dtype is None:
+                    raise InferenceServerException(
+                        f"signature tensor '{name}' has unsupported dtype "
+                        f"'{desc.get('dtype')}'"
+                    )
+                dims = [int(d.get("size", -1))
+                        for d in desc.get("tensor_shape", {}).get("dim", [])]
+                tensors.append({"name": name, "datatype": dtype, "shape": dims})
+            return tensors
+
+        return {"name": model_name, "inputs": convert(sig.get("inputs", {})),
+                "outputs": convert(sig.get("outputs", {}))}
+
+    async def get_model_config(self, model_name, model_version=""):
+        # TFS has no Triton-style config; the signature's leading -1 dims
+        # play the batch dim's role
+        return {"name": model_name, "max_batch_size": 0}
+
+    async def infer(self, model_name, inputs, model_version="", request_id="",
+                    parameters=None, sequence_id=0, sequence_start=False,
+                    sequence_end=False, priority=0, timeout_us=None, cache_token=None):
+        if cache_token is not None:
+            body = self._get_or_build_prepared(cache_token, lambda: self._body(inputs), len)
+        else:
+            body = self._body(inputs)
+        async with self._rest(
+            "POST", f"{self._base}/v1/models/{model_name}:predict", data=body,
+            headers={"Content-Type": "application/json"},
+        ) as resp:
+            payload = await resp.read()
+            if resp.status != 200:
+                raise InferenceServerException(
+                    f"TFS predict HTTP {resp.status}: {payload[:200]!r}"
+                )
+
+    @staticmethod
+    def _body(inputs) -> bytes:
+        """The row-format ``{"instances": [...]}`` JSON of ``inputs``."""
+        def rows_for(t):
+            values = np.asarray(t.data)
+            if t.datatype == "BYTES":
+                # TFS REST string tensors ride as {"b64": ...} objects
+                def b64(v):
+                    if isinstance(v, str):
+                        v = v.encode("utf-8")
+                    return {"b64": base64.b64encode(v).decode("ascii")}
+
+                if values.ndim <= 1:
+                    return [b64(v) for v in values.reshape(-1)]
+                return [[b64(v) for v in row.reshape(-1)] for row in values]
+            return values.tolist()
+
+        if len(inputs) == 1:
+            instances = rows_for(inputs[0])
+        else:
+            rows = None
+            per_input = {}
+            for t in inputs:
+                values = rows_for(t)
+                if rows is None:
+                    rows = len(values)
+                elif len(values) != rows:
+                    raise InferenceServerException("TFS row format needs a shared batch dim")
+                per_input[t.name] = values
+            instances = [{name: per_input[name][r] for name in per_input}
+                         for r in range(rows or 0)]
+        return json.dumps({"instances": instances}).encode()
+
+
+class TorchServePerfBackend(_RestSessionMixin, PerfBackend):
+    """TorchServe REST backend (reference client_backend/torchserve/
+    role): raw-body ``/predictions/<m>``, a fabricated single-BYTES-input
+    contract."""
+
+    kind = "torchserve"
+
+    def __init__(self, url: str):
+        self._base = url if url.startswith("http") else f"http://{url}"
+
+    async def connect(self) -> None:
+        async with self._rest("GET", f"{self._base}/ping") as resp:
+            await resp.read()
+            if resp.status != 200:
+                raise InferenceServerException(f"TorchServe /ping failed: HTTP {resp.status}")
+
+    async def get_model_metadata(self, model_name, model_version=""):
+        return {"name": model_name,
+                "inputs": [{"name": "data", "datatype": "BYTES", "shape": [-1]}],
+                "outputs": []}
+
+    async def get_model_config(self, model_name, model_version=""):
+        return {"name": model_name, "max_batch_size": 0}
+
+    async def infer(self, model_name, inputs, model_version="", request_id="",
+                    parameters=None, sequence_id=0, sequence_start=False,
+                    sequence_end=False, priority=0, timeout_us=None):
+        if not inputs:
+            raise InferenceServerException("torchserve backend needs input")
+        t = inputs[0]
+        if t.datatype == "BYTES":
+            flat = np.asarray(t.data, dtype=object).reshape(-1)
+            body = flat[0] if len(flat) else b""
+            if isinstance(body, str):
+                body = body.encode("utf-8")
+        else:
+            body = np.ascontiguousarray(t.data).tobytes()
+        async with self._rest(
+            "POST", f"{self._base}/predictions/{model_name}", data=body,
+            headers={"Content-Type": "application/octet-stream"},
+        ) as resp:
+            payload = await resp.read()
+            if resp.status != 200:
+                raise InferenceServerException(
+                    f"TorchServe predict HTTP {resp.status}: {payload[:200]!r}"
+                )
+
+
 def create_backend(
     kind: str,
     url: str = "",
@@ -829,6 +978,10 @@ def create_backend(
         return HttpPerfBackend(url, **kwargs)
     if kind == "openai":
         return OpenAiPerfBackend(url, **kwargs)
+    if kind == "tfserving":
+        return TfsPerfBackend(url)
+    if kind == "torchserve":
+        return TorchServePerfBackend(url)
     if kind == "local":
         if core is None:
             raise InferenceServerException(

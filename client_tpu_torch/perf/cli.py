@@ -71,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--service-kind",
         default="kserve",
         choices=["kserve", "openai", "tfserving", "torchserve"],
-        help="kserve (default) or an OpenAI-compatible endpoint "
-        "(tfserving and torchserve are refused: not ported yet)",
+        help="kserve (default), an OpenAI-compatible endpoint, or the "
+        "TFS/TorchServe REST protocols",
     )
     parser.add_argument(
         "--endpoint",
@@ -244,7 +244,10 @@ def build_parser() -> argparse.ArgumentParser:
         type=_positive_period,
         default=None,
         metavar="PERIOD_S",
-        help="refused: needs repository control, not ported yet",
+        help="chaos scenario: every PERIOD_S seconds cycle the model "
+        "through unload -> load on the server (a drain-aware rolling "
+        "restart) during the measurement; the report then shows dropped "
+        "vs rerouted requests (kserve http only)",
     )
     parser.add_argument(
         "--routing-policy",
@@ -406,19 +409,13 @@ def refusal(args) -> Optional[str]:
         (args.stream_mode,
          "--stream-mode: gRPC streams are not ported yet "
          "(ROADMAP Queue 1 item 4)"),
-        (args.service_kind in ("tfserving", "torchserve"),
-         f"--service-kind {args.service_kind}: the port has no "
-         "compat_frontends yet (ROADMAP Queue 1 item 3d)"),
         (args.metrics_url is not None and "," in args.metrics_url,
          "--metrics-url with several replicas: the fleet view "
          "(observability/fleet.py) is not ported yet (ROADMAP Queue 1 "
          "item 7)"),
         (args.fleet is not None,
-         "--fleet: perf/fleet_runner.py and repository control are not "
-         "ported yet (ROADMAP Queue 1 items 3c and 7)"),
-        (args.rolling_restart is not None,
-         "--rolling-restart: the port's server has no repository control "
-         "yet (ROADMAP Queue 1 items 3c and 7)"),
+         "--fleet: perf/fleet_runner.py is not ported yet (ROADMAP "
+         "Queue 1 item 7)"),
         (args.world_size > 1,
          f"--world-size {args.world_size}: perf/distributed.py is not "
          "ported yet (ROADMAP Queue 1 item 7)"),
@@ -525,6 +522,13 @@ async def run(args) -> int:
             file=sys.stderr,
         )
         return 2
+    if args.rolling_restart and args.service_kind != "kserve":
+        print(
+            "error: --rolling-restart needs the kserve http client "
+            "(model repository control)",
+            file=sys.stderr,
+        )
+        return 2
 
     if args.hedge_after_s is not None and args.shared_memory != "none":
         print(
@@ -571,8 +575,25 @@ async def run(args) -> int:
             protocol=args.protocol,
             service_kind=args.service_kind,
         )
+    restart_driver = None
     if args.service_kind == "openai":
         backend = create_backend("openai", args.url, endpoint=args.endpoint)
+    elif args.service_kind in ("tfserving", "torchserve"):
+        if args.protocol != "http":
+            print(
+                f"error: --service-kind {args.service_kind} is REST-only; "
+                f"-i {args.protocol} is not supported",
+                file=sys.stderr,
+            )
+            return 2
+        if args.shared_memory != "none":
+            print(
+                f"error: --shared-memory is not supported by the "
+                f"{args.service_kind} service kind",
+                file=sys.stderr,
+            )
+            return 2
+        backend = create_backend(args.service_kind, args.url)
     else:
         backend_kwargs = {}
         if want_tracing:
@@ -590,12 +611,13 @@ async def run(args) -> int:
             backend_kwargs["hedge_policy"] = args.hedge_after_s
         backend = create_backend(args.protocol, args.url, **backend_kwargs)
     if args.streaming and not backend.supports_streaming:
-        print(
-            f"error: --streaming is not supported by the '{args.protocol}' "
-            "protocol (gRPC streams are not ported yet: ROADMAP Queue 1 "
-            "item 4)",
-            file=sys.stderr,
-        )
+        if args.service_kind in ("tfserving", "torchserve"):
+            hint = (f"the {args.service_kind} service kind never supports "
+                    "streaming")
+        else:
+            hint = (f"the '{args.protocol}' protocol (gRPC streams are not "
+                    "ported yet: ROADMAP Queue 1 item 4)")
+        print(f"error: --streaming is not supported by {hint}", file=sys.stderr)
         await backend.close()
         return 2
     try:
@@ -750,6 +772,19 @@ async def run(args) -> int:
             args.latency_threshold * 1000 if args.latency_threshold else None
         )
 
+        if args.rolling_restart:
+            from client_tpu_torch.perf.load_manager import RollingRestartDriver
+
+            restart_driver = RollingRestartDriver(
+                backend, args.model_name, args.rolling_restart
+            )
+            restart_driver.start()
+            if args.verbose:
+                print(
+                    f"rolling restart: cycling unload/load of "
+                    f"'{args.model_name}' every {args.rolling_restart:g}s"
+                )
+
         if args.flamegraph_out:
             # sample the server mid-measurement: started here, after the
             # setup, right before the load managers launch
@@ -858,12 +893,26 @@ async def run(args) -> int:
                     start, end, step
                 )
 
+        if restart_driver is not None:
+            await restart_driver.stop()
+
         for experiment in experiments:
             label = f"{experiment.mode} = {experiment.value:g}"
             print(f"* {label}")
             print(detailed_report(experiment))
         print()
         print(console_report(experiments))
+        if restart_driver is not None:
+            line = (
+                f"Rolling restart: {restart_driver.cycles} unload/load "
+                "cycles during the run"
+            )
+            if restart_driver.errors:
+                line += (
+                    f" ({len(restart_driver.errors)} cycle errors; last: "
+                    f"{restart_driver.errors[-1]})"
+                )
+            print(line)
 
         server_summary = None
         if collector is not None:
@@ -965,6 +1014,8 @@ async def run(args) -> int:
                 "dropped_unavailable": best.status.unavailable_count,
                 "rerouted": best.status.rerouted_count,
             }
+            if restart_driver is not None:
+                summary_doc["rolling_restart_cycles"] = restart_driver.cycles
             if pool_snapshot is not None:
                 # routing/hedging/ejection outcome of the run (the
                 # client-side fleet counters)
@@ -1002,6 +1053,10 @@ async def run(args) -> int:
     finally:
         if flamegraph_task is not None:
             flamegraph_task.cancel()
+        if restart_driver is not None:
+            # no-op when already stopped above; on an aborted run this
+            # also reloads the model so the server is left serving
+            await restart_driver.stop()
         if prev_profiling is not None and not prev_profiling.get("stage_cpu"):
             # restore the server's pre-run profiling setting (default off)
             from client_tpu_torch.perf.metrics_collector import set_stage_cpu

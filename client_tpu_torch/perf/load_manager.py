@@ -1,9 +1,7 @@
 """Async load managers: concurrency, request-rate, custom-interval, periodic.
 
-The port's own copy of ``client_tpu/perf/load_manager.py`` (its
-``RollingRestartDriver`` is not ported: the port's server has no
-repository control yet). The asyncio re-expression of the reference's
-manager/worker hierarchy
+The port's own copy of ``client_tpu/perf/load_manager.py``. The asyncio
+re-expression of the reference's manager/worker hierarchy
 (reference load_manager.h:48-180, concurrency_manager.h, request_rate_
 manager.h, custom_load_manager.h, periodic_concurrency_manager.h). One loop
 drives all in-flight requests; workers are tasks, not threads.
@@ -237,6 +235,75 @@ class LoadManager:
             task.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
         self._tasks.clear()
+
+
+class RollingRestartDriver:
+    """The ``--rolling-restart`` chaos scenario: while a measurement runs,
+    periodically drain-and-restart the serving side by cycling the
+    model's ``unload`` -> ``load`` through the repository-control API
+    (the in-process stand-in for instance restarts — the server marks
+    the model unavailable, drains its queued/in-flight work, then the
+    load swaps a fresh model in atomically).
+
+    The run's records then answer the acceptance question with data:
+    dropped requests land as errors with 503/UNAVAILABLE status tokens
+    (``PerfStatus.unavailable_count``), rerouted ones as successes with
+    ``retries > 0`` (``PerfStatus.rerouted_count``).
+    """
+
+    def __init__(
+        self,
+        backend: PerfBackend,
+        model_name: str,
+        period_s: float,
+        settle_s: float = 0.2,
+    ):
+        self.backend = backend
+        self.model_name = model_name
+        self.period_s = period_s
+        self.settle_s = settle_s
+        self.cycles = 0
+        self.errors: List[str] = []
+        self._task: Optional[asyncio.Task] = None
+        self._stopped = False
+
+    def start(self) -> None:
+        self._task = asyncio.ensure_future(self._run())
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.period_s)
+            try:
+                await self.backend.unload_model(self.model_name)
+                # the unavailability window clients must ride through
+                await asyncio.sleep(self.settle_s)
+                await self.backend.load_model(self.model_name)
+                self.cycles += 1
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 - chaos must not kill the run
+                if len(self.errors) < 8:
+                    self.errors.append(str(e))
+
+    async def stop(self) -> None:
+        """Cancel the cycle and make sure the model ends up loaded.
+        Idempotent — a second call (the CLI's finally) is a no-op, not
+        another server-side reload."""
+        if self._stopped:
+            return
+        self._stopped = True
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+            self._task = None
+        try:
+            await self.backend.load_model(self.model_name)
+        except Exception as e:  # noqa: BLE001 - surface, don't raise
+            if len(self.errors) < 8:
+                self.errors.append(f"final load: {e}")
 
 
 class ConcurrencyManager(LoadManager):

@@ -6,9 +6,18 @@ models (``simple``, ``identity_fp32``, ``identity_bf16``,
 ``add_sub_chain``; ``--no-builtin-models`` leaves them out);
 ``--zoo-models`` adds ``image_classifier`` (64 x 64 images, the thin
 ResNet-18), ``llm_decode`` and ``llm_engine`` (the tiny Llama) and
-``text_encoder`` (the tiny BERT), random weights from seed 0. Every model
-runs on ``--device`` (default ``cuda``), which is also the device
-``/metrics`` reports the memory of.
+``text_encoder`` (the tiny BERT), random weights from seed 0; and
+``--model-repository`` loads every ``<name>/model.py`` of a directory
+(its ``create_model`` gets the server's device through a ``device``
+keyword when it declares one). Every model runs on ``--device`` (default
+``cuda``), which is also the device ``/metrics`` reports the memory of.
+
+On SIGTERM or SIGINT the server drains first: ``/v2/health/ready``
+answers 503 while ``/v2/health/live`` stays 200, new inferences get 503 +
+``Retry-After``, and in-flight and queued work gets ``--drain-timeout``
+seconds to finish; the structured log (JSON lines on stderr) records
+``drain_started`` and ``drain_completed``, and only then do the
+front-end and the core close.
 """
 
 import argparse
@@ -24,6 +33,11 @@ def main(argv=None) -> int:
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--http-port", type=int, default=8000)
     parser.add_argument(
+        "--model-repository",
+        default=None,
+        help="directory of <name>/model.py models (python_backend analogue)",
+    )
+    parser.add_argument(
         "--no-builtin-models",
         action="store_true",
         help="skip the built-in models (simple, identity_*, repeat_int32, "
@@ -36,6 +50,18 @@ def main(argv=None) -> int:
         "llm_engine, text_encoder)",
     )
     parser.add_argument(
+        "--max-workers", type=int, default=32, help="model execution threads"
+    )
+    parser.add_argument(
+        "--drain-timeout",
+        type=float,
+        default=30.0,
+        help="graceful-shutdown budget in seconds: on SIGTERM/SIGINT the "
+        "server flips /v2/health/ready to 503 (liveness stays up), "
+        "rejects new inferences with 503, and waits this long for "
+        "in-flight and queued work before closing",
+    )
+    parser.add_argument(
         "--device",
         choices=["cuda", "cpu"],
         default="cuda",
@@ -45,25 +71,19 @@ def main(argv=None) -> int:
 
     from client_tpu_torch.server.core import ServerCore
     from client_tpu_torch.server.http_server import serve_http
-    from client_tpu_torch.server.model_repository import ModelRepository
+    from client_tpu_torch.server.model_repository import build_repository
 
-    repository = ModelRepository()
-    if not args.no_builtin_models:
-        from client_tpu_torch.server.models import register_builtin_models
-
-        register_builtin_models(repository, device=args.device)
-    if args.zoo_models:
-        from client_tpu_torch.models.serving import register_zoo_models
-
-        register_zoo_models(repository, device=args.device)
+    repository = build_repository(args.model_repository, builtin=not args.no_builtin_models,
+                                  zoo=args.zoo_models, device=args.device)
     for entry in repository.index():
         print(f"model {entry['name']}: {entry['state']} {entry['reason']}".rstrip(),
               flush=True)
-    core = ServerCore(repository, device=args.device)
+    core = ServerCore(repository, max_workers=args.max_workers, device=args.device)
 
     async def serve() -> None:
         server = await serve_http(core, args.host, args.http_port)
         print(f"serving HTTP on {args.host}:{server.port}", flush=True)
+        core.logger.info("server_started", host=args.host, http_port=server.port)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -71,6 +91,11 @@ def main(argv=None) -> int:
         try:
             await stop.wait()
         finally:
+            # the graceful half first: readiness false and new work
+            # refused while in-flight and queued requests finish; drain()
+            # logs drain_started / drain_completed itself
+            drained = await core.drain(args.drain_timeout)
+            core.logger.info("server_stopping", drained=drained)
             await server.close()
             core.close()
 

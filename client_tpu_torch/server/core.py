@@ -35,9 +35,18 @@ and, when sampled, in a trace record with five stamps; decoupled streams
 get per-response statistics; stage CPU accounting (off by default) books
 the executions' ``compute``, ``device_put`` and ``readback``.
 
-Not ported yet: drain and lifecycle, repository control, the direct
-(pump-thread) batch path, rate limiting and the admission gate of the
-unbatched path.
+Lifecycle and admission, as the reference has them: a drain controller
+(:attr:`ServerCore.lifecycle`) whose in-flight census covers every
+execution path, so :meth:`ServerCore.drain` and an unload wait for work
+instead of cancelling it; a rate limiter (:attr:`ServerCore.rate_limiter`)
+whose named resource pools every execution of a model that declares them
+acquires, on the event loop; the waiting-room gate of the unbatched and
+decoupled paths; and repository control (:meth:`ServerCore.load_model`,
+:meth:`ServerCore.unload_model`).
+
+Not ported yet: the direct (pump-thread) batch path ``infer_direct``,
+which belongs to the gRPC front-end (ROADMAP Queue 1 item 4), and the
+engine recovery overlay (item 5).
 """
 
 import asyncio
@@ -50,6 +59,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 import numpy as np
 import torch
 
+from client_tpu_torch.lifecycle.drain import DrainController, ServerDrainingError
 from client_tpu_torch.observability.logging import StructuredLogger
 from client_tpu_torch.observability.profiling import (
     StageCpuAccounting,
@@ -61,17 +71,16 @@ from client_tpu_torch.observability.recorder import FlightRecorder
 from client_tpu_torch.observability.server import TraceManager
 from client_tpu_torch.scheduling import (
     SCHEDULING_PARAM_KEYS,
+    TIMEOUT_ACTION_REJECT,
+    AdmissionGate,
     PriorityQueue,
     QueueFullError,
     QueuePolicy,
     QueueTimeoutError,
+    RateLimiter,
     SchedulingError,
 )
-from client_tpu_torch.server.model_repository import (
-    STATE_READY,
-    Model,
-    ModelRepository,
-)
+from client_tpu_torch.server.model_repository import Model, ModelRepository
 from client_tpu_torch.server.metrics import ServerMetrics, device_label
 from client_tpu_torch.server.models import pad_batch_bucket
 from client_tpu_torch.server.shm import SharedMemoryManager
@@ -94,6 +103,8 @@ SERVER_VERSION = "0.1.0"
 # only what this server implements
 SERVER_EXTENSIONS = [
     "classification",
+    "model_repository",
+    "schedule_policy",
     "model_configuration",
     "binary_tensor_data",
     "parameters",
@@ -458,14 +469,17 @@ class _ModelBatcher:
     bounded multi-level :class:`PriorityQueue`: ``submit()`` rejects with
     429 once ``max_queue_size`` requests wait, batches are taken in
     (priority, arrival) order, and entries whose queue deadline passes
-    fail with a deadline error before execution.
+    fail with a deadline error before execution (or are demoted behind
+    in-deadline work when the model's ``timeout_action`` is "continue").
+    A model that declares rate-limiter resources acquires them around
+    each execution; deadlines are checked again after that wait.
     """
 
     def __init__(self, core: "ServerCore", model: Model):
         self.core = core
         self.model = model
         self.meta = _BatchMeta(model)
-        self.policy = QueuePolicy.from_model(model)
+        self.policy = core._queue_policy(model)
         # queued entries: (request, future, signature, rows, arrival_ns)
         self.pending = PriorityQueue(levels=self.policy.levels)
         self.running = False
@@ -490,6 +504,7 @@ class _ModelBatcher:
             (request, future, self.meta.signature(request), rows, arrival_ns),
             level=request.priority_level,
             deadline_ns=request.deadline_ns,
+            timeout_action=policy.timeout_action,
         )
         self._publish_depths()
         if not self.running:
@@ -503,27 +518,62 @@ class _ModelBatcher:
                 self._expire_pending()
                 if not len(self.pending):
                     break
-                await self._execute_batch(self._take_batch())
+                batch = self._take_batch()
+                resources = self.policy.rate_resources
+                if resources:
+                    limiter = self.core.rate_limiter
+                    await limiter.acquire(resources, self.policy.rate_priority)
+                    try:
+                        # the grant wait may have outlived queue deadlines:
+                        # reject-action entries still fail before execution
+                        batch = self._expire_taken(batch)
+                        if batch:
+                            await self._execute_batch(batch)
+                    finally:
+                        limiter.release(resources)
+                else:
+                    await self._execute_batch(batch)
         finally:
             self.running = False
             if len(self.pending):  # raced with a submit after the check
                 self.running = True
                 self._drain_task = asyncio.get_running_loop().create_task(self._drain())
 
+    def _reject_expired(self, entry, now_ns: int) -> None:
+        """Fail one (request, future, ...) entry with a deadline error."""
+        request, future, _sig, _rows, arrival_ns = entry
+        error = QueueTimeoutError(self.model.name,
+                                  self.policy.timeout_us_of(request.parameters))
+        self.core._book_rejection(self.model.name, request, error,
+                                  latency_ns=now_ns - arrival_ns)
+        if not future.done():
+            future.set_exception(error)
+
     def _expire_pending(self) -> None:
-        """Fail queued entries whose deadline passed."""
+        """Fail queued entries whose deadline passed (reject action);
+        "continue" entries were demoted inside the queue instead."""
         now_ns = time.monotonic_ns()
         expired = self.pending.expire(now_ns)
         for item in expired:
-            request, future, _sig, _rows, arrival_ns = item.value
-            error = QueueTimeoutError(
-                self.model.name, self.policy.timeout_us_of(request.parameters))
-            self.core._book_rejection(self.model.name, request, error,
-                                      latency_ns=now_ns - arrival_ns)
-            if not future.done():
-                future.set_exception(error)
+            self._reject_expired(item.value, now_ns)
         if expired:
             self._publish_depths()
+
+    def _expire_taken(self, entries: List[Any]) -> List[Any]:
+        """Deadline re-check for a batch already taken from the queue
+        (the rate limiter's grant wait sits between take and execute);
+        returns the entries still in time."""
+        if self.policy.timeout_action != TIMEOUT_ACTION_REJECT:
+            return entries
+        now_ns = time.monotonic_ns()
+        live = []
+        for entry in entries:
+            deadline_ns = entry[0].deadline_ns
+            if deadline_ns is not None and now_ns > deadline_ns:
+                self._reject_expired(entry, now_ns)
+            else:
+                live.append(entry)
+        return live
 
     def _take_batch(self) -> List[Any]:
         """Pop the highest-priority oldest request plus every compatible
@@ -638,8 +688,9 @@ class _ModelBatcher:
 class ServerCore:
     """The protocol-independent inference engine: model lookup, the
     dynamic batchers, the executor that device calls run on, statistics,
-    the streaming path, and the server's observability (metrics, traces,
-    structured log, flight recorder, stage CPU accounting).
+    the streaming path, lifecycle and admission (drain, rate limiter,
+    repository control), and the server's observability (metrics,
+    traces, structured log, flight recorder, stage CPU accounting).
 
     ``device`` is the server's device: the one ``/metrics`` reports the
     memory of and server metadata lists (``cuda`` unless the caller
@@ -660,6 +711,16 @@ class ServerCore:
         self.live = True
         # the trace extension: sampling, per-model settings, records
         self.trace_manager = TraceManager()
+        # execution grants against named resource pools (ModelRateLimiter
+        # semantics): models that declare rate_limiter resources acquire
+        # them around every device execution
+        self.rate_limiter = RateLimiter()
+        # per model name: its resolved queue policy and waiting-room gate
+        self._policies: Dict[str, QueuePolicy] = {}
+        self._gates: Dict[str, AdmissionGate] = {}
+        # SERVING -> DRAINING -> STOPPED, with the in-flight census every
+        # execution path reports into, so a drain waits for work
+        self.lifecycle = DrainController()
         # cumulative busy ns of device executions, in all and per device:
         # the monotone counter the duty cycle derives from
         self._busy_lock = threading.Lock()
@@ -679,26 +740,166 @@ class ServerCore:
         # recent, failed and slowest requests (GET /v2/debug/requests)
         self.flight_recorder = FlightRecorder()
 
-    @property
-    def ready(self) -> bool:
-        """Live, and every registered model loaded."""
-        return self.live and all(
-            entry["state"] == STATE_READY for entry in self.repository.index()
-        )
-
-    def close(self) -> None:
-        """Stop model-owned machinery (the LLM engine's step loop) and the
-        executor, unmap every registered shared-memory region, and flush
-        the trace records and the log."""
-        self.live = False
+    def _shutdown_model_hooks(self) -> None:
+        """Stop model-owned background machinery (the LLM engine's step
+        loop): called on the serving loop at the end of a drain, and
+        again, idempotently, by close() for cores that never drain."""
         for entry in self.repository.index():
             shutdown = getattr(self.repository.peek(entry["name"]), "shutdown", None)
             if shutdown is not None:
-                shutdown()
+                try:
+                    shutdown()
+                except Exception:  # noqa: BLE001 - best-effort teardown
+                    pass
+
+    def close(self) -> None:
+        """Stop model-owned machinery and the executor, unmap every
+        registered shared-memory region, and flush the trace records and
+        the log."""
+        self.live = False
+        self.lifecycle.mark_stopped()
+        self._shutdown_model_hooks()
         self._executor.shutdown(wait=False, cancel_futures=True)
         self.shm.unregister_all()
         self.trace_manager.close()
         self.logger.close()
+
+    # -- graceful lifecycle ----------------------------------------------------
+
+    @property
+    def ready(self) -> bool:
+        """Readiness as load balancers should see it: live, accepting
+        (not draining), and the repository's ready set not degraded.
+        Liveness (:attr:`live`) stays true through a drain."""
+        return self.live and self.lifecycle.accepting and not self.repository.degraded()
+
+    def _lifecycle_admit(self, model_name: str, trace=None) -> None:
+        """Drain gate + in-flight tracking for one request; books the
+        rejection counter and the trace event when draining."""
+        try:
+            self.lifecycle.admit(model_name)
+        except ServerDrainingError:
+            self.metrics.observe_drain_rejection(model_name)
+            if trace is not None:
+                trace.event("DRAIN_REJECTED")
+            raise
+
+    def reject_if_draining(self, model_name: str = "") -> None:
+        """Front-end fast path: raise the drain rejection before paying
+        for the request's decode, booked like an admission rejection
+        (``check()`` never touches the census)."""
+        try:
+            self.lifecycle.check()
+        except ServerDrainingError:
+            self.metrics.observe_drain_rejection(model_name)
+            raise
+
+    async def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Graceful shutdown, on the serving loop: stop admitting, wait up
+        to ``timeout_s`` for in-flight and queued work, then fail what is
+        still queued with a clean 503 (never a cancelled future), and
+        stop the models' background tasks while the loop still runs.
+        Returns True when everything drained inside the deadline."""
+        self.lifecycle.begin_drain()
+        self.logger.info("drain_started", timeout_s=timeout_s,
+                         inflight=self.lifecycle.inflight())
+        drained = await self.lifecycle.wait_idle(timeout_s)
+        if not drained:
+            failed = self.fail_pending()
+            self.logger.warning("drain_deadline_expired", failed_pending=failed)
+            # the failed futures' awaiters need a tick before the
+            # front-ends close under them
+            await self.lifecycle.wait_idle(min(1.0, timeout_s or 1.0))
+        self.lifecycle.mark_stopped()
+        self._shutdown_model_hooks()
+        self.logger.info("drain_completed", drained=drained)
+        return drained
+
+    def fail_pending(self, model_name: Optional[str] = None) -> int:
+        """Fail every queued (not yet executing) batcher entry with a
+        drain rejection. Loop thread only: the futures belong to it."""
+        failed = 0
+        for name, batcher in list(self._batchers.items()):
+            if model_name is not None and name != model_name:
+                continue
+            items = batcher.pending.scan()
+            if not items:
+                continue
+            batcher.pending.remove(items)
+            batcher._publish_depths()
+            for item in items:
+                future = item.value[1]
+                self.metrics.observe_drain_rejection(name)
+                if not future.done():
+                    future.set_exception(ServerDrainingError(
+                        self.lifecycle.state, retry_after_s=self.lifecycle.retry_after_s))
+                failed += 1
+        return failed
+
+    # -- repository control ----------------------------------------------------
+
+    def load_model(self, name: str, config_override: Optional[str] = None) -> None:
+        """Repository load, and the model's live-telemetry state reset so
+        the next record re-reads its ``slo`` declaration. Every front-end
+        and the in-process backend load through here."""
+        self.repository.load(name, config_override=config_override)
+        self.metrics.telemetry.reset(name)
+        self.logger.info("model_loaded", model=name)
+
+    def unload_model(self, name: str, drain_timeout_s: float = 5.0):
+        """Repository unload with a per-model drain: the model stops
+        admitting at once (503), its queued and in-flight work (the LLM
+        engine's streams among it) drains in the background, then its
+        batcher is evicted and the index entry turns UNAVAILABLE /
+        "unloaded".
+
+        Returns the finalization task when a loop is running (the
+        front-ends never block on the drain), else finalizes at once."""
+        old_model = self.repository.peek(name)
+        epoch = self.repository.unload(name)
+        self.metrics.telemetry.reset(name)
+        self.logger.info("model_unloading", model=name,
+                         inflight=self.lifecycle.inflight(name))
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            loop = None
+        if loop is None:
+            self._evict_batcher(name, old_model)
+            self.repository.finish_unload(name, epoch)
+            self.metrics.telemetry.reset(name)
+            return None
+        return loop.create_task(self._finalize_unload(name, old_model, epoch,
+                                                      drain_timeout_s))
+
+    async def _finalize_unload(self, name: str, old_model, epoch: int,
+                               drain_timeout_s: float) -> None:
+        drained = await self.lifecycle.wait_idle(drain_timeout_s, model_name=name)
+        if self.repository.epoch_of(name) != epoch:
+            # a load superseded this unload mid-drain (the rolling-restart
+            # pattern): the census now counts the new model's traffic
+            return
+        if not drained:
+            self.fail_pending(name)
+        self._evict_batcher(name, old_model)
+        self.repository.finish_unload(name, epoch)
+        # completions during the drain re-created the outgoing model's
+        # telemetry state; this reset leaves nothing to export
+        self.metrics.telemetry.reset(name)
+        self.logger.info("model_unloaded", model=name, drained=drained)
+
+    def _evict_batcher(self, name: str, model=None) -> None:
+        """Drop a model's batcher if it still belongs to the unloaded
+        model object and holds no queued work (a reload may already have
+        installed a new one)."""
+        batcher = self._batchers.get(name)
+        if batcher is None:
+            return
+        if model is not None and batcher.model is not model:
+            return
+        if len(batcher.pending):
+            return
+        self._batchers.pop(name, None)
 
     def _stats_for(self, model_name: str) -> _Stats:
         with self._stats_lock:
@@ -759,6 +960,71 @@ class ServerCore:
                               exec_start_ns=now_ns, end_ns=now_ns)
         self.logger.verbose("request_rejected", model=model_name, reason=error.reason,
                             request_id=request.id)
+
+    # -- scheduling / admission control -----------------------------------------
+
+    def _queue_policy(self, model: Model) -> QueuePolicy:
+        """The model's resolved admission policy, kept per model name and
+        rebuilt when a reload puts another object under the name. Its
+        first resolution registers the model's rate-limiter demands with
+        the shared pools. (The reference caches it on the model object,
+        a cycle through ``policy.model`` that keeps a replaced model and
+        its device memory until the cycle collector runs; kept here, the
+        replaced model goes as soon as the new one is first used.)"""
+        policy = self._policies.get(model.name)
+        if policy is None or policy.model is not model:
+            policy = QueuePolicy.from_model(model)
+            self._policies[model.name] = policy
+            if policy.rate_resources:
+                self.rate_limiter.register(policy.rate_resources)
+        return policy
+
+    def _admission_for(self, model: Model) -> AdmissionGate:
+        """Waiting-room gate of the paths without a batcher queue."""
+        gate = self._gates.get(model.name)
+        if gate is None or gate.policy.model is not model:
+            gate = AdmissionGate(self._queue_policy(model))
+            self._gates[model.name] = gate
+        return gate
+
+    def _admit_single(self, model: Model, request: CoreRequest):
+        """Admission of the unbatched and decoupled paths: stamp the
+        scheduling fields and claim a waiting-room slot. Returns the
+        gate's ticket (``started()`` frees the slot when execution
+        begins), or None when there is nothing to schedule (a model with
+        no policy and a request with no parameters). Raises a booked
+        :class:`QueueFullError` when the room is full."""
+        policy = self._queue_policy(model)
+        if not policy.enabled and not request.parameters:
+            return None
+        policy.stamp(request, time.monotonic_ns())
+        try:
+            return self._admission_for(model).enter(model.name)
+        except SchedulingError as e:
+            self._book_rejection(model.name, request, e)
+            raise
+
+    def _check_deadline(self, model: Model, request: CoreRequest) -> None:
+        """Fail a request whose queue deadline passed before execution,
+        booked here (reject action only; "continue" executes late)."""
+        if request.deadline_ns is not None and time.monotonic_ns() > request.deadline_ns:
+            policy = self._queue_policy(model)
+            if policy.timeout_action == TIMEOUT_ACTION_REJECT:
+                error = QueueTimeoutError(model.name,
+                                          policy.timeout_us_of(request.parameters))
+                self._book_rejection(model.name, request, error)
+                raise error
+
+    def _run_single(self, model: Model, request: CoreRequest, ticket=None):
+        """Executor-side entry of the unbatched path: leave the waiting
+        room, enforce the queue deadline, run the model. Never waits on
+        the rate limiter: a parked executor thread could starve the
+        execution whose release it waits for, so grants are awaited on
+        the event loop."""
+        if ticket is not None:
+            ticket.started()
+        self._check_deadline(model, request)
+        return self._run_model(model, request)
 
     # -- device busy accounting (duty cycle) ----------------------------------
 
@@ -869,8 +1135,10 @@ class ServerCore:
             "server": {"name": SERVER_NAME, "version": SERVER_VERSION,
                        "live": self.live, "ready": self.ready, "recovering": False},
             "llm": llm,
+            "lifecycle": self.lifecycle.snapshot(),
             "devices": self.device_topology(),
             "queues": queues,
+            "rate_limiter": self.rate_limiter.snapshot(),
             "models": self.repository.index(),
             "log_settings": self.logger.settings(),
             "log_model_overrides": self.logger.model_overrides(),
@@ -922,11 +1190,8 @@ class ServerCore:
             return int(shape[0])
         return 1
 
-    def _run_model(self, model: Model, request: CoreRequest,
-                   policy: QueuePolicy) -> Dict[str, np.ndarray]:
+    def _run_model(self, model: Model, request: CoreRequest) -> Dict[str, np.ndarray]:
         """Executor-side body of the unbatched path."""
-        if request.deadline_ns is not None and time.monotonic_ns() > request.deadline_ns:
-            raise QueueTimeoutError(model.name, policy.timeout_us_of(request.parameters))
         declared = {i["name"] for i in model.inputs}
         for t in request.inputs:
             if declared and t.name not in declared:
@@ -1000,19 +1265,25 @@ class ServerCore:
     async def infer(self, request: CoreRequest) -> CoreResponse:
         """Execute a request->response inference (decoupled models
         rejected). Batchable requests go through the model's dynamic
-        batcher; the rest execute singly."""
-        model = self.repository.get(request.model_name, request.model_version)
-        if model.decoupled:
-            raise InferenceServerException(
-                f"model '{model.name}' is decoupled; use streaming inference"
-            )
-        self.metrics.pending_inc(model.name)
+        batcher; the rest execute singly. The request counts in the drain
+        census until it completes, queued batcher time included."""
+        self._lifecycle_admit(request.model_name, request.trace)
         try:
-            if model.max_batch_size > 1 and self._has_batch_dim(model, request):
-                return await self._submit_batched(model, request)
-            return await self._infer_single(model, request)
+            model = self.repository.get(request.model_name, request.model_version)
+            if model.decoupled:
+                raise InferenceServerException(
+                    f"model '{model.name}' is decoupled; use streaming inference"
+                )
+            self.metrics.pending_inc(model.name)
+            try:
+                if model.max_batch_size > 1 and self._has_batch_dim(model, request):
+                    return await self._submit_batched(model, request)
+                ticket = self._admit_single(model, request)
+                return await self._infer_single(model, request, ticket)
+            finally:
+                self.metrics.pending_dec(model.name)
         finally:
-            self.metrics.pending_dec(model.name)
+            self.lifecycle.finish(request.model_name)
 
     def _submit_batched(self, model: Model,
                         request: CoreRequest) -> "asyncio.Future[CoreResponse]":
@@ -1031,32 +1302,43 @@ class ServerCore:
             self._stats_for(model.name).record("fail", 0)
             raise
 
-    async def _infer_single(self, model: Model, request: CoreRequest) -> CoreResponse:
-        """Unbatched execution (max_batch_size <= 1 or no batch dim)."""
+    async def _infer_single(self, model: Model, request: CoreRequest,
+                            ticket=None) -> CoreResponse:
+        """Unbatched execution (max_batch_size <= 1 or no batch dim).
+
+        ``ticket`` is the waiting-room slot the caller claimed; the
+        executor frees it when execution begins, and the ``finally``
+        below frees it for a request cancelled before that."""
         stats = self._stats_for(model.name)
+        policy = self._queue_policy(model)
         t0 = time.monotonic_ns()
-        policy = QueuePolicy.from_model(model)
-        policy.stamp(request, t0)
         loop = asyncio.get_running_loop()
+        rate_resources = None
         try:
+            if policy.rate_resources:
+                await self.rate_limiter.acquire(policy.rate_resources, policy.rate_priority)
+                rate_resources = policy.rate_resources
             t1 = time.monotonic_ns()
             raw = await loop.run_in_executor(
-                self._executor, self._run_model, model, request, policy
+                self._executor, self._run_single, model, request, ticket
             )
             t2 = time.monotonic_ns()
             response = self._package_profiled(model, request, raw)
             t3 = time.monotonic_ns()
-        except SchedulingError as e:  # the queue deadline passed
-            self._book_rejection(model.name, request, e,
-                                 latency_ns=time.monotonic_ns() - t0)
-            raise
         except Exception as e:
-            now = time.monotonic_ns()
-            stats.record("fail", now - t0)
-            self._log_request_error("request_failed", model.name, e, path="single")
-            self._record_exemplar(model.name, request, path="single", status="error",
-                                  error=str(e), arrival_ns=t0, end_ns=now)
+            # admission rejections (the queue deadline) were booked already
+            if not isinstance(e, SchedulingError):
+                now = time.monotonic_ns()
+                stats.record("fail", now - t0)
+                self._log_request_error("request_failed", model.name, e, path="single")
+                self._record_exemplar(model.name, request, path="single", status="error",
+                                      error=str(e), arrival_ns=t0, end_ns=now)
             raise
+        finally:
+            if rate_resources is not None:
+                self.rate_limiter.release(rate_resources)
+            if ticket is not None:
+                ticket.close()
         self.add_busy_ns(model, t2 - t1)
         rows = self._resolve_batch(model, request)
         self.metrics.observe_execution(model.name, rows)
@@ -1090,7 +1372,12 @@ class ServerCore:
         after the final response is complete; one stopped earlier books a
         cancelled response, and one that fails a failure. Only the time
         spent waiting for the model's next item counts as device busy:
-        the time the consumer takes is not the card's."""
+        the time the consumer takes is not the card's.
+
+        A stream counts in the drain census for its whole life (an unload
+        or a drain waits for it), claims a waiting-room slot at admission
+        and holds its model's rate-limiter grant while it runs; its queue
+        deadline is checked after the grant wait."""
         model = self.repository.get(request.model_name, request.model_version)
         if not model.decoupled:
             yield await self.infer(request)
@@ -1100,6 +1387,13 @@ class ServerCore:
         bind = getattr(model, "bind_core", None)
         if bind is not None:
             bind(self)
+        self._lifecycle_admit(request.model_name, request.trace)
+        try:
+            ticket = self._admit_single(model, request)
+        except BaseException:
+            self.lifecycle.finish(request.model_name)
+            raise
+        rate_resources = None
         stats = self._stats_for(model.name)
         t0 = time.monotonic_ns()
         packaging_ns = 0
@@ -1123,6 +1417,15 @@ class ServerCore:
         inputs = {t.name: t.data for t in request.inputs}
         prof = self.profiling
         try:
+            policy = self._queue_policy(model)
+            if policy.rate_resources:
+                await self.rate_limiter.acquire(policy.rate_resources, policy.rate_priority)
+                rate_resources = policy.rate_resources
+            # leave the waiting room only after the grant wait: a stream
+            # parked on the pool still counts against max_queue_size
+            if ticket is not None:
+                ticket.started()
+            self._check_deadline(model, request)
             resume_ns = time.monotonic_ns()
             # the loop thread's CPU between resuming the model and its next
             # item is the step's compute (other tasks on the loop blur it)
@@ -1166,16 +1469,23 @@ class ServerCore:
         except Exception as e:
             now = time.monotonic_ns()
             stats.record_response_failure(index, now - t0)
-            stats.record("fail", now - t0)
-            self._log_request_error("stream_failed", model.name, e, path="decoupled")
-            self._record_exemplar(model.name, request, path="decoupled", status="error",
-                                  error=str(e), arrival_ns=t0, end_ns=now,
-                                  responses=index)
+            # admission rejections booked their fail already
+            if not isinstance(e, SchedulingError):
+                stats.record("fail", now - t0)
+                self._log_request_error("stream_failed", model.name, e, path="decoupled")
+                self._record_exemplar(model.name, request, path="decoupled",
+                                      status="error", error=str(e), arrival_ns=t0,
+                                      end_ns=now, responses=index)
             raise
         else:
             book_success()
         finally:
+            if rate_resources is not None:
+                self.rate_limiter.release(rate_resources)
+            if ticket is not None:
+                ticket.close()
             self.metrics.pending_dec(model.name)
+            self.lifecycle.finish(request.model_name)
 
     # -- wire-side input decoding -------------------------------------------
 

@@ -25,6 +25,17 @@ model), ``/v2/debug/{requests,state,slo}``, the stage CPU toggle
 ``/v2/debug/profiling`` and the on-demand sampler ``/v2/debug/profile``
 (``jax_trace_dir`` adds a ``torch.profiler`` Chrome trace; one run at a
 time, a second gets 409).
+
+Lifecycle and repository control are the reference's too:
+``/v2/health/ready`` answers 503 (with ``Retry-After`` while the server
+drains) unless the server is live, accepting and its ready set whole,
+while ``/v2/health/live`` stays 200 through a drain; ``/infer`` refuses
+a draining server's requests before decoding them; ``POST
+/v2/repository/index`` and ``/v2/repository/models/<m>/{load,unload}``
+drive :meth:`ServerCore.load_model` / :meth:`ServerCore.unload_model`. A
+load runs on the serving loop, as the reference's does, so the loop
+stalls for the model's warmup. The TensorFlow-Serving and TorchServe
+REST routes come from ``server/compat_frontends.py``.
 """
 
 import asyncio
@@ -211,6 +222,7 @@ class HttpServer:
     """The port's HTTP front-end over a :class:`ServerCore`."""
 
     def __init__(self, core: ServerCore):
+        from client_tpu_torch.server.compat_frontends import CompatFrontends
         from client_tpu_torch.server.openai_frontend import OpenAiFrontend
 
         self.core = core
@@ -220,6 +232,7 @@ class HttpServer:
         # /v2/debug/profile gets 409 instead of doubling the overhead
         self._profiling_busy = False
         openai = OpenAiFrontend(core)
+        compat = CompatFrontends(core)
         model = r"/v2/models/(?P<model>[^/]+)(/versions/(?P<version>[^/]+))?"
         self._routes = [
             ("GET", re.compile(r"/v2/health/live"), self.handle_live),
@@ -235,6 +248,11 @@ class HttpServer:
             ("GET", re.compile(model + "/logging"), self.handle_get_logging),
             ("POST", re.compile(model + "/logging"), self.handle_update_logging),
             ("GET", re.compile(model), self.handle_model_metadata),
+            ("POST", re.compile(r"/v2/repository/index"), self.handle_repository_index),
+            ("POST", re.compile(r"/v2/repository/models/(?P<model>[^/]+)/load"),
+             self.handle_repository_load),
+            ("POST", re.compile(r"/v2/repository/models/(?P<model>[^/]+)/unload"),
+             self.handle_repository_unload),
             *self._shm_routes(),
             ("GET", re.compile(r"/v2/trace/setting"), self.handle_get_trace),
             ("POST", re.compile(r"/v2/trace/setting"), self.handle_update_trace),
@@ -250,6 +268,8 @@ class HttpServer:
             ("GET", re.compile(r"/v1/models"), openai.handle_models),
             ("POST", re.compile(r"/v1/chat/completions"), openai.handle_chat),
             ("POST", re.compile(r"/v1/completions"), openai.handle_chat),
+            # after the OpenAI list: fullmatch keeps "/v1/models" there
+            *compat.routes(),
         ]
 
     @property
@@ -344,10 +364,20 @@ class HttpServer:
     # -- KServe v2 routes ----------------------------------------------------
 
     async def handle_live(self, request: Request) -> Response:
+        # process health only: stays 200 through a drain, so an
+        # orchestrator does not kill a draining server
         return Response(200 if self.core.live else 400)
 
     async def handle_ready(self, request: Request) -> Response:
-        return Response(200 if self.core.ready else 503)
+        # live, accepting and not degraded; the 503 is what takes a
+        # draining server out of a load balancer while /live stays 200
+        core = self.core
+        if core.ready:
+            return Response(200)
+        headers = {}
+        if core.live and not core.lifecycle.accepting:
+            headers["Retry-After"] = str(max(1, int(round(core.lifecycle.retry_after_s))))
+        return Response(503, headers=headers)
 
     async def handle_model_ready(self, request: Request) -> Response:
         ready = self.core.repository.is_ready(
@@ -373,6 +403,30 @@ class HttpServer:
 
     async def handle_model_config(self, request: Request) -> Response:
         return json_response(self._model(request).config())
+
+    # -- repository control ------------------------------------------------
+
+    async def handle_repository_index(self, request: Request) -> Response:
+        return json_response(self.core.repository.index())
+
+    async def handle_repository_load(self, request: Request) -> Response:
+        """Load or reload, on this loop (the reference's order: the loop
+        waits for the model's warmup)."""
+        config_override = None
+        if request.body:
+            try:
+                payload = request.json()
+                config_override = payload.get("parameters", {}).get("config")
+            except (UnicodeDecodeError, ValueError, AttributeError) as e:
+                raise InferenceServerException(f"malformed load request: {e}") from None
+        self.core.load_model(request.params["model"], config_override=config_override)
+        return Response(200)
+
+    async def handle_repository_unload(self, request: Request) -> Response:
+        # the model stops admitting at once; its queued and in-flight work
+        # drains in the background before the index reads "unloaded"
+        self.core.unload_model(request.params["model"])
+        return Response(200)
 
     async def handle_stats(self, request: Request) -> Response:
         # the harness's per-window snapshots are part of the server's CPU
@@ -588,6 +642,8 @@ class HttpServer:
 
     async def handle_infer(self, request: Request) -> Response:
         core = self.core
+        # drain fast path: refuse before paying for the decode
+        core.reject_if_draining(request.params["model"])
         prof = core.profiling
         # one take() covers this request's decode and encode brackets
         measured = prof.take()

@@ -57,6 +57,7 @@ from typing import Callable
 
 import torch
 
+from client_tpu_torch.lifecycle.drain import STATE_VALUES
 from client_tpu_torch.observability.metrics import (
     Counter,
     Gauge,
@@ -672,9 +673,9 @@ class ServerMetrics:
                 inference["success"]["ns"]
             )
             self.legacy_fail_count.labels(name).set(inference["fail"]["count"])
-        # the port has no drain yet: serving (0) while live, else
-        # stopped (2), the reference's wire values
-        self.server_state.set(0.0 if self.core.live else 2.0)
+        # the drain lifecycle: 0 serving, 1 draining, 2 stopped (the
+        # port has no engine recovery, so 3 never shows)
+        self.server_state.set(float(STATE_VALUES.get(self.core.lifecycle.state, 0)))
         busy_ns = self.core.device_busy_ns_total
         now_ns = self._clock_ns()
         with self._duty_lock:

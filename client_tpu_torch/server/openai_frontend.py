@@ -20,7 +20,7 @@ from client_tpu_torch.server.http_server import (
     error_response,
     json_response,
 )
-from client_tpu_torch.server.model_repository import STATE_READY
+from client_tpu_torch.server.model_repository import STATE_READY, ModelUnavailableError
 from client_tpu_torch.utils import InferenceServerException
 
 # Hard ceiling for the request-body max_tokens field: far above any model
@@ -183,6 +183,11 @@ class OpenAiFrontend:
         model_name = body.get("model") or self.default_model
         try:
             model = self.core.repository.get(model_name, "")
+        except ModelUnavailableError as e:
+            # a model that exists but is not serving (unloading, unloaded,
+            # load failed) is temporarily gone: its own retryable 503, where
+            # the reference answers 404 as for a model that never existed
+            return _mapped_error(e)
         except InferenceServerException as e:
             return json_response({"error": {"message": e.message()}}, status=404)
         tokenizer = SyntheticTokenizer(getattr(model, "vocab_size", 32000))

@@ -4,8 +4,10 @@ The port's twin of ``client_tpu/testing/inprocess.py``: the port's
 :class:`~client_tpu_torch.server.core.ServerCore` and HTTP front-end on a
 thread of their own, so a test or a benchmark drives the full client /
 server path without a separate server process. The port has no gRPC
-front-end and no drain yet: :meth:`InProcessServer.stop` closes the
-front-end, then the core.
+front-end yet. :meth:`InProcessServer.stop` drains first, as the
+reference's does: readiness flips false, in-flight and queued work
+finishes inside the drain deadline, and only then do the front-end and
+the core close.
 """
 
 import asyncio
@@ -26,11 +28,14 @@ class InProcessServer:
         builtin_models: bool = True,
         http_port: int = 0,
         device=None,
+        drain_timeout_s: float = 5.0,
     ):
         """``builtin_models`` installs the built-in models on ``device``
         (``cuda`` unless the caller passes ``"cpu"``; with no card the
         default raises), which is also the device of the core made here.
-        ``http_port`` 0 takes any free port."""
+        ``http_port`` 0 takes any free port; a restarted server passes
+        its predecessor's so it comes back at the same address.
+        ``drain_timeout_s`` bounds the graceful half of :meth:`stop`."""
         if core is None:
             core = ServerCore(ModelRepository(), device=device)
         self.core = core
@@ -40,6 +45,7 @@ class InProcessServer:
             register_builtin_models(self.core.repository, device=device)
         self._host = host
         self._http_bind_port = http_port
+        self._drain_timeout_s = drain_timeout_s
         self.http_port: Optional[int] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
@@ -81,6 +87,13 @@ class InProcessServer:
         self._ready.set()
         try:
             await self._stop.wait()
+            # the graceful half before the front-end closes: in-flight and
+            # queued work finishes inside the deadline, the rest fails
+            # with a clean 503, never a cancelled future
+            try:
+                await self.core.drain(self._drain_timeout_s)
+            except Exception:  # noqa: BLE001 - shutdown must proceed
+                pass
         finally:
             await server.close()
             # on the loop, while it runs: an engine model's shutdown fails
@@ -88,12 +101,13 @@ class InProcessServer:
             self.core.close()
 
     def stop(self) -> None:
-        """Close the front-end and its connections, then the core (on the
-        server's loop; again here, idempotently, if it never started)."""
+        """Drain (bounded by the server's ``drain_timeout_s``), then close
+        the front-end and its connections and the core (on the server's
+        loop; again here, idempotently, if it never started)."""
         if self._loop is not None and self._stop is not None:
             self._loop.call_soon_threadsafe(self._stop.set)
         if self._thread is not None:
-            self._thread.join(timeout=30)
+            self._thread.join(timeout=self._drain_timeout_s + 30)
         self.core.close()
 
     def __enter__(self) -> "InProcessServer":

@@ -17,6 +17,8 @@ import torch
 bfloat16 = np.dtype(ml_dtypes.bfloat16)
 
 __all__ = [
+    "KSERVE_TO_TF_DTYPE",
+    "TF_TO_KSERVE_DTYPE",
     "InferenceServerException",
     "bfloat16",
     "deserialize_bf16_tensor",
@@ -158,6 +160,23 @@ def np_to_torch_dtype(np_dtype) -> torch.dtype:
         return _NP_TO_TORCH[np.dtype(np_dtype)]
     except KeyError:
         raise InferenceServerException(f"no torch dtype for {np_dtype}") from None
+
+
+# TensorFlow wire dtype names <-> KServe: one map for the TFS compat
+# front-end (server side) and the tfserving perf backend (client side)
+KSERVE_TO_TF_DTYPE = {
+    "FP32": "DT_FLOAT",
+    "FP64": "DT_DOUBLE",
+    "INT32": "DT_INT32",
+    "INT64": "DT_INT64",
+    "INT16": "DT_INT16",
+    "INT8": "DT_INT8",
+    "UINT8": "DT_UINT8",
+    "UINT16": "DT_UINT16",
+    "BOOL": "DT_BOOL",
+    "BYTES": "DT_STRING",
+}
+TF_TO_KSERVE_DTYPE = {v: k for k, v in KSERVE_TO_TF_DTYPE.items()}
 
 
 def triton_to_np_dtype(dtype: str):

@@ -382,8 +382,13 @@ def test_queue_policy_resolves_as_client_tpu(declared):
         assert ours.priority_of(parameters) == theirs.priority_of(parameters)
         assert ours.timeout_us_of(parameters) == theirs.timeout_us_of(parameters)
         assert ours.deadline_ns(parameters, 1000) == theirs.deadline_ns(parameters, 1000)
-    with pytest.raises(ValueError):
-        QueuePolicy(timeout_action="continue")
+    # "continue" (DELAY) is accepted as the reference accepts it; an
+    # action neither package knows is refused by both
+    assert QueuePolicy(timeout_action="continue").timeout_action == "continue"
+    JaxQueuePolicy(timeout_action="continue")
+    for policy_cls in (QueuePolicy, JaxQueuePolicy):
+        with pytest.raises(ValueError):
+            policy_cls(timeout_action="drop")
 
 
 def test_higher_priority_executes_first():

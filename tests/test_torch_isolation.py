@@ -60,7 +60,11 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.observability.logging",
                  "client_tpu_torch.observability.server",
                  "client_tpu_torch.observability.profiling", "client_tpu_torch.server.metrics",
-                 "client_tpu_torch.perf.metrics_collector")
+                 "client_tpu_torch.perf.metrics_collector",
+                 "client_tpu_torch.scheduling.policy", "client_tpu_torch.scheduling.queue",
+                 "client_tpu_torch.scheduling.rate_limiter", "client_tpu_torch.lifecycle.drain",
+                 "client_tpu_torch.server.compat_frontends",
+                 "client_tpu_torch.server.embedded")
 
 
 def _port_files():
@@ -271,3 +275,31 @@ def test_chip_smoke_alone_exits_nonzero_without_a_result(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_repository_entry_points_raise_without_a_card(no_card, tmp_path):
+    from client_tpu_torch.server.__main__ import main
+    from client_tpu_torch.server.embedded import EmbeddedRunner
+    from client_tpu_torch.server.model_repository import build_repository
+    from client_tpu_torch.utils import InferenceServerException
+
+    model_py = tmp_path / "dir_model" / "model.py"
+    model_py.parent.mkdir()
+    model_py.write_text(
+        "from client_tpu_torch.server.models import IdentityModel\n"
+        "def create_model(device=None):\n"
+        "    return IdentityModel(device=device)\n")
+    for make in (
+        lambda: build_repository(),
+        lambda: build_repository(str(tmp_path), builtin=False),
+        lambda: EmbeddedRunner(),
+        lambda: main(["--http-port", "0", "--no-builtin-models",
+                      "--model-repository", str(tmp_path)]),
+    ):
+        # a directory load reports its failure as the reference does, an
+        # InferenceServerException carrying the cause
+        with pytest.raises((RuntimeError, InferenceServerException), match="no CUDA device"):
+            make()
+    # the CPU is there when asked for: the directory model gets it too
+    repository = build_repository(str(tmp_path), builtin=False, device="cpu")
+    assert repository.get("dir_model").device.type == "cpu"

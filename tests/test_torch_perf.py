@@ -781,15 +781,22 @@ def test_local_backend_profiles_the_ports_core(servers):
         prof = InferenceProfiler(manager, measurement_interval_s=0.1, stability_pct=100.0,
                                  max_trials=3)
         (experiment,) = await prof.profile_concurrency_range(2, 2)
-        errors = []
-        for call in (local.unload_model, local.load_model):
-            with pytest.raises(InferenceServerException, match="item 3c") as info:
-                await call("simple")
-            errors.append(str(info.value))
-        return experiment, errors
+        # repository control through the core: the unload stops the model
+        # at once and drains in the background, the load serves it again
+        index = server.core.repository
+        await local.unload_model("simple")
+        states = [next(e for e in index.index() if e["name"] == "simple")["state"]]
+        with pytest.raises(InferenceServerException, match="not ready"):
+            await local.get_model_config("simple")
+        while next(e for e in index.index() if e["name"] == "simple")["reason"] != "unloaded":
+            await asyncio.sleep(0.01)
+        await local.load_model("simple")
+        states.append(next(e for e in index.index() if e["name"] == "simple")["state"])
+        return experiment, states
 
     future = asyncio.run_coroutine_threadsafe(run(), server._loop)
-    experiment, _ = future.result(60)
+    experiment, states = future.result(60)
+    assert states == ["UNLOADING", "READY"]
     assert experiment.status.request_count > 0 and experiment.status.error_count == 0
     # the profiler read the port's statistics schema: non-zero deltas
     assert experiment.status.server_compute_infer_us > 0
@@ -960,11 +967,8 @@ def test_openai_transport_errors_are_inference_server_exceptions():
 @pytest.mark.parametrize("flags,item", [
     (["-i", "grpc"], "item 4"),
     (["--stream-mode"], "item 4"),
-    (["--service-kind", "tfserving"], "item 3d"),
-    (["--service-kind", "torchserve"], "item 3d"),
     (["--metrics-url", "localhost:8000,localhost:8001"], "item 7"),
-    (["--fleet", "2"], "items 3c and 7"),
-    (["--rolling-restart", "1"], "items 3c and 7"),
+    (["--fleet", "2"], "item 7"),
     (["--world-size", "2"], "item 7"),
 ])
 def test_unported_flags_are_refused(flags, item, capsys):
@@ -1065,6 +1069,9 @@ def test_create_backend_kinds():
     assert isinstance(backend.create_backend("openai", "h:1"), backend.OpenAiPerfBackend)
     with pytest.raises(InferenceServerException, match="requires an in-process ServerCore"):
         backend.create_backend("local")
-    for kind in ("grpc", "tfserving", "torchserve", "nope"):
+    assert isinstance(backend.create_backend("tfserving", "h:1"), backend.TfsPerfBackend)
+    assert isinstance(backend.create_backend("torchserve", "h:1"),
+                      backend.TorchServePerfBackend)
+    for kind in ("grpc", "nope"):
         with pytest.raises(InferenceServerException, match="unknown backend kind"):
             backend.create_backend(kind, "h:1")
