@@ -141,11 +141,33 @@ result line:
    (``drain 11e:``); (f) ``client_tpu_torch.server.embedded.start()`` in
    this process: ``simple`` exact through its binary wire (``embedded
    11f:``).
+12. the KServe v2 gRPC surface (the native front-end, built with ``g++``,
+   and the port's own gRPC clients; no grpcio): (a)-(b), (d) on
+   ``python -m client_tpu_torch.server --grpc-port 0 --model-repository``
+   spawned with the card, serving the built-ins, ``resnet50`` (as 11b) and
+   the ``grpc_hold`` identity: (a) from a client process, the port's sync
+   gRPC client: every RPC answers (health, metadata, config, statistics,
+   repository index / unload / load, system and TPU shm register / status
+   / unregister, CUDA shm status empty, trace and log settings),
+   ``simple`` exact, ``identity_fp32`` at 4 MiB bit-exact inline and
+   through TPU shm, one ResNet-50 image over gRPC bit-equal to the HTTP
+   route's answer (both at batch 1), and the server's statistics book
+   every request (``grpc 12a:``); (b) the harness with ``-i grpc`` beside
+   ``-i http``, ResNet-50 ``-b 1`` c=8 over ``--shared-memory none`` and
+   ``tpu``, three 2 s windows, phase 9's guards (``grpc 12b:``); (d) a
+   request to ``grpc_hold`` held 3 s over gRPC while ``simple`` answers
+   over gRPC the whole time, each under 0.5 s (``grpc 12d:``); (c) inside
+   phase 4, after 11a, the 8 streams of 32 tokens again over
+   ``ModelStreamInfer`` through the port's aio client, equal to phase 4's
+   (or parting at a dense-forward near-tie, as 11a reads them), K1
+   launched 32 x decode steps, and a ninth stream cancelled after two
+   tokens, every KV block back (``grpc 12c:``, TTFT and ITL).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
 """
 
+import asyncio
 import contextlib
 import faulthandler
 import gc
@@ -815,6 +837,7 @@ def serve_7b() -> tuple:
         # 11a reloads the engine: nothing here may keep the old pool alive
         del engine
         lifecycle = lifecycle_7b(port, model, config, [r["tokens"] for r in records])
+        over_grpc = grpc_7b(port, model, config, [r["tokens"] for r in records])
 
     result = latency(records, wall)
     result.update(decode_steps=decode_steps, k1_launches=launches,
@@ -822,6 +845,7 @@ def serve_7b() -> tuple:
     print("serve: " + json.dumps(result) + f" [{card()}]", flush=True)
     result["genai_perf"] = served_by_harness
     result["lifecycle_11a"] = lifecycle
+    result["grpc_12c"] = over_grpc
     params = model._params
     # only one 17 GB pool at a time: drop this engine and its pool
     model.engine = None
@@ -1946,7 +1970,138 @@ def _correctness_task(barrier, url, image):
     yield {"checked": checked, "classifier": logits}
 
 
-CLIENT_TASKS = {"load": _load_task, "correctness": _correctness_task}
+def _grpc_correctness_task(barrier, url, http_url, image, worker=0):
+    """Phase 12a from a client process: every RPC of the service through
+    the port's sync gRPC client; the exact and bit-exact answers; one
+    ResNet-50 image over gRPC against the HTTP route's answer; the
+    server's statistics against the requests sent."""
+    import numpy as np
+
+    import client_tpu_torch.grpc as grpcclient
+    from client_tpu_torch.utils import shared_memory as shm
+    from client_tpu_torch.utils import tpu_shared_memory as tpushm
+
+    barrier.wait(300)
+    t0 = time.perf_counter()
+    client = grpcclient.InferenceServerClient(url)
+    sent = {"simple": 0, "identity_fp32": 0, "resnet50": 0}
+
+    def stats():
+        return {m: int(client.get_inference_statistics(m, as_json=True)["model_stats"][0]
+                       ["inference_stats"]["success"].get("count", 0)) for m in sent}
+
+    def tensor(name, arr, datatype):
+        t = grpcclient.InferInput(name, list(arr.shape), datatype)
+        return t.set_data_from_numpy(arr)
+
+    checks = {}
+    before = stats()
+    if not (client.is_server_live() and client.is_server_ready()
+            and client.is_model_ready("resnet50") and client.is_model_ready("simple")):
+        raise AssertionError("health over gRPC")
+    checks["server"] = client.get_server_metadata(as_json=True)["name"]
+    meta = client.get_model_metadata("resnet50", as_json=True)
+    checks["resnet50_input"] = meta["inputs"][0]["shape"]
+    checks["simple_max_batch"] = client.get_model_config("simple", as_json=True)["config"][
+        "max_batch_size"]
+    index = {e["name"]: e.get("state") for e in
+             client.get_model_repository_index(as_json=True)["models"]}
+    if index.get("resnet50") != "READY" or index.get("grpc_hold") != "READY":
+        raise AssertionError(f"repository index over gRPC: {index}")
+    client.unload_model("identity_bytes")
+    deadline = time.monotonic() + 60
+    while True:
+        unloaded = {e["name"]: e for e in client.get_model_repository_index(
+            as_json=True)["models"]}["identity_bytes"]
+        if unloaded.get("state") == "UNAVAILABLE" or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    client.load_model("identity_bytes")
+    if unloaded.get("state") != "UNAVAILABLE" or not client.is_model_ready("identity_bytes"):
+        raise AssertionError(f"unload / load over gRPC: {unloaded}")
+    # system and TPU regions: register, status, unregister
+    key = _shm_key("g12a")
+    region = shm.create_shared_memory_region(key, key, 64)
+    try:
+        client.register_system_shared_memory(key, key, 64)
+        status = client.get_system_shared_memory_status(key, as_json=True)["regions"]
+        client.unregister_system_shared_memory(key)
+        if status[key]["byte_size"] != "64" or client.get_system_shared_memory_status(
+                as_json=True):
+            raise AssertionError(f"system shm over gRPC: {status}")
+    finally:
+        shm.destroy_shared_memory_region(region)
+    if client.get_cuda_shared_memory_status(as_json=True) != {}:
+        raise AssertionError("CUDA shm status is not empty")
+    trace = client.update_trace_settings(settings={"trace_rate": "7"}, as_json=True)
+    client.update_trace_settings(settings={"trace_rate": None})
+    log = client.get_log_settings(as_json=True)
+    if trace["settings"]["trace_rate"]["value"] != ["7"] or "log_info" not in log["settings"]:
+        raise AssertionError(f"trace / log settings over gRPC: {trace} {log}")
+    # simple exact
+    a = np.arange(16, dtype=np.int32)[None]
+    b = np.full([1, 16], 7, dtype=np.int32)
+    result = client.infer("simple", [tensor("INPUT0", a, "INT32"), tensor("INPUT1", b, "INT32")])
+    sent["simple"] += 1
+    if not (np.array_equal(result.as_numpy("OUTPUT0"), a + b)
+            and np.array_equal(result.as_numpy("OUTPUT1"), a - b)):
+        raise AssertionError("simple over gRPC is not exact")
+    # identity_fp32 at 4 MiB, inline and through TPU regions
+    x = np.random.default_rng(12).normal(size=[1 << 20]).astype(np.float32)
+    result = client.infer("identity_fp32", [tensor("INPUT0", x, "FP32")])
+    sent["identity_fp32"] += 1
+    if result.as_numpy("OUTPUT0").tobytes() != x.tobytes():
+        raise AssertionError("identity_fp32 at 4 MiB over gRPC is not bit-exact")
+    names = [_shm_key("g12a_in"), _shm_key("g12a_out")]
+    regions = [tpushm.create_shared_memory_region(n, x.nbytes) for n in names]
+    try:
+        tpushm.set_shared_memory_region(regions[0], [x])
+        for n, r in zip(names, regions):
+            client.register_tpu_shared_memory(n, tpushm.get_raw_handle(r), 0, x.nbytes)
+        status = client.get_tpu_shared_memory_status(as_json=True)["regions"]
+        inp = grpcclient.InferInput("INPUT0", list(x.shape), "FP32")
+        inp.set_shared_memory(names[0], x.nbytes)
+        out = grpcclient.InferRequestedOutput("OUTPUT0")
+        out.set_shared_memory(names[1], x.nbytes)
+        client.infer("identity_fp32", [inp], outputs=[out])
+        sent["identity_fp32"] += 1
+        got = tpushm.get_contents_as_numpy(regions[1], "FP32", list(x.shape))
+        for n in names:
+            client.unregister_tpu_shared_memory(n)
+        if got.tobytes() != x.tobytes() or sorted(status) != sorted(names) \
+                or client.get_tpu_shared_memory_status(as_json=True):
+            raise AssertionError(f"identity_fp32 through TPU shm over gRPC: {status}")
+    finally:
+        for r in regions:
+            tpushm.destroy_shared_memory_region(r)
+    # one ResNet-50 image over gRPC and over HTTP, both at batch 1
+    result = client.infer("resnet50", [tensor("INPUT", image, "FP32")])
+    sent["resnet50"] += 1
+    over_grpc = result.as_numpy("OUTPUT").astype(np.float32)
+    with client_http.InferenceServerClient(http_url) as http_client:
+        x_http = client_http.InferInput("INPUT", list(image.shape), "FP32")
+        x_http.set_data_from_numpy(image, binary_data=True)
+        over_http = http_client.infer("resnet50", [x_http]).as_numpy("OUTPUT").astype(
+            np.float32)
+    sent["resnet50"] += 1
+    worst = float(np.abs(over_grpc - over_http).max())
+    limit = 0.02 * float(np.abs(over_http).max())
+    if worst > limit or over_grpc.argmax() != over_http.argmax():
+        raise AssertionError(f"ResNet-50 over gRPC: {worst} from HTTP's answer (limit {limit})")
+    if over_grpc.tobytes() != over_http.tobytes():
+        raise AssertionError("ResNet-50 at batch 1 over gRPC is not bit-equal to HTTP's")
+    after = stats()
+    booked = {m: after[m] - before[m] for m in sent}
+    if booked != sent:
+        raise AssertionError(f"the server booked {booked} for {sent} requests")
+    client.close()
+    checks.update(booked=booked, resnet_top1=int(over_grpc.argmax()),
+                  resnet_grpc_vs_http_max_abs=worst, wall_s=time.perf_counter() - t0)
+    yield checks
+
+
+CLIENT_TASKS = {"load": _load_task, "correctness": _correctness_task,
+                "grpc_correctness": _grpc_correctness_task}
 
 
 def run_client_processes(task, arglist, on_round, rounds=1):
@@ -2202,19 +2357,20 @@ def _booked(before, after, field="success"):
             - before["inference_stats"][field]["count"])
 
 
-def perf_run(port, model, args, server_times=True) -> dict:
+def perf_run(port, model, args, server_times=True, url=None) -> dict:
     """One run of the port's perf-analyzer against ``model`` with ``args``:
     its ``--json-summary``, CSV rows and profile export, held to the
     guards (no error, every completed request booked by the server,
     non-zero server queue and compute times in every row, unless
     ``server_times`` is off, no region left registered). The harness's
-    stdout is kept under ``stdout``."""
+    stdout is kept under ``stdout``. ``url`` (default: the HTTP ``port``)
+    is where the harness sends; the guards read the HTTP routes."""
     with tempfile.TemporaryDirectory() as tmp:
         csv_path, export_path = os.path.join(tmp, "out.csv"), os.path.join(tmp, "export.json")
         before = _stats(port, model)
         t0 = time.perf_counter()
         out = _harness("client_tpu_torch.perf", [
-            "-m", model, "-u", f"127.0.0.1:{port}", *HARNESS_WINDOWS, *args,
+            "-m", model, "-u", url or f"127.0.0.1:{port}", *HARNESS_WINDOWS, *args,
             "-f", csv_path, "--profile-export-file", export_path, "--json-summary"])
         wall = time.perf_counter() - t0
         after = _stats(port, model)
@@ -3399,6 +3555,228 @@ def embedded_11f() -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the KServe v2 gRPC surface
+# ---------------------------------------------------------------------------
+
+
+async def _grpc_streams(grpc_port, id_lists, max_tokens, cancel_ids):
+    """The streams of ``id_lists`` at once over ``ModelStreamInfer``
+    through the port's aio client, and one more stream on ``cancel_ids``
+    that the client cancels after its second token. Returns (records,
+    the cancelled stream's tokens, wall seconds)."""
+    import numpy as np
+
+    import client_tpu_torch.grpc.aio as grpc_aio
+
+    client = grpc_aio.InferenceServerClient(f"127.0.0.1:{grpc_port}")
+
+    async def one(ids, n, cancel_after=None):
+        x = grpc_aio.InferInput("INPUT_IDS", [len(ids)], "INT32")
+        x.set_data_from_numpy(np.array(ids, dtype=np.int32))
+
+        async def requests():
+            yield {"model_name": "llm_engine", "inputs": [x], "parameters": {"max_tokens": n}}
+
+        record = {"start": time.perf_counter(), "stamps": [], "tokens": []}
+        iterator = client.stream_infer(requests())
+        async for result, error in iterator:
+            if error is not None:
+                raise AssertionError(f"in-band stream error: {error}")
+            out = result.as_numpy("OUTPUT_IDS")
+            if out is not None and out.size:
+                record["stamps"].append(time.perf_counter())
+                record["tokens"].extend(int(t) for t in out.reshape(-1))
+            if cancel_after is not None and len(record["tokens"]) >= cancel_after:
+                iterator.cancel()
+                break
+            final = result.get_response().parameters.get("triton_final_response")
+            if final is not None and final.bool_param:
+                break
+        return record
+
+    t0 = time.perf_counter()
+    *records, cut = await asyncio.gather(
+        *(one(ids, max_tokens) for ids in id_lists), one(cancel_ids, 256, cancel_after=2))
+    wall = time.perf_counter() - t0
+    await client.close()
+    return records, cut["tokens"], wall
+
+
+def grpc_7b(port, model, config, plain_streams) -> dict:
+    """Phase 12c on phase 4's server, after 11a: the native gRPC
+    front-end on the same ``ServerCore`` and loop, the 8 streams of 32
+    tokens over ``ModelStreamInfer`` through the port's aio client, and a
+    ninth cancelled after two tokens. The streams equal phase 4's (or part
+    at a dense-forward near-tie, 11a's rule), K1 launches 32 x decode
+    steps, and every KV block comes back."""
+    from client_tpu_torch.genai_perf.tokenizer import SyntheticTokenizer
+    from client_tpu_torch.server.native_frontend import NativeGrpcFrontend
+
+    core, loop = SERVING[port]
+    frontend = NativeGrpcFrontend(core, loop)
+    frontend.start("127.0.0.1", 0)
+    tokenizer = SyntheticTokenizer(config.vocab_size)
+    prompts = _prompts()
+    try:
+        engine = model.engine
+        steps0 = engine.steps
+        # -- the path of 12c: K1's counter zeroed just before, read just after --
+        pa.paged_attention_cuda.launches = 0
+        records, cut, wall = asyncio.run(_grpc_streams(
+            frontend.port, [tokenizer.encode(p) for p in prompts], SERVE_TOKENS,
+            tokenizer.encode(prompts[2])))
+        launches = pa.paged_attention_cuda.launches
+        # --------------------------------------------------------------------------
+        steps = engine.steps - steps0
+        deadline = time.monotonic() + 30
+        while engine.allocator.blocks_in_use and time.monotonic() < deadline:
+            time.sleep(0.05)
+        in_use = engine.allocator.blocks_in_use
+        del engine
+    finally:
+        frontend.stop()
+    if in_use:
+        raise AssertionError(f"{in_use} KV blocks in use after the cancelled stream")
+    if launches != config.n_layers * steps:
+        raise AssertionError(f"K1 launched {launches} times for {steps} decode steps x "
+                             f"{config.n_layers} layers")
+    if not 2 <= len(cut) < 256:
+        raise AssertionError(f"the cancelled stream delivered {len(cut)} tokens")
+    ties = []
+    for prompt, want, record in zip(prompts, plain_streams, records):
+        if len(record["tokens"]) != SERVE_TOKENS:
+            raise AssertionError(f"a gRPC stream delivered {len(record['tokens'])} tokens")
+        parted = _same_or_tie(model._params, config, prompt, want, record["tokens"])
+        if parted:
+            ties.append(parted)
+    result = latency(records, wall)
+    result.update(decode_steps=steps, k1_launches=launches, near_ties=ties,
+                  cancelled_stream_tokens=len(cut))
+    print("grpc 12c: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def grpc_hold_12d(grpc_port) -> dict:
+    """12d: one request to ``grpc_hold`` held 3 s on the server over gRPC;
+    meanwhile ``simple`` over gRPC the whole time, each answer under
+    0.5 s (the reference's one pump thread would hold them all)."""
+    import numpy as np
+
+    import client_tpu_torch.grpc as grpcclient
+
+    url = f"127.0.0.1:{grpc_port}"
+    held = {}
+
+    def hold():
+        with grpcclient.InferenceServerClient(url) as client:
+            x = grpcclient.InferInput("INPUT0", [4], "FP32")
+            x.set_data_from_numpy(np.ones([4], np.float32))
+            t0 = time.perf_counter()
+            client.infer("grpc_hold", [x], parameters={"hold_s": 3.0})
+            held["s"] = time.perf_counter() - t0
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    time.sleep(0.3)  # the held request is in flight
+    a = np.arange(16, dtype=np.int32)[None]
+    latencies = []
+    with grpcclient.InferenceServerClient(url) as client:
+        inputs = [grpcclient.InferInput("INPUT0", [1, 16], "INT32").set_data_from_numpy(a),
+                  grpcclient.InferInput("INPUT1", [1, 16], "INT32").set_data_from_numpy(a)]
+        while holder.is_alive():
+            t0 = time.perf_counter()
+            result = client.infer("simple", inputs)
+            latencies.append(time.perf_counter() - t0)
+            if not np.array_equal(result.as_numpy("OUTPUT0"), a + a):
+                raise AssertionError("simple over gRPC is not exact")
+    holder.join()
+    result = {"held_s": held.get("s"), "simple_answers": len(latencies),
+              "simple_ms_max": 1e3 * max(latencies),
+              "simple_ms_p50": 1e3 * percentile(latencies, 0.5)}
+    print("grpc 12d: " + json.dumps(result) + f" [{card()}]", flush=True)
+    if held.get("s", 0) < 3.0 or len(latencies) < 10 or max(latencies) >= 0.5:
+        raise AssertionError(f"head-of-line blocking over gRPC: {result}")
+    return result
+
+
+def grpc_server() -> dict:
+    """Phases 12a, 12b and 12d on ``python -m client_tpu_torch.server
+    --grpc-port 0 --model-repository <dir>``, spawned with the card: the
+    built-ins, ``resnet50`` (ResNet-50's widths, 224 x 224, bf16, seed-0
+    weights) and the ``grpc_hold`` identity. 12a runs in a client process,
+    12b's harness in subprocesses that cannot see the card."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in (("resnet50", RESNET_MODEL_PY.format(extra="")),
+                           ("grpc_hold", HOLD_MODEL_PY)):
+            os.makedirs(os.path.join(tmp, name))
+            with open(os.path.join(tmp, name, "model.py"), "w") as f:
+                f.write(text)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "client_tpu_torch.server", "--model-repository", tmp,
+             "--http-port", "0", "--grpc-port", "0", "--host", "127.0.0.1"], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        log = []
+        reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
+        reader.start()
+        try:
+            ports = {}
+            for line in proc.stdout:
+                match = re.search(r"serving (HTTP|gRPC) on [^:]+:(\d+)", line)
+                if match:
+                    ports[match.group(1)] = int(match.group(2))
+                    if match.group(1) == "gRPC":
+                        if "(native)" not in line:
+                            raise AssertionError(f"the gRPC banner: {line}")
+                        break
+            if "gRPC" not in ports:
+                raise AssertionError(f"the server did not start: {''.join(log)[-2000:]}")
+            threading.Thread(target=lambda: proc.stdout.read(), daemon=True).start()
+            http_port, grpc_port = ports["HTTP"], ports["gRPC"]
+            start_s = time.perf_counter() - t0
+            image = np.random.default_rng(12).normal(size=[1, 224, 224, 3]).astype(np.float32)
+            result = {"server_start_s": start_s}
+
+            def on_round(go):
+                (checks,), seconds = go()
+                result["grpc_12a"] = checks
+
+            run_client_processes("grpc_correctness", [{
+                "url": f"127.0.0.1:{grpc_port}", "http_url": f"127.0.0.1:{http_port}",
+                "image": image}], on_round)
+            print("grpc 12a: " + json.dumps(result["grpc_12a"]) + f" [{card()}]", flush=True)
+            runs = {}
+            for route in ("none", "tpu"):
+                for protocol in ("grpc", "http"):
+                    url = f"127.0.0.1:{grpc_port if protocol == 'grpc' else http_port}"
+                    run = perf_run(http_port, "resnet50", [
+                        "-i", protocol, "-b", "1", "--concurrency-range", "8",
+                        "--shared-memory", route], url=url)
+                    runs[f"{protocol}_{route}"] = {k: run[k] for k in (
+                        "infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
+                        "server_compute_infer_us", "rows_per_execution", "completed")}
+                    print(f"grpc 12b: -i {protocol} --shared-memory {route}: "
+                          + json.dumps(runs[f"{protocol}_{route}"]) + f" [{card()}]",
+                          flush=True)
+            result["grpc_12b"] = runs
+            result["grpc_12d"] = grpc_hold_12d(grpc_port)
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"grpc 12a-12d: {result['wall_s']:.1f} s (the server up in "
+          f"{result['server_start_s']:.1f} s)", flush=True)
+    return result
+
+
 def main() -> int:
     faulthandler.enable()  # a fault in native code prints every thread's stack
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3429,6 +3807,7 @@ def main() -> int:
     builtins_on_card()
     lifecycle_server()
     embedded_11f()
+    grpc_server()
     line = {
         "kernels": [
             {
@@ -3447,6 +3826,7 @@ def main() -> int:
                 "serve_bound_ms": k1["serve_bound_ms"],
                 "serve_library_ms": k1["serve_library_ms"],
                 "lifecycle_11a_launches": served["lifecycle_11a"]["k1_launches"],
+                "grpc_12c_launches": served["grpc_12c"]["k1_launches"],
             },
             {
                 "name": "paged_attention_decode_mq",

@@ -8,9 +8,9 @@ into LLM metrics, and report. Runs the harness in-process rather than
 subprocess-forking a binary (the wrapper builds the same CLI argument list
 the reference would, reference wrapper.py:53-121).
 
-The port's harness speaks OpenAI over HTTP only: the ``kserve-*``
-endpoint types ride gRPC in the JAX package, which the port does not have
-yet, so they are refused (exit code 2) in favour of
+The port's genai-perf speaks OpenAI over HTTP only: the ``kserve-*``
+endpoint types (KServe over gRPC in the JAX package) are not ported yet
+(ROADMAP Queue 1 item 4d), so they are refused (exit code 2) in favour of
 ``--service-kind openai``.
 """
 
@@ -290,9 +290,10 @@ def json_summary_line(metrics, spec_delta: Optional[dict] = None) -> dict:
 
 def fetch_spec_stats(url: str, model: str) -> Optional[dict]:
     """The engine's live speculation counters. The JAX package reads them
-    from the model config over gRPC and returns None for OpenAI runs; the
-    port has no gRPC client yet, so this is always None and the summary
-    is the plain one."""
+    from the model config over gRPC and returns None for OpenAI runs, the
+    only runs the port's genai-perf has (the KServe endpoints wait for
+    ROADMAP Queue 1 item 4d), so this is always None and the summary is
+    the plain one."""
     return None
 
 
@@ -337,8 +338,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not openai:
         print(
             f"error: --service-kind {args.service_kind} with --endpoint-type "
-            f"{args.endpoint_type} rides gRPC, which the port has no client "
-            "for yet (ROADMAP Queue 1 item 4); use --service-kind openai",
+            f"{args.endpoint_type} (the KServe endpoints over gRPC) is not "
+            "ported yet (ROADMAP Queue 1 item 4d); use --service-kind openai",
             file=sys.stderr,
         )
         return 2

@@ -41,6 +41,7 @@ from client_tpu_torch.lifecycle.pool import (
     Endpoint,
     EndpointPool,
     failover_retry_policy,
+    grpc_status_is_endpoint_outage,
     status_is_unavailable,
 )
 from client_tpu_torch.lifecycle.routing import (
@@ -72,6 +73,7 @@ __all__ = [
     "RoutingPolicy",
     "ServerDrainingError",
     "failover_retry_policy",
+    "grpc_status_is_endpoint_outage",
     "hedged_send_async",
     "resolve_hedge_policy",
     "resolve_routing_policy",

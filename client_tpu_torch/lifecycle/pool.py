@@ -1,7 +1,6 @@
 """Client-side endpoint pool: health-aware routing + failover state.
 
-An own copy of ``client_tpu/lifecycle/pool.py`` (without the gRPC-only
-``grpc_status_is_endpoint_outage``).
+An own copy of ``client_tpu/lifecycle/pool.py``.
 
 Every client surface accepts an :class:`EndpointPool` (or ``urls=[...]``)
 wherever a single ``url`` is accepted today. The pool is pure state — it
@@ -50,6 +49,19 @@ def status_is_unavailable(token: Optional[str]) -> bool:
     if not token:
         return False
     return token.rsplit(".", 1)[-1] in UNAVAILABLE_TOKENS
+
+
+def grpc_status_is_endpoint_outage(token: Optional[str]) -> bool:
+    """The unary-gRPC superset of :func:`status_is_unavailable`: a wire
+    ``CANCELLED`` on a unary call means the SERVER cancelled an accepted
+    RPC, the shutdown race a draining replica can lose. A locally
+    cancelled call never produces this token (asyncio raises
+    ``CancelledError``, which is no RpcError), so on the unary paths
+    CANCELLED is an endpoint-level outage signal, routed around like
+    UNAVAILABLE."""
+    if status_is_unavailable(token):
+        return True
+    return bool(token) and token.rsplit(".", 1)[-1] == "CANCELLED"
 
 
 def failover_retry_policy(pool_size: int):

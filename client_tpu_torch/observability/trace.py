@@ -1,11 +1,10 @@
 """Client-side tracing core: spans, W3C trace context, exporters, metrics.
 
-An own copy of ``client_tpu/observability/trace.py`` (without the
-per-attempt wrappers only its gRPC clients call); the ``traceparent``
+An own copy of ``client_tpu/observability/trace.py``; the ``traceparent``
 header is byte-compatible with the JAX package's.
 
 A lightweight, dependency-free tracer the client surfaces
-(``http``, ``http.aio``) use to attribute where
+(``http``, ``http.aio``, ``grpc``, ``grpc.aio``) use to attribute where
 an inference request's time goes: serialize -> send -> wait ->
 deserialize, per transport attempt, annotated with the retry and
 circuit-breaker events the resilience layer performed on the call's
@@ -331,6 +330,12 @@ class _NoopTrace:
     def attempt_index(self) -> int:
         return 0
 
+    def wrap_attempt(self, send, name="request"):
+        return send
+
+    def wrap_attempt_async(self, send, name="request"):
+        return send
+
     def annotate(self, text) -> None:
         pass
 
@@ -432,6 +437,37 @@ class ClientTrace:
         index = self._attempts
         self._attempts += 1
         return index
+
+    def wrap_attempt(self, send: Callable, name: str = "request") -> Callable:
+        """Wrap a sync per-attempt send so each attempt gets its own span
+        (the gRPC clients' transport attempts)."""
+
+        def wrapped(attempt_timeout):
+            span = self.begin_span(name, attempt=self.attempt_index())
+            try:
+                value = send(attempt_timeout)
+            except BaseException as e:
+                self.end_span(span, error=f"{type(e).__name__}: {e}")
+                raise
+            self.end_span(span)
+            return value
+
+        return wrapped
+
+    def wrap_attempt_async(self, send: Callable, name: str = "request") -> Callable:
+        """Async twin of :meth:`wrap_attempt`."""
+
+        async def wrapped(attempt_timeout):
+            span = self.begin_span(name, attempt=self.attempt_index())
+            try:
+                value = await send(attempt_timeout)
+            except BaseException as e:
+                self.end_span(span, error=f"{type(e).__name__}: {e}")
+                raise
+            self.end_span(span)
+            return value
+
+        return wrapped
 
     def annotate(self, text: str) -> None:
         self.root.events.append((self._tracer._clock_ns(), str(text)))

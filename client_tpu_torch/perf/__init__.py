@@ -5,13 +5,14 @@ request-rate, custom-interval, periodic), a measurement engine with
 stability windows, per-request records, CSV and profile-export JSON, and
 a CLI with the reference's flags (``python -m client_tpu_torch.perf``).
 Its backends speak through the port's own clients
-(:mod:`client_tpu_torch.http.aio`, a stdlib-asyncio OpenAI reader) or
-call a :class:`~client_tpu_torch.server.core.ServerCore` in-process. The
-harness never touches the card: it only speaks HTTP and shared memory.
+(:mod:`client_tpu_torch.http.aio`, :mod:`client_tpu_torch.grpc.aio`, the
+stdlib-asyncio REST readers) or call a
+:class:`~client_tpu_torch.server.core.ServerCore` in-process. The harness
+never touches the card: it only speaks HTTP, gRPC and shared memory.
 
-Not ported yet: the gRPC, TensorFlow-Serving and TorchServe backends,
-the ``/metrics`` collector, multi-process runs and in-process fleets;
-the CLI refuses their flags with exit code 2.
+Not ported yet: the multiplexed gRPC stream (``--stream-mode``),
+multi-process runs and in-process fleets; the CLI refuses their flags
+with exit code 2.
 """
 
 from client_tpu_torch.perf.records import (  # noqa: F401

@@ -7,12 +7,11 @@ interface, a backend over the port's HTTP client
 (:mod:`client_tpu_torch.http.aio`), an in-process backend calling a
 :class:`~client_tpu_torch.server.core.ServerCore` directly (measures
 client-overhead-free server performance), a mock backend with injectable
-latency and errors, and the REST backends — OpenAI (SSE streams read
+latency and errors, the REST backends — OpenAI (SSE streams read
 event by event), TensorFlow-Serving and TorchServe — over stdlib asyncio
-streams (the reference's run on aiohttp, which the port does not use).
-
-The gRPC backend is not ported: the port has no gRPC front-end yet
-(ROADMAP Queue 1 item 4).
+streams (the reference's run on aiohttp, which the port does not use), and
+the gRPC backend over the port's gRPC client
+(:mod:`client_tpu_torch.grpc.aio`, on its own h2c transport).
 """
 
 import asyncio
@@ -331,6 +330,171 @@ class HttpPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
             priority=priority,
             timeout=timeout_us,
         )
+
+
+class GrpcPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
+    """The harness over the port's gRPC client
+    (:mod:`client_tpu_torch.grpc.aio`). ``stream_mode`` (the multiplexed
+    persistent stream) is not ported yet (ROADMAP Queue 1 item 4b)."""
+
+    kind = "grpc"
+    supports_streaming = True
+
+    def __init__(
+        self,
+        url: str,
+        retry_policy=None,
+        circuit_breaker=None,
+        tracer=None,
+        logger=None,
+        stream_mode: bool = False,
+        routing_policy=None,
+        hedge_policy=None,
+    ):
+        from client_tpu_torch.grpc import aio as grpcclient
+
+        self._mod = grpcclient
+        self._client = grpcclient.InferenceServerClient(
+            url,
+            retry_policy=retry_policy,
+            circuit_breaker=circuit_breaker,
+            tracer=tracer,
+            logger=logger,
+            stream_mode=stream_mode,
+            routing_policy=routing_policy,
+            hedge_policy=hedge_policy,
+        )
+        self._init_prepared()
+
+    async def close(self) -> None:
+        await self._client.close()
+
+    def endpoint_snapshot(self) -> Optional[Dict]:
+        return self._client.endpoint_snapshot()
+
+    async def get_model_metadata(self, model_name, model_version=""):
+        return await self._client.get_model_metadata(
+            model_name, model_version, as_json=True
+        )
+
+    async def get_model_config(self, model_name, model_version=""):
+        config = await self._client.get_model_config(
+            model_name, model_version, as_json=True
+        )
+        return config.get("config", config)
+
+    async def get_inference_statistics(self, model_name=""):
+        return await self._client.get_inference_statistics(
+            model_name, as_json=True
+        )
+
+    async def unload_model(self, model_name):
+        await self._client.unload_model(model_name)
+
+    async def load_model(self, model_name):
+        await self._client.load_model(model_name)
+
+    def _build_inputs(self, inputs):
+        return [_build_client_input(self._mod, t) for t in inputs]
+
+    async def register_system_shared_memory(self, name, key, byte_size):
+        await self._client.register_system_shared_memory(name, key, byte_size)
+
+    async def unregister_system_shared_memory(self, name=""):
+        await self._client.unregister_system_shared_memory(name)
+
+    async def register_tpu_shared_memory(
+        self, name, raw_handle, device_id, byte_size
+    ):
+        await self._client.register_tpu_shared_memory(
+            name, raw_handle, device_id, byte_size
+        )
+
+    async def unregister_tpu_shared_memory(self, name=""):
+        await self._client.unregister_tpu_shared_memory(name)
+
+    async def infer(
+        self,
+        model_name,
+        inputs,
+        model_version="",
+        request_id="",
+        parameters=None,
+        sequence_id=0,
+        sequence_start=False,
+        sequence_end=False,
+        priority=0,
+        timeout_us=None,
+        cache_token=None,
+    ):
+        if cache_token is not None:
+            request = self._get_or_build_prepared(
+                cache_token,
+                lambda: self._client.prepare_request(
+                    model_name,
+                    self._build_inputs(inputs),
+                    model_version=model_version,
+                    parameters=parameters,
+                    sequence_id=sequence_id,
+                    sequence_start=sequence_start,
+                    sequence_end=sequence_end,
+                    priority=priority,
+                    timeout=timeout_us,
+                ),
+                lambda request: request.ByteSize(),
+            )
+            await self._client.infer_prepared(request)
+            return
+        await self._client.infer(
+            model_name,
+            self._build_inputs(inputs),
+            model_version=model_version,
+            request_id=request_id,
+            parameters=parameters,
+            sequence_id=sequence_id,
+            sequence_start=sequence_start,
+            sequence_end=sequence_end,
+            priority=priority,
+            timeout=timeout_us,
+        )
+
+    async def stream_infer(
+        self,
+        model_name,
+        inputs,
+        on_response,
+        model_version="",
+        request_id="",
+        parameters=None,
+        sequence_id=0,
+        sequence_start=False,
+        sequence_end=False,
+    ):
+        built = self._build_inputs(inputs)
+
+        async def requests():
+            yield {
+                "model_name": model_name,
+                "inputs": built,
+                "model_version": model_version,
+                "request_id": request_id,
+                "parameters": parameters,
+                "sequence_id": sequence_id,
+                "sequence_start": sequence_start,
+                "sequence_end": sequence_end,
+            }
+
+        iterator = self._client.stream_infer(requests())
+        async for result, error in iterator:
+            if error is not None:
+                raise error
+            on_response()
+            params = result.get_response().parameters
+            if (
+                "triton_final_response" in params
+                and params["triton_final_response"].bool_param
+            ):
+                break
 
 
 class LocalPerfBackend(PerfBackend):
@@ -976,6 +1140,8 @@ def create_backend(
     """Factory (reference ClientBackendFactory::Create)."""
     if kind == "http":
         return HttpPerfBackend(url, **kwargs)
+    if kind == "grpc":
+        return GrpcPerfBackend(url, **kwargs)
     if kind == "openai":
         return OpenAiPerfBackend(url, **kwargs)
     if kind == "tfserving":

@@ -65,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--protocol",
         default="http",
         choices=["http", "grpc"],
-        help="service protocol (grpc is refused: not ported yet)",
+        help="service protocol",
     )
     parser.add_argument(
         "--service-kind",
@@ -403,12 +403,9 @@ def refusal(args) -> Optional[str]:
     """The one-line error for a flag whose piece the port lacks, naming
     that piece and its ROADMAP item; None when every flag is served."""
     refused = [
-        (args.protocol == "grpc",
-         "-i grpc: the port has no gRPC front-end or client yet "
-         "(ROADMAP Queue 1 item 4)"),
         (args.stream_mode,
-         "--stream-mode: gRPC streams are not ported yet "
-         "(ROADMAP Queue 1 item 4)"),
+         "--stream-mode: the multiplexed gRPC stream is not ported yet "
+         "(ROADMAP Queue 1 item 4b)"),
         (args.metrics_url is not None and "," in args.metrics_url,
          "--metrics-url with several replicas: the fleet view "
          "(observability/fleet.py) is not ported yet (ROADMAP Queue 1 "
@@ -615,8 +612,7 @@ async def run(args) -> int:
             hint = (f"the {args.service_kind} service kind never supports "
                     "streaming")
         else:
-            hint = (f"the '{args.protocol}' protocol (gRPC streams are not "
-                    "ported yet: ROADMAP Queue 1 item 4)")
+            hint = f"the '{args.protocol}' protocol; use -i grpc"
         print(f"error: --streaming is not supported by {hint}", file=sys.stderr)
         await backend.close()
         return 2

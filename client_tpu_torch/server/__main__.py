@@ -12,6 +12,14 @@ ResNet-18), ``llm_decode`` and ``llm_engine`` (the tiny Llama) and
 keyword when it declares one). Every model runs on ``--device`` (default
 ``cuda``), which is also the device ``/metrics`` reports the memory of.
 
+``--grpc-port`` adds the KServe v2 gRPC service on the native front-end
+(``server/native_frontend.py``; ``--grpc-frontend native`` or ``auto``,
+built with ``g++`` at first use); stdout then says ``serving gRPC on
+host:PORT (native)``. Unlike the reference, which always serves gRPC on
+8001, the port serves it only when asked. ``--grpc-frontend aio`` and the
+TLS flags exit 2: the grpc.aio server stands on grpcio, which the port
+does not import, and TLS is not ported yet.
+
 On SIGTERM or SIGINT the server drains first: ``/v2/health/ready``
 answers 503 while ``/v2/health/live`` stays 200, new inferences get 503 +
 ``Retry-After``, and in-flight and queued work gets ``--drain-timeout``
@@ -32,6 +40,20 @@ def main(argv=None) -> int:
     )
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--http-port", type=int, default=8000)
+    parser.add_argument(
+        "--grpc-port", type=int, default=None,
+        help="serve the KServe v2 gRPC service on this port (0 picks a free "
+        "one); off unless given",
+    )
+    parser.add_argument(
+        "--grpc-frontend", choices=["native", "aio", "auto"], default="auto",
+        help="gRPC front-end: 'native' (the C++ h2 server), 'auto' = native; "
+        "'aio' (grpc.aio) is not ported",
+    )
+    parser.add_argument("--grpc-tls-cert", default=None,
+                        help="PEM certificate chain for gRPC TLS (not ported)")
+    parser.add_argument("--grpc-tls-key", default=None,
+                        help="PEM private key for --grpc-tls-cert (not ported)")
     parser.add_argument(
         "--model-repository",
         default=None,
@@ -68,6 +90,14 @@ def main(argv=None) -> int:
         help="device the models run on; cuda raises when there is no card",
     )
     args = parser.parse_args(argv)
+    if args.grpc_frontend == "aio":
+        parser.error("--grpc-frontend aio: the grpc.aio server "
+                     "(client_tpu/server/grpc_server.py) stands on grpcio, which the "
+                     "port does not import, and is not ported (ROADMAP, "
+                     "\"Not to port\"); use native")
+    if args.grpc_tls_cert or args.grpc_tls_key:
+        parser.error("--grpc-tls-cert/--grpc-tls-key: TLS is not ported yet "
+                     "(ROADMAP Queue 1 item 4c)")
 
     from client_tpu_torch.server.core import ServerCore
     from client_tpu_torch.server.http_server import serve_http
@@ -83,7 +113,16 @@ def main(argv=None) -> int:
     async def serve() -> None:
         server = await serve_http(core, args.host, args.http_port)
         print(f"serving HTTP on {args.host}:{server.port}", flush=True)
-        core.logger.info("server_started", host=args.host, http_port=server.port)
+        grpc_frontend, grpc_port = None, None
+        if args.grpc_port is not None:
+            from client_tpu_torch.server.native_frontend import serve_grpc_native
+
+            grpc_frontend, grpc_port = await serve_grpc_native(core, args.host,
+                                                               args.grpc_port)
+            print(f"serving gRPC on {args.host}:{grpc_port} (native)", flush=True)
+        core.logger.info("server_started", host=args.host, http_port=server.port,
+                         grpc_port=grpc_port,
+                         grpc_frontend="native" if grpc_frontend else None)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -96,6 +135,8 @@ def main(argv=None) -> int:
             # logs drain_started / drain_completed itself
             drained = await core.drain(args.drain_timeout)
             core.logger.info("server_stopping", drained=drained)
+            if grpc_frontend is not None:
+                grpc_frontend.stop()
             await server.close()
             core.close()
 

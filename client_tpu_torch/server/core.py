@@ -44,9 +44,12 @@ acquires, on the event loop; the waiting-room gate of the unbatched and
 decoupled paths; and repository control (:meth:`ServerCore.load_model`,
 :meth:`ServerCore.unload_model`).
 
-Not ported yet: the direct (pump-thread) batch path ``infer_direct``,
-which belongs to the gRPC front-end (ROADMAP Queue 1 item 4), and the
-engine recovery overlay (item 5).
+The native gRPC front-end (``server/native_frontend.py``) runs unary
+requests through :meth:`ServerCore.infer_direct`, synchronously on a
+worker thread of each model: the same grouping into one execution, the
+same census, statistics, metrics and trace stages as the event-loop path.
+
+Not ported yet: the engine recovery overlay (ROADMAP Queue 1 item 5).
 """
 
 import asyncio
@@ -1354,6 +1357,215 @@ class ServerCore:
             self.profiling.account("queue_wait", 0, wall_ns=t1 - t0)
         _trace_stages(request.trace, t0, t1, t2, t3)
         self._record_exemplar(model.name, request, path="single", arrival_ns=t0,
+                              exec_start_ns=t1, infer_end_ns=t2, end_ns=t3, rows=rows)
+        return response
+
+    def infer_direct(self, requests: List[CoreRequest]) -> List[Any]:
+        """Execute a batch of unary requests synchronously on the CALLING
+        thread: no event loop, no futures, no executor hop.
+
+        The native gRPC front-end's path: each model's worker thread runs
+        what arrived for its model here. Compatible requests merge into one
+        execution, as the event-loop batcher would merge them; the requests
+        that queue while a batch executes are the batching window. Returns
+        a list aligned with ``requests``: a CoreResponse on success, the
+        Exception on failure (per-request errors never raise)."""
+        results: List[Any] = [None] * len(requests)
+        arrival_ns = time.monotonic_ns()
+        # key -> (model, meta, [(index, rows, ticket), ...]), ordered by
+        # first arrival so same-signature requests execute in order
+        groups: Dict[Any, Any] = {}
+        model_cache: Dict[Any, Model] = {}
+        admitted: List[str] = []  # the census: all finish before return
+        for idx, request in enumerate(requests):
+            model = None
+            grouped = False
+            try:
+                self._lifecycle_admit(request.model_name, request.trace)
+                admitted.append(request.model_name)
+                key = (request.model_name, request.model_version)
+                model = model_cache.get(key)
+                if model is None:
+                    model = model_cache[key] = self.repository.get(*key)
+                self.metrics.pending_inc(model.name)
+                if model.decoupled:
+                    raise InferenceServerException(
+                        f"model '{model.name}' is decoupled; use streaming inference"
+                    )
+                if model.max_batch_size > 1 and self._has_batch_dim(model, request):
+                    meta = _BatchMeta(model)
+                    rows = meta.validate(request)
+                    ticket = self._admit_single(model, request)
+                    group_key = (model.name, meta.signature(request))
+                    group = groups.get(group_key)
+                    if group is None:
+                        groups[group_key] = (model, meta, [(idx, rows, ticket)])
+                    else:
+                        group[2].append((idx, rows, ticket))
+                    grouped = True  # pending until its chunk executes
+                else:
+                    ticket = self._admit_single(model, request)
+                    results[idx] = self._infer_single_sync(model, request, ticket)
+            except Exception as e:  # noqa: BLE001 - aligned error result
+                # book only models that exist (a client's unknown name must
+                # not grow the statistics); admission rejections booked
+                # themselves
+                if model is not None and not isinstance(e, SchedulingError):
+                    now = time.monotonic_ns()
+                    self._stats_for(model.name).record("fail", now - arrival_ns)
+                    self._log_request_error("request_failed", model.name, e, path="direct")
+                    self._record_exemplar(model.name, request, path="direct",
+                                          status="error", error=str(e),
+                                          arrival_ns=arrival_ns, end_ns=now)
+                results[idx] = e
+            finally:
+                if model is not None and not grouped:
+                    self.metrics.pending_dec(model.name)
+        try:
+            for model, meta, entries in groups.values():
+                chunk: List[Any] = []
+                chunk_rows = 0
+                for entry in entries:
+                    if chunk and chunk_rows + entry[1] > model.max_batch_size:
+                        self._execute_direct_chunk(model, meta, chunk, requests,
+                                                   results, arrival_ns)
+                        chunk, chunk_rows = [], 0
+                    chunk.append(entry)
+                    chunk_rows += entry[1]
+                if chunk:
+                    self._execute_direct_chunk(model, meta, chunk, requests, results,
+                                               arrival_ns)
+        finally:
+            for name in admitted:
+                self.lifecycle.finish(name)
+        return results
+
+    def _execute_direct_chunk(self, model: Model, meta: _BatchMeta, chunk: List[Any],
+                              requests: List[CoreRequest], results: List[Any],
+                              arrival_ns: int) -> None:
+        """One merged execution of the direct path (the synchronous twin of
+        ``_ModelBatcher._execute_batch``). Entries are ``(index, rows,
+        ticket)``; an entry whose queue deadline passed fails first."""
+        stats = self._stats_for(model.name)
+        policy = self._queue_policy(model)
+        live = []
+        for idx, rows, ticket in chunk:
+            if ticket is not None:
+                ticket.started()
+            try:
+                self._check_deadline(model, requests[idx])
+            except SchedulingError as e:  # booked by _check_deadline
+                results[idx] = e
+                self.metrics.pending_dec(model.name)
+                continue
+            live.append((idx, rows))
+        if not live:
+            return
+        resources = policy.rate_resources
+        if resources:
+            self.rate_limiter.acquire_blocking(resources, policy.rate_priority)
+        exec_start = time.monotonic_ns()
+        reqs = [requests[idx] for idx, _rows in live]
+        prof = self.profiling
+        measured = prof.take()
+        n = len(live)
+        try:
+            try:
+                if measured:
+                    prof.account("queue_wait", 0, wall_ns=(exec_start - arrival_ns) * n,
+                                 count=n)
+                    a0 = prof.cpu_now()
+                    merged = meta.merge_inputs(reqs)
+                    prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
+                else:
+                    merged = meta.merge_inputs(reqs)
+                raw = self._execute_measured(model, merged, reqs[0].parameters, measured, n)
+            finally:
+                if resources:
+                    self.rate_limiter.release(resources)
+            infer_end = time.monotonic_ns()
+            self.add_busy_ns(model, infer_end - exec_start)
+            self.metrics.observe_execution(model.name, sum(rows for _idx, rows in live))
+        except Exception as e:  # noqa: BLE001 - fail every request of the chunk
+            self._log_request_error("batch_execution_failed", model.name, e, path="direct")
+            now = time.monotonic_ns()
+            for idx, _rows in live:
+                stats.record("fail", now - arrival_ns)
+                self._record_exemplar(model.name, requests[idx], path="direct",
+                                      status="error", error=str(e), arrival_ns=arrival_ns,
+                                      exec_start_ns=exec_start, end_ns=now)
+                results[idx] = e
+            self.metrics.pending_dec(model.name, n)
+            return
+        offset = 0
+        # the ONE execution is credited to the first request that packages
+        execution_pending = 1
+        for (idx, rows), request in zip(live, reqs):
+            try:
+                sliced = raw if n == 1 else {k: v[offset:offset + rows]
+                                             for k, v in raw.items()}
+                results[idx] = self._package_profiled(model, request, sliced)
+                out_end = time.monotonic_ns()
+                stats.record_success(rows, queue_ns=exec_start - arrival_ns, in_ns=0,
+                                     infer_ns=infer_end - exec_start,
+                                     out_ns=out_end - infer_end,
+                                     executions=execution_pending,
+                                     trace_id=_trace_id_of(request))
+                execution_pending = 0
+                _trace_stages(request.trace, arrival_ns, exec_start, infer_end, out_end)
+                self._record_exemplar(model.name, request, path="direct",
+                                      arrival_ns=arrival_ns, exec_start_ns=exec_start,
+                                      infer_end_ns=infer_end, end_ns=out_end, rows=rows)
+            except Exception as e:  # noqa: BLE001 - per-request packaging
+                self._log_request_error("packaging_failed", model.name, e, path="direct")
+                now = time.monotonic_ns()
+                stats.record("fail", now - arrival_ns)
+                self._record_exemplar(model.name, request, path="direct", status="error",
+                                      error=str(e), arrival_ns=arrival_ns,
+                                      exec_start_ns=exec_start, infer_end_ns=infer_end,
+                                      end_ns=now, rows=rows)
+                results[idx] = e
+            offset += rows
+        self.metrics.pending_dec(model.name, n)
+        if execution_pending:
+            stats.record_execution()
+
+    def _infer_single_sync(self, model: Model, request: CoreRequest,
+                           ticket=None) -> CoreResponse:
+        """Unbatched synchronous execution (the direct-path twin of
+        :meth:`_infer_single`); raises on failure and the caller books the
+        fail (admission rejections book themselves). It runs on a worker
+        thread of the gRPC front-end, not on the shared executor, so a
+        blocking wait for a rate-limiter grant here cannot starve the
+        execution that would release it."""
+        stats = self._stats_for(model.name)
+        policy = self._queue_policy(model)
+        t0 = time.monotonic_ns()
+        resources = policy.rate_resources
+        try:
+            if resources:
+                self.rate_limiter.acquire_blocking(resources, policy.rate_priority)
+            try:
+                t1 = time.monotonic_ns()
+                raw = self._run_single(model, request, ticket)
+            finally:
+                if resources:
+                    self.rate_limiter.release(resources)
+            t2 = time.monotonic_ns()
+            response = self._package_profiled(model, request, raw)
+            t3 = time.monotonic_ns()
+        finally:
+            if ticket is not None:
+                ticket.close()
+        self.add_busy_ns(model, t2 - t1)
+        rows = self._resolve_batch(model, request)
+        self.metrics.observe_execution(model.name, rows)
+        stats.record_success(rows, queue_ns=t1 - t0, in_ns=0, infer_ns=t2 - t1,
+                             out_ns=t3 - t2, trace_id=_trace_id_of(request))
+        if self.profiling.take():
+            self.profiling.account("queue_wait", 0, wall_ns=t1 - t0)
+        _trace_stages(request.trace, t0, t1, t2, t3)
+        self._record_exemplar(model.name, request, path="direct", arrival_ns=t0,
                               exec_start_ns=t1, infer_end_ns=t2, end_ns=t3, rows=rows)
         return response
 

@@ -3,11 +3,13 @@
 The port's twin of ``client_tpu/testing/inprocess.py``: the port's
 :class:`~client_tpu_torch.server.core.ServerCore` and HTTP front-end on a
 thread of their own, so a test or a benchmark drives the full client /
-server path without a separate server process. The port has no gRPC
-front-end yet. :meth:`InProcessServer.stop` drains first, as the
-reference's does: readiness flips false, in-flight and queued work
-finishes inside the drain deadline, and only then do the front-end and
-the core close.
+server path without a separate server process. ``grpc=True`` (or
+``"native"``) adds the native gRPC front-end, as the reference's does;
+unlike the reference, gRPC is off by default, and ``"aio"`` (the grpc.aio
+server, on grpcio, which the port does not import) is refused. :meth:`InProcessServer.stop`
+drains first, as the reference's does: readiness flips false, in-flight
+and queued work finishes inside the drain deadline, and only then do the
+front-ends and the core close.
 """
 
 import asyncio
@@ -19,7 +21,8 @@ from client_tpu_torch.server.model_repository import ModelRepository
 
 
 class InProcessServer:
-    """Starts the HTTP front-end over one ServerCore in a thread."""
+    """Starts the HTTP (and optionally the gRPC) front-end over one
+    ServerCore in a thread."""
 
     def __init__(
         self,
@@ -29,13 +32,22 @@ class InProcessServer:
         http_port: int = 0,
         device=None,
         drain_timeout_s: float = 5.0,
+        grpc=False,
+        grpc_port: int = 0,
     ):
         """``builtin_models`` installs the built-in models on ``device``
         (``cuda`` unless the caller passes ``"cpu"``; with no card the
         default raises), which is also the device of the core made here.
         ``http_port`` 0 takes any free port; a restarted server passes
         its predecessor's so it comes back at the same address.
-        ``drain_timeout_s`` bounds the graceful half of :meth:`stop`."""
+        ``drain_timeout_s`` bounds the graceful half of :meth:`stop`.
+        ``grpc`` True or ``"native"`` starts the native gRPC front-end on
+        ``grpc_port`` (0: any free port)."""
+        if grpc == "aio":
+            raise ValueError("the grpc.aio server stands on grpcio and is not ported; "
+                             "use grpc='native'")
+        if grpc not in (True, False, "native"):
+            raise ValueError(f"grpc must be True, False or 'native', not {grpc!r}")
         if core is None:
             core = ServerCore(ModelRepository(), device=device)
         self.core = core
@@ -45,6 +57,9 @@ class InProcessServer:
             register_builtin_models(self.core.repository, device=device)
         self._host = host
         self._http_bind_port = http_port
+        self.grpc_impl: Optional[str] = "native" if grpc else None
+        self._grpc_bind_port = grpc_port
+        self.grpc_port: Optional[int] = None
         self._drain_timeout_s = drain_timeout_s
         self.http_port: Optional[int] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -84,6 +99,16 @@ class InProcessServer:
         self._stop = asyncio.Event()
         server = await serve_http(self.core, self._host, self._http_bind_port)
         self.http_port = server.port
+        grpc_frontend = None
+        try:
+            if self.grpc_impl:
+                from client_tpu_torch.server.native_frontend import serve_grpc_native
+
+                grpc_frontend, self.grpc_port = await serve_grpc_native(
+                    self.core, self._host, self._grpc_bind_port)
+        except BaseException:
+            await server.close()
+            raise
         self._ready.set()
         try:
             await self._stop.wait()
@@ -95,6 +120,8 @@ class InProcessServer:
             except Exception:  # noqa: BLE001 - shutdown must proceed
                 pass
         finally:
+            if grpc_frontend is not None:
+                grpc_frontend.stop()
             await server.close()
             # on the loop, while it runs: an engine model's shutdown fails
             # its live streams through queues bound to this loop
@@ -121,3 +148,7 @@ class InProcessServer:
     @property
     def http_url(self) -> str:
         return f"{self._host}:{self.http_port}"
+
+    @property
+    def grpc_url(self) -> str:
+        return f"{self._host}:{self.grpc_port}"

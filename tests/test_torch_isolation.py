@@ -2,11 +2,12 @@
 
 - An AST scan of ``client_tpu_torch/``, ``chip_smoke.py`` and
   ``attention_bench.py`` (which ``chip_smoke.py`` imports) finds no
-  import of ``jax``, ``flax``, ``optax``, ``aiohttp``, ``grpc`` or
-  ``client_tpu``.
-- A subprocess in which importing ``jax``, ``aiohttp``, ``grpc`` or
-  ``client_tpu`` fails imports every module of the port (the perf
-  harness's CLI and genai-perf's among them).
+  import of ``jax``, ``flax``, ``optax``, ``aiohttp``, ``grpc``,
+  ``google`` (protobuf) or ``client_tpu``.
+- A subprocess in which importing ``jax``, ``aiohttp``, ``grpc``,
+  ``google`` or ``client_tpu`` fails imports every module of the port
+  (the perf harness's CLI, genai-perf's and the gRPC client and server
+  among them).
 - On a host with no card, an entry point called without
   ``device="cpu"`` (the LLM engine, the text encoder, the image
   classifier, the built-in models, ``llm_decode``, the server's device
@@ -30,7 +31,7 @@ from client_tpu_torch.utils import bfloat16, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "client_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aiohttp", "grpc", "client_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aiohttp", "grpc", "google", "client_tpu")
 # modules of the latest slices, named so that a scan that missed them fails
 SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm",
                  "client_tpu_torch.utils.shared_memory",
@@ -64,7 +65,15 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.scheduling.policy", "client_tpu_torch.scheduling.queue",
                  "client_tpu_torch.scheduling.rate_limiter", "client_tpu_torch.lifecycle.drain",
                  "client_tpu_torch.server.compat_frontends",
-                 "client_tpu_torch.server.embedded")
+                 "client_tpu_torch.server.embedded", "client_tpu_torch.grpc",
+                 "client_tpu_torch.grpc.aio", "client_tpu_torch.grpc._proto",
+                 "client_tpu_torch.grpc._h2", "client_tpu_torch.grpc._wire",
+                 "client_tpu_torch.grpc._utils", "client_tpu_torch.grpc._service_stubs",
+                 "client_tpu_torch.grpc._infer_stream",
+                 "client_tpu_torch.grpc._generated.grpc_service_pb2",
+                 "client_tpu_torch.grpc._generated.model_config_pb2",
+                 "client_tpu_torch.server._grpc_codec", "client_tpu_torch.server.native_frontend",
+                 "client_tpu_torch.frontend_build")
 
 
 def _port_files():

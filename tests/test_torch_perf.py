@@ -965,7 +965,7 @@ def test_openai_transport_errors_are_inference_server_exceptions():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-i", "grpc"], "item 4"),
+    (["-i", "grpc", "--stream-mode"], "item 4"),
     (["--stream-mode"], "item 4"),
     (["--metrics-url", "localhost:8000,localhost:8001"], "item 7"),
     (["--fleet", "2"], "item 7"),
@@ -1072,6 +1072,6 @@ def test_create_backend_kinds():
     assert isinstance(backend.create_backend("tfserving", "h:1"), backend.TfsPerfBackend)
     assert isinstance(backend.create_backend("torchserve", "h:1"),
                       backend.TorchServePerfBackend)
-    for kind in ("grpc", "nope"):
-        with pytest.raises(InferenceServerException, match="unknown backend kind"):
-            backend.create_backend(kind, "h:1")
+    assert isinstance(backend.create_backend("grpc", "h:1"), backend.GrpcPerfBackend)
+    with pytest.raises(InferenceServerException, match="unknown backend kind"):
+        backend.create_backend("nope", "h:1")
