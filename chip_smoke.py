@@ -162,6 +162,35 @@ result line:
    (or parting at a dense-forward near-tie, as 11a reads them), K1
    launched 32 x decode steps, and a ninth stream cancelled after two
    tokens, every KV block back (``grpc 12c:``, TTFT and ITL).
+13. the rest of the gRPC surface: the multiplexed persistent stream
+   (``stream_mode=True``), TLS on both sides (the front-end's listener
+   through ``libssl.so.3``, ALPN h2; the clients' stdlib ``ssl``) and
+   genai-perf's KServe endpoints: (a)-(b) beside phase 12 on its spawned
+   server and on a second one spawned with ``--grpc-tls-cert/key`` (a
+   throwaway certificate from the ``openssl`` CLI): (a) from a client
+   process, the sync and aio clients in stream mode give ``simple``,
+   ``identity_fp32`` at 4 MiB and one ResNet-50 image bit-equal to unary,
+   in plaintext and over TLS, and sixteen ``simple`` requests behind one
+   held 3 s on ``grpc_hold`` on the shared stream all answer first, each
+   under 0.5 s (``grpc 13a:``); (b) the harness with ``-i grpc
+   --stream-mode`` over none and TPU shm beside 12b's unary rows, and
+   unary inline over TLS (``--ssl-grpc-root-certifications-file``), each
+   ResNet-50 ``-b 1`` c=8, three 2 s windows, phase 9's guards (``grpc
+   13b:``); then the TLS server is killed under a request held on the
+   stream, which must fail with a retryable status inside 10 s; (c)
+   inside phase 4, after 12c, genai-perf ``--service-kind triton
+   --endpoint-type kserve-ids --streaming`` over gRPC with 9d's traffic
+   (8 streams, 16 prompts, 32 tokens), every request 32 token events, K1
+   launched exactly 32 x decode steps (``genai 13c:``, beside 9d); (d)
+   after phase 5, the same with ``--speculation on`` against an engine on
+   phase 4's weights whose draft is their first layer (K = 4), since
+   phase 5's n-gram proposer finds little to copy in random-weight
+   streams (genai-perf in this process, so that its two readings of the
+   speculation counters fall on an idle engine): the JSON summary's
+   speculation delta equals the engine's own counter deltas, its counters
+   read over gRPC equal the engine's, at least half the steps and one per
+   request are verify steps, and K2 launched >= 32 x verify steps
+   (``genai 13d:``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -169,6 +198,7 @@ object; the line before them lists every kernel with its numbers.
 
 import asyncio
 import contextlib
+import dataclasses
 import faulthandler
 import gc
 import http.client
@@ -781,9 +811,9 @@ def latency(records, wall) -> dict:
 
 
 SERVE_TOKENS = 32
-# random weights rarely repeat a token of the context within 32 tokens, so
-# an n-gram proposal is rare that early; 128 tokens a stream make verify
-# steps all but certain (a stream's greedy tokens fall into cycles)
+# random weights rarely repeat a token of the context, so n-gram proposals
+# are rare: 128 tokens a stream give phase 5 a few verify steps (it asks
+# for one); 13d drafts with a model instead
 SPEC_SERVE_TOKENS = 128
 
 
@@ -838,6 +868,7 @@ def serve_7b() -> tuple:
         del engine
         lifecycle = lifecycle_7b(port, model, config, [r["tokens"] for r in records])
         over_grpc = grpc_7b(port, model, config, [r["tokens"] for r in records])
+        kserve_grpc = genai_grpc_13c(port, model, config, served_by_harness)
 
     result = latency(records, wall)
     result.update(decode_steps=decode_steps, k1_launches=launches,
@@ -846,6 +877,7 @@ def serve_7b() -> tuple:
     result["genai_perf"] = served_by_harness
     result["lifecycle_11a"] = lifecycle
     result["grpc_12c"] = over_grpc
+    result["genai_13c"] = kserve_grpc
     params = model._params
     # only one 17 GB pool at a time: drop this engine and its pool
     model.engine = None
@@ -896,6 +928,7 @@ def serve_7b_speculative(params, plain_streams) -> dict:
             raise AssertionError(f"{engine.allocator.blocks_in_use} KV blocks leaked")
         profile_step(engine, [len(p.split()) + SERVE_TOKENS for p in _prompts()],
                      rows=spec["k"] + 1)
+        del engine
 
     streams = [r["tokens"][:len(b)] for r, b in zip(records, plain_streams)]
     same = [a == b for a, b in zip(streams, plain_streams)]
@@ -2100,8 +2133,136 @@ def _grpc_correctness_task(barrier, url, http_url, image, worker=0):
     yield checks
 
 
+def _grpc_mux_task(barrier, plain_url, tls_url, roots, image, worker=0):
+    """Phase 13a from a client process: the port's sync and aio gRPC
+    clients in stream mode against unary, in plaintext and over TLS
+    (``simple``, ``identity_fp32`` at 4 MiB, one ResNet-50 image, each
+    bit-equal), sixteen 4 MiB identities in turn each way (p50 ms and
+    MiB/s: what TLS costs the payload), then sixteen ``simple`` requests behind one held 3 s on
+    the shared stream (sync, then aio): every one answers before the
+    held one, each under 0.5 s."""
+    import numpy as np
+
+    import client_tpu_torch.grpc as grpcclient
+    import client_tpu_torch.grpc.aio as grpcaio
+
+    barrier.wait(300)
+    t0 = time.perf_counter()
+    big = np.random.default_rng(13).normal(size=[1 << 20]).astype(np.float32)
+    a = np.arange(16, dtype=np.int32)[None]
+    ones = np.ones([4], np.float32)
+
+    def tensor(mod, name, arr, datatype):
+        return mod.InferInput(name, list(arr.shape), datatype).set_data_from_numpy(arr)
+
+    def requests(mod):
+        return {"simple": ("simple", [tensor(mod, "INPUT0", a, "INT32"),
+                                      tensor(mod, "INPUT1", a, "INT32")]),
+                "identity_4mib": ("identity_fp32", [tensor(mod, "INPUT0", big, "FP32")]),
+                "resnet50": ("resnet50", [tensor(mod, "INPUT", image, "FP32")])}
+
+    def answers(results):
+        return {key: sorted((out.name, result.as_numpy(out.name).tobytes())
+                            for out in result.get_response().outputs)
+                for key, result in results.items()}
+
+    async def aio_answers(url, tls, stream_mode):
+        client = grpcaio.InferenceServerClient(url, stream_mode=stream_mode, **tls)
+        try:
+            return answers({key: await client.infer(model, inputs)
+                            for key, (model, inputs) in requests(grpcaio).items()})
+        finally:
+            await client.close()
+
+    checks = {}
+    for label, url, tls in (("plain", plain_url, {}),
+                            ("tls", tls_url, {"ssl": True, "root_certificates": roots})):
+        got = {}
+        for mode in (False, True):
+            with grpcclient.InferenceServerClient(url, stream_mode=mode, **tls) as client:
+                got[f"sync_{mode}"] = answers({
+                    key: client.infer(model, inputs)
+                    for key, (model, inputs) in requests(grpcclient).items()})
+            got[f"aio_{mode}"] = asyncio.run(aio_answers(url, tls, mode))
+        first = got["sync_False"]
+        if first["simple"] != [("OUTPUT0", (a + a).tobytes()), ("OUTPUT1", (a - a).tobytes())]:
+            raise AssertionError(f"{label}: simple is not exact")
+        if first["identity_4mib"] != [("OUTPUT0", big.tobytes())]:
+            raise AssertionError(f"{label}: identity_fp32 at 4 MiB is not bit-exact")
+        differ = [key for key, value in got.items() if value != first]
+        if differ:
+            raise AssertionError(f"{label}: {differ} differ from the sync client's unary answers")
+        checks[f"{label}_bit_equal"] = sorted(got)
+        # what TLS costs a 4 MiB inline round trip: 16 in turn, unary
+        with grpcclient.InferenceServerClient(url, **tls) as client:
+            model, inputs = requests(grpcclient)["identity_4mib"]
+            client.infer(model, inputs)
+            times = []
+            for _ in range(16):
+                t = time.perf_counter()
+                client.infer(model, inputs)
+                times.append(time.perf_counter() - t)
+        checks[f"{label}_4mib_ms_p50"] = 1e3 * percentile(times, 0.5)
+        checks[f"{label}_4mib_mib_s"] = 4 * len(times) / sum(times)
+
+    def held_first(done, label):
+        order = [name for name, _ in done]
+        quick = [seconds for name, seconds in done if name != "held"]
+        held = dict(done).get("held", 0.0)
+        if order[-1] != "held" or len(quick) != 16 or held < 3.0 or max(quick) >= 0.5:
+            raise AssertionError(f"{label}: not answered out of order behind the hold: {done}")
+        checks[f"{label}_held_s"] = held
+        checks[f"{label}_behind_ms_max"] = 1e3 * max(quick)
+
+    simple = requests(grpcclient)["simple"][1]
+    with grpcclient.InferenceServerClient(plain_url, stream_mode=True) as client:
+        client.infer("simple", simple)  # the stream is open
+        done = []
+
+        def one(name, model, inputs, **kwargs):
+            t = time.perf_counter()
+            client.infer(model, inputs, **kwargs)
+            done.append((name, time.perf_counter() - t))
+
+        holder = threading.Thread(target=one, args=(
+            "held", "grpc_hold", [tensor(grpcclient, "INPUT0", ones, "FP32")]),
+            kwargs={"parameters": {"hold_s": 3.0}})
+        holder.start()
+        time.sleep(0.3)
+        quick = [threading.Thread(target=one, args=(f"q{i}", "simple", simple))
+                 for i in range(16)]
+        for thread in quick:
+            thread.start()
+        for thread in quick + [holder]:
+            thread.join(30)
+    held_first(done, "sync")
+
+    async def aio_held():
+        client = grpcaio.InferenceServerClient(plain_url, stream_mode=True)
+        inputs = requests(grpcaio)["simple"][1]
+        await client.infer("simple", inputs)
+        done = []
+
+        async def one(name, model, inputs, **kwargs):
+            t = time.perf_counter()
+            await client.infer(model, inputs, **kwargs)
+            done.append((name, time.perf_counter() - t))
+
+        held = asyncio.ensure_future(one("held", "grpc_hold",
+                                         [tensor(grpcaio, "INPUT0", ones, "FP32")],
+                                         parameters={"hold_s": 3.0}))
+        await asyncio.sleep(0.3)
+        await asyncio.gather(held, *(one(f"q{i}", "simple", inputs) for i in range(16)))
+        await client.close()
+        return done
+
+    held_first(asyncio.run(aio_held()), "aio")
+    checks["wall_s"] = time.perf_counter() - t0
+    yield checks
+
+
 CLIENT_TASKS = {"load": _load_task, "correctness": _correctness_task,
-                "grpc_correctness": _grpc_correctness_task}
+                "grpc_correctness": _grpc_correctness_task, "grpc_mux": _grpc_mux_task}
 
 
 def run_client_processes(task, arglist, on_round, rounds=1):
@@ -3481,24 +3642,10 @@ def lifecycle_server() -> dict:
             os.makedirs(os.path.join(tmp, name))
             with open(os.path.join(tmp, name, "model.py"), "w") as f:
                 f.write(text)
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "client_tpu_torch.server", "--no-builtin-models",
-             "--model-repository", tmp, "--drain-timeout", "20", "--http-port", "0",
-             "--host", "127.0.0.1"], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        log = []
-        reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
-        reader.start()
+        proc, started, log, reader = spawn_server(
+            "--no-builtin-models", "--model-repository", tmp, "--drain-timeout", "20")
         try:
-            port = None
-            for line in proc.stdout:
-                match = re.search(r"serving HTTP on [^:]+:(\d+)", line)
-                if match:
-                    port = int(match.group(1))
-                    break
-            if port is None:
-                raise AssertionError(f"the server did not start: {''.join(log)[-2000:]}")
-            threading.Thread(target=lambda: proc.stdout.read(), daemon=True).start()
+            port = started["http_port"]
             if _http(port, "/v2/health/ready")[0] != 200:
                 raise AssertionError("the spawned server is not ready")
             start_s = time.perf_counter() - t0
@@ -3621,23 +3768,21 @@ def grpc_7b(port, model, config, plain_streams) -> dict:
     try:
         engine = model.engine
         steps0 = engine.steps
-        # -- the path of 12c: K1's counter zeroed just before, read just after --
+        # -- the path of 12c: K1's counter zeroed just before, read once idle --
         pa.paged_attention_cuda.launches = 0
         records, cut, wall = asyncio.run(_grpc_streams(
             frontend.port, [tokenizer.encode(p) for p in prompts], SERVE_TOKENS,
             tokenizer.encode(prompts[2])))
+        # the cancelled stream may still be mid-step: counting then would
+        # split a step's 32 launches from its step count. Every KV block
+        # must come back (a fault otherwise).
+        _wait_idle(engine, timeout_s=30)
         launches = pa.paged_attention_cuda.launches
         # --------------------------------------------------------------------------
         steps = engine.steps - steps0
-        deadline = time.monotonic() + 30
-        while engine.allocator.blocks_in_use and time.monotonic() < deadline:
-            time.sleep(0.05)
-        in_use = engine.allocator.blocks_in_use
         del engine
     finally:
         frontend.stop()
-    if in_use:
-        raise AssertionError(f"{in_use} KV blocks in use after the cancelled stream")
     if launches != config.n_layers * steps:
         raise AssertionError(f"K1 launched {launches} times for {steps} decode steps x "
                              f"{config.n_layers} layers")
@@ -3715,27 +3860,11 @@ def grpc_server() -> dict:
             os.makedirs(os.path.join(tmp, name))
             with open(os.path.join(tmp, name, "model.py"), "w") as f:
                 f.write(text)
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "client_tpu_torch.server", "--model-repository", tmp,
-             "--http-port", "0", "--grpc-port", "0", "--host", "127.0.0.1"], cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        log = []
-        reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
-        reader.start()
+        proc, started, log, _ = spawn_server("--model-repository", tmp, "--grpc-port", "0")
         try:
-            ports = {}
-            for line in proc.stdout:
-                match = re.search(r"serving (HTTP|gRPC) on [^:]+:(\d+)", line)
-                if match:
-                    ports[match.group(1)] = int(match.group(2))
-                    if match.group(1) == "gRPC":
-                        if "(native)" not in line:
-                            raise AssertionError(f"the gRPC banner: {line}")
-                        break
-            if "gRPC" not in ports:
-                raise AssertionError(f"the server did not start: {''.join(log)[-2000:]}")
-            threading.Thread(target=lambda: proc.stdout.read(), daemon=True).start()
-            http_port, grpc_port = ports["HTTP"], ports["gRPC"]
+            if started["grpc_frontend"] != "native":
+                raise AssertionError(f"the gRPC front-end: {started}")
+            http_port, grpc_port = started["http_port"], started["grpc_port"]
             start_s = time.perf_counter() - t0
             image = np.random.default_rng(12).normal(size=[1, 224, 224, 3]).astype(np.float32)
             result = {"server_start_s": start_s}
@@ -3763,6 +3892,7 @@ def grpc_server() -> dict:
                           flush=True)
             result["grpc_12b"] = runs
             result["grpc_12d"] = grpc_hold_12d(grpc_port)
+            result["grpc_13"] = grpc_13(tmp, http_port, grpc_port, image, runs)
         finally:
             if proc.poll() is None:
                 proc.terminate()
@@ -3775,6 +3905,335 @@ def grpc_server() -> dict:
     print(f"grpc 12a-12d: {result['wall_s']:.1f} s (the server up in "
           f"{result['server_start_s']:.1f} s)", flush=True)
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multiplexed stream, TLS, genai-perf's KServe endpoints
+# ---------------------------------------------------------------------------
+
+
+def tls_pair(directory) -> tuple:
+    """A throwaway self-signed certificate and key (CN=localhost, SAN
+    127.0.0.1) made with the ``openssl`` CLI, as the reference's TLS test
+    makes its pair."""
+    cert, key = os.path.join(directory, "cert.pem"), os.path.join(directory, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout", key,
+                    "-out", cert, "-days", "2", "-nodes", "-subj", "/CN=localhost",
+                    "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+def spawn_server(*flags) -> tuple:
+    """``python -m client_tpu_torch.server`` with the card and ``flags``;
+    returns (process, its ``server_started`` record, its log lines, the
+    thread that goes on appending to them), read from the structured log
+    on stderr, where the server announces itself. A server that exits
+    before it starts fails the run with its log."""
+    proc = subprocess.Popen([sys.executable, "-m", "client_tpu_torch.server", "--http-port",
+                             "0", "--host", "127.0.0.1", *flags], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    log = []
+    for line in proc.stderr:
+        log.append(line)
+        if '"server_started"' in line:
+            started = json.loads(line)
+            reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
+            reader.start()
+            return proc, started, log, reader
+    proc.wait()
+    raise AssertionError(f"the server exited {proc.returncode} before it started: "
+                         f"{''.join(log)[-2000:]}")
+
+
+def grpc_13(repository, http_port, grpc_port, image, unary) -> dict:
+    """Phases 13a-13b beside phase 12 on its server, and on a second one
+    spawned over ``repository`` with ``--grpc-tls-cert/key``; then the TLS
+    server is killed under a request held on a multiplexed stream."""
+    import numpy as np
+
+    import client_tpu_torch.grpc as grpcclient
+    from client_tpu_torch.resilience.policy import exception_is_retryable
+    from client_tpu_torch.utils import InferenceServerException
+
+    t0 = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as certs:
+        cert, key = tls_pair(certs)
+        proc, started, _, _ = spawn_server("--model-repository", repository, "--grpc-port",
+                                           "0", "--grpc-tls-cert", cert, "--grpc-tls-key", key)
+        try:
+            tls_http, tls_grpc = started["http_port"], started["grpc_port"]
+            result["tls_server_start_s"] = time.perf_counter() - t0
+            plain_url, tls_url = f"127.0.0.1:{grpc_port}", f"127.0.0.1:{tls_grpc}"
+            try:  # the TLS port refuses plaintext
+                with grpcclient.InferenceServerClient(tls_url) as client:
+                    client.is_server_live(client_timeout=5)
+                raise AssertionError("the TLS port answered a plaintext client")
+            except InferenceServerException:
+                pass
+
+            def on_round(go):
+                (checks,), seconds = go()
+                result["grpc_13a"] = checks
+
+            run_client_processes("grpc_mux", [{"plain_url": plain_url, "tls_url": tls_url,
+                                               "roots": cert, "image": image}], on_round)
+            print("grpc 13a: " + json.dumps(result["grpc_13a"]) + f" [{card()}]", flush=True)
+            rows = {}
+            keys = ("infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
+                    "server_compute_infer_us", "rows_per_execution", "completed")
+            for route in ("none", "tpu"):
+                run = perf_run(http_port, "resnet50", [
+                    "-i", "grpc", "--stream-mode", "-b", "1", "--concurrency-range", "8",
+                    "--shared-memory", route], url=plain_url)
+                rows[f"stream_mode_{route}"] = {k: run[k] for k in keys}
+                print(f"grpc 13b: -i grpc --stream-mode --shared-memory {route}: "
+                      + json.dumps(rows[f"stream_mode_{route}"]) + f" (12b unary: "
+                      + json.dumps(unary[f"grpc_{route}"]) + f") [{card()}]", flush=True)
+            run = perf_run(tls_http, "resnet50", [
+                "-i", "grpc", "-b", "1", "--concurrency-range", "8", "--shared-memory", "none",
+                "--ssl-grpc-root-certifications-file", cert], url=tls_url)
+            rows["tls_none"] = {k: run[k] for k in keys}
+            print("grpc 13b: -i grpc over TLS --shared-memory none: "
+                  + json.dumps(rows["tls_none"]) + " (12b plaintext unary: "
+                  + json.dumps(unary["grpc_none"]) + f") [{card()}]", flush=True)
+            result["grpc_13b"] = rows
+
+            # a server killed under the stream: the held request fails,
+            # retryably, and nothing hangs
+            outcome = {}
+            client = grpcclient.InferenceServerClient(tls_url, stream_mode=True, ssl=True,
+                                                      root_certificates=cert)
+            ones = grpcclient.InferInput("INPUT0", [4], "FP32").set_data_from_numpy(
+                np.ones([4], np.float32))
+            client.infer("grpc_hold", [ones])
+
+            def held():
+                t = time.perf_counter()
+                try:
+                    client.infer("grpc_hold", [ones], parameters={"hold_s": 5.0})
+                except InferenceServerException as e:
+                    outcome["error"] = e
+                outcome["s"] = time.perf_counter() - t
+
+            thread = threading.Thread(target=held)
+            thread.start()
+            time.sleep(0.5)
+            proc.kill()
+            proc.wait(30)
+            thread.join(20)
+            client.close()
+            error = outcome.get("error")
+            if thread.is_alive() or error is None or not exception_is_retryable(error):
+                raise AssertionError(f"a server killed under the stream: {outcome}")
+            result["killed_under_stream"] = {"status": error.status(), "s": outcome["s"]}
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"grpc 13a-13b: {result['wall_s']:.1f} s (the TLS server up in "
+          f"{result['tls_server_start_s']:.1f} s; killed under the stream: "
+          f"{json.dumps(result['killed_under_stream'])})", flush=True)
+    return result
+
+
+def _wait_idle(engine, timeout_s: float = 120.0) -> None:
+    """Until no KV block is in use and no step has run for 0.3 s: the
+    streams a harness cut at its end have finished on the server."""
+    deadline = time.monotonic() + timeout_s
+    steps, since = engine.steps, time.monotonic()
+    while time.monotonic() < deadline:
+        if engine.steps != steps:
+            steps, since = engine.steps, time.monotonic()
+        elif not engine.allocator.blocks_in_use and time.monotonic() - since >= 0.3:
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"the engine did not go idle: {engine.allocator.blocks_in_use} "
+                         "blocks in use")
+
+
+def _kserve_args(url, tokens, tmp) -> list:
+    """genai-perf over KServe gRPC with 9d's traffic: 8 streams, 16
+    prompts of 250 +- 50 synthetic words, ``tokens`` output tokens."""
+    return ["-m", "llm_engine", "-u", url, "--service-kind", "triton", "--endpoint-type",
+            "kserve-ids", "--streaming", "--tokenizer", "synthetic", "--concurrency", "8",
+            "--num-prompts", "16", "--synthetic-input-tokens-mean", "250",
+            "--synthetic-input-tokens-stddev", "50", "--output-tokens-mean", str(tokens),
+            "--artifact-dir", tmp, "--json-summary"]
+
+
+def _kserve_export(tmp, tokens) -> list:
+    """The profile export's requests, each held to ``tokens`` token
+    events (one a response), and the corpus to ``max_tokens`` ``tokens``."""
+    with open(os.path.join(tmp, "profile_export.json")) as f:
+        requests = json.load(f)["experiments"][0]["requests"]
+    with open(os.path.join(tmp, "llm_inputs.json")) as f:
+        asked = {e["parameters"]["max_tokens"] for e in json.load(f)["data"]}
+    if asked != {tokens}:
+        raise AssertionError(f"the corpus asked for max_tokens {asked}")
+    wrong = [len(r["response_timestamps"]) for r in requests
+             if not r["success"] or len(r["response_timestamps"]) != tokens]
+    if wrong or not requests:
+        raise AssertionError(f"genai-perf over gRPC: {len(wrong)} of {len(requests)} requests "
+                             f"failed or streamed other than {tokens} tokens: {wrong[:8]}")
+    return requests
+
+
+def _summary(out) -> dict:
+    return next(json.loads(line) for line in reversed(out.splitlines())
+                if line.startswith("{") and "ttft_avg_ms" in line)
+
+
+def genai_grpc_13c(port, model, config, over_http) -> dict:
+    """Phase 13c on phase 4's server, after 12c: the native gRPC front-end
+    on its ``ServerCore``, genai-perf ``--service-kind triton
+    --endpoint-type kserve-ids --streaming`` in a subprocess that cannot
+    see the card, 9d's traffic and windows. No harness error, 32 token
+    events a request, K1 launched exactly 32 x decode steps (counted once
+    the engine is idle), printed beside 9d's OpenAI row."""
+    from client_tpu_torch.server.native_frontend import NativeGrpcFrontend
+
+    core, loop = SERVING[port]
+    frontend = NativeGrpcFrontend(core, loop)
+    frontend.start("127.0.0.1", 0)
+    engine = model.engine
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _wait_idle(engine)
+            steps0 = engine.steps
+            # -- the path of 13c: K1's counter zeroed just before, read once idle --
+            pa.paged_attention_cuda.launches = 0
+            out = _harness("client_tpu_torch.genai_perf", _kserve_args(
+                f"127.0.0.1:{frontend.port}", SERVE_TOKENS, tmp) + [
+                "--measurement-interval", "4000", "--stability-percentage", "50",
+                "--max-trials", "3"])
+            _wait_idle(engine)
+            launches = pa.paged_attention_cuda.launches
+            # ------------------------------------------------------------------------
+            steps = engine.steps - steps0
+            requests = _kserve_export(tmp, SERVE_TOKENS)
+    finally:
+        frontend.stop()
+    if launches != config.n_layers * steps:
+        raise AssertionError(f"K1 launched {launches} times for {steps} decode steps x "
+                             f"{config.n_layers} layers")
+    result = dict(_summary(out), completed=len(requests), decode_steps=steps,
+                  k1_launches=launches, wall_s=time.perf_counter() - t0)
+    beside = {k: over_http[k] for k in ("tokens_per_sec", "ttft_avg_ms", "itl_avg_ms",
+                                        "itl_p99_ms")}
+    print("genai 13c (kserve-ids over gRPC): " + json.dumps(result) + " (9d OpenAI: "
+          + json.dumps(beside) + f") [{card()}]", flush=True)
+    return result
+
+
+# 13d's engine: K as phase 5's, the draft the target's own first layer
+# (its embedding, first block and head: an early exit), cheap enough that
+# every lane proposes at every step
+SPECULATION_13D = {"mode": "draft", "k": 4}
+DRAFT_LAYERS_13D = 1
+
+
+def genai_grpc_13d(params, config) -> dict:
+    """Phase 13d: genai-perf over KServe gRPC with ``--speculation on``,
+    13c's traffic, against an engine on phase 4's weights whose draft is
+    their first layer. Phase 5's n-gram proposer finds next to nothing to
+    copy in random-weight streams (its ``serve-spec:`` line counts the
+    verify steps), so a gate on that traffic would pass a path that hardly
+    speculates; this draft proposes K tokens for every lane at every step
+    (the whole target as its own draft costs seconds a step, dense). Random
+    weights accept next to none of the drafts: the gate is on verify steps,
+    not on acceptance. genai-perf runs in this process so that its two
+    readings of the speculation counters (``fetch_spec_stats``, over gRPC)
+    wait for an idle engine: each reading equals the engine's own counters,
+    the JSON summary's speculation figures equal the delta, at least half
+    the engine's steps and one per request are verify steps, and K2
+    launched >= 32 x verify steps."""
+    from client_tpu_torch.genai_perf import main as genai_main
+    from client_tpu_torch.llm.serving import LlmEngineModel
+    from client_tpu_torch.server.native_frontend import NativeGrpcFrontend
+
+    t0 = time.perf_counter()
+    model = LlmEngineModel(
+        config=config, params=params, device=DEVICE, speculation=SPECULATION_13D,
+        draft_config=dataclasses.replace(config, n_layers=DRAFT_LAYERS_13D),
+        draft_params=dict(params, layers=params["layers"][:DRAFT_LAYERS_13D]))
+    with http_server(model) as port:
+        parameters = model_config(port)
+        if json.loads(parameters["speculation"]["string_value"]) != SPECULATION_13D:
+            raise AssertionError(f"config reports speculation {parameters['speculation']}")
+        core, loop = SERVING[port]
+        frontend = NativeGrpcFrontend(core, loop)
+        frontend.start("127.0.0.1", 0)
+        try:
+            result = _genai_13d_run(genai_main, frontend.port, model.engine, config)
+        finally:
+            frontend.stop()
+    model.engine = None
+    result["wall_s"] = time.perf_counter() - t0
+    print("genai 13d (kserve-ids over gRPC, speculation on): " + json.dumps(result)
+          + f" [{card()}]", flush=True)
+    return result
+
+
+def _genai_13d_run(genai_main, grpc_port, engine, config) -> dict:
+    import io
+
+    real_fetch = genai_main.fetch_spec_stats
+    readings = []
+
+    def fetch_when_idle(url, name):
+        _wait_idle(engine)
+        own = engine.stats()
+        fetched = real_fetch(url, name)
+        readings.append((own, fetched))
+        return fetched
+
+    genai_main.fetch_spec_stats = fetch_when_idle
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = io.StringIO()
+            # -- the path of 13d: both counters zeroed just before, read once idle --
+            pa.paged_attention_cuda.launches = 0
+            pa.paged_attention_cuda_mq.launches = 0
+            with contextlib.redirect_stdout(out):
+                code = genai_main.main(_kserve_args(
+                    f"127.0.0.1:{grpc_port}", SERVE_TOKENS, tmp) + [
+                    "--speculation", "on", "--measurement-interval", "6000",
+                    "--stability-percentage", "50", "--max-trials", "2"])
+            _wait_idle(engine)
+            k2_launches = pa.paged_attention_cuda_mq.launches
+            k1_launches = pa.paged_attention_cuda.launches
+            # ---------------------------------------------------------------------------
+            if code != 0:
+                raise AssertionError(f"genai-perf exited {code}:\n{out.getvalue()[-2000:]}")
+            requests = _kserve_export(tmp, SERVE_TOKENS)
+    finally:
+        genai_main.fetch_spec_stats = real_fetch
+    summary = _summary(out.getvalue())
+    if len(readings) != 2 or any(fetched is None or fetched != {k: own[k] for k in fetched}
+                                 for own, fetched in readings):
+        raise AssertionError(f"the speculation counters over gRPC: {readings}")
+    (before, _), (after, _) = readings
+    delta = {key: after[key] - before[key] for key in
+             ("steps", "spec_steps", "spec_proposed", "spec_accepted", "step_tokens",
+              "lane_steps")}
+    want = {"tokens_per_step": round(delta["step_tokens"] / max(1, delta["lane_steps"]), 3),
+            "spec_acceptance_rate": round(
+                delta["spec_accepted"] / max(1, delta["spec_proposed"]), 3)}
+    if {k: summary.get(k) for k in want} != want:
+        raise AssertionError(f"the summary's speculation delta {summary} is not the "
+                             f"engine's {want}")
+    if delta["spec_steps"] < max(len(requests), (delta["steps"] + 1) // 2):
+        raise AssertionError(f"a drafting engine barely speculated: {delta} for "
+                             f"{len(requests)} requests")
+    if k2_launches < config.n_layers * delta["spec_steps"]:
+        raise AssertionError(f"K2 launched {k2_launches} times for {delta['spec_steps']} "
+                             f"verify steps x {config.n_layers} layers")
+    return dict(summary, completed=len(requests), verify_steps=delta["spec_steps"],
+                spec_delta=delta, k1_launches=k1_launches, k2_launches=k2_launches)
 
 
 def main() -> int:
@@ -3792,6 +4251,7 @@ def main() -> int:
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
     served_spec = serve_7b_speculative(params, plain_streams)
+    kserve_spec = genai_grpc_13d(params, llama.LlamaConfig())
     llm_decode_7b(params)
     del params
     gc.collect()
@@ -3827,6 +4287,7 @@ def main() -> int:
                 "serve_library_ms": k1["serve_library_ms"],
                 "lifecycle_11a_launches": served["lifecycle_11a"]["k1_launches"],
                 "grpc_12c_launches": served["grpc_12c"]["k1_launches"],
+                "grpc_13c_launches": served["genai_13c"]["k1_launches"],
             },
             {
                 "name": "paged_attention_decode_mq",
@@ -3843,6 +4304,7 @@ def main() -> int:
                 "serve_ms": k2["serve_ms"],
                 "serve_bound_ms": k2["serve_bound_ms"],
                 "serve_library_ms": k2["serve_library_ms"],
+                "genai_13d_launches": kserve_spec["k2_launches"],
             },
         ]
     }

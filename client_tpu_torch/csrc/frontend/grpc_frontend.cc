@@ -1,4 +1,5 @@
-// Native gRPC front-end of the port: an h2c gRPC server with a plain C ABI.
+// Native gRPC front-end of the port: an h2c (or TLS, ALPN h2) gRPC server
+// with a plain C ABI.
 //
 // The counterpart of native/frontend/grpc_frontend.cc without Python.h,
 // numpy or libprotobuf. C++ threads own what they own there: the sockets,
@@ -562,10 +563,13 @@ using ctpu::frontend::Frontend;
 
 extern "C" {
 
-// Binds host:port (0 picks a free port) and serves. Returns the front-end's
-// id, or 0 with the reason in err.
-uint64_t ctpu_grpc_start(const char* host, int port, char* err,
-                         int err_len) {
+// Binds host:port (0 picks a free port) and serves. With a certificate
+// chain and a key (PEM paths; both null or empty for h2c) the port speaks
+// TLS with ALPN h2 instead, and a context that cannot be built (no
+// libssl.so.3, an unreadable or mismatched PEM) fails the start. Returns
+// the front-end's id, or 0 with the reason in err.
+uint64_t ctpu_grpc_start(const char* host, int port, const char* tls_cert,
+                         const char* tls_key, char* err, int err_len) {
   using namespace ctpu;
   using namespace ctpu::frontend;
   auto* fe = new Frontend();
@@ -586,7 +590,15 @@ uint64_t ctpu_grpc_start(const char* host, int port, char* err,
   };
   cbs.on_close = [fe](h2srv::ServerConnection* c) { OnClose(fe, c); };
   std::string why;
-  fe->listener = h2srv::Listener::Start(host, port, cbs, &why);
+  const bool use_tls = (tls_cert != nullptr && tls_cert[0] != '\0') ||
+                       (tls_key != nullptr && tls_key[0] != '\0');
+  tls::ServerOptions tls_options;
+  if (use_tls) {
+    tls_options.certificate_file = tls_cert != nullptr ? tls_cert : "";
+    tls_options.key_file = tls_key != nullptr ? tls_key : "";
+  }
+  fe->listener = h2srv::Listener::Start(host, port, cbs, &why,
+                                        use_tls ? &tls_options : nullptr);
   if (fe->listener == nullptr) {
     delete fe;
     if (err != nullptr && err_len > 0) {

@@ -1,4 +1,4 @@
-// An own copy of native/frontend/h2_server.cc, with TLS left out.
+// An own copy of native/frontend/h2_server.cc.
 #include "h2_server.h"
 
 #include <arpa/inet.h>
@@ -688,7 +688,13 @@ void ServerConnection::WriterLoop() {
 
 std::unique_ptr<Listener> Listener::Start(const std::string& host, int port,
                                           ConnectionCallbacks cbs,
-                                          std::string* err) {
+                                          std::string* err,
+                                          const tls::ServerOptions* tls) {
+  std::unique_ptr<tls::ServerContext> tls_ctx;
+  if (tls != nullptr) {
+    tls_ctx.reset(tls::ServerContext::Create(*tls, err));
+    if (tls_ctx == nullptr) return nullptr;
+  }
   int fd = ::socket(AF_INET, SOCK_STREAM, 0);
   if (fd < 0) {
     *err = "socket() failed";
@@ -724,6 +730,7 @@ std::unique_ptr<Listener> Listener::Start(const std::string& host, int port,
   l->listen_fd_ = fd;
   l->port_ = ntohs(addr.sin_port);
   l->cbs_ = std::move(cbs);
+  l->tls_ctx_ = std::move(tls_ctx);
   l->acceptor_ = std::thread([p = l.get()] {
     pthread_setname_np(pthread_self(), "ctpu-h2s-accept");
     p->AcceptLoop();
@@ -743,6 +750,31 @@ void Listener::AcceptLoop() {
       continue;
     }
     Reap(false);
+    if (tls_ctx_ != nullptr) {
+      // The TLS handshake runs off the accept loop: a slow (or malicious)
+      // client must not stall other accepts. WrapAccepted runs it against
+      // an absolute deadline, so a silent or trickling client cannot pin
+      // the thread, nor hang Stop(), which drains in-flight handshakes.
+      {
+        std::lock_guard<std::mutex> lk(hs_mu_);
+        hs_inflight_++;
+      }
+      std::thread([this, fd] {
+        pthread_setname_np(pthread_self(), "ctpu-h2s-tls");
+        std::string tls_err;
+        int plain = tls_ctx_->WrapAccepted(fd, &tls_err);
+        if (plain >= 0 && !stopping_.load()) {
+          AdoptAccepted(plain);
+        } else if (plain >= 0) {
+          ::close(plain);
+        }
+        // a failed handshake drops the connection quietly (like an h2c RST)
+        std::lock_guard<std::mutex> lk(hs_mu_);
+        hs_inflight_--;
+        hs_cv_.notify_all();
+      }).detach();
+      continue;
+    }
     AdoptAccepted(fd);
   }
 }
@@ -788,6 +820,13 @@ void Listener::Stop() {
   if (acceptor_.joinable()) acceptor_.join();
   fd = listen_fd_.exchange(-1);
   if (fd >= 0) ::close(fd);
+  {
+    // Drain in-flight TLS handshakes (each bounded by its absolute
+    // deadline) so no handshake thread touches a destroyed listener, and
+    // any connection one adopted is reaped below.
+    std::unique_lock<std::mutex> lk(hs_mu_);
+    hs_cv_.wait(lk, [this] { return hs_inflight_ == 0; });
+  }
   Reap(true);
 }
 

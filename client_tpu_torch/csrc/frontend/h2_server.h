@@ -1,7 +1,7 @@
 // Server-side HTTP/2 (RFC 7540) for the native gRPC front-end.
 //
-// An own copy of native/frontend/h2_server.h, with TLS left out (plain h2c;
-// TLS waits for its own slice of the port).
+// An own copy of native/frontend/h2_server.h: h2c, or TLS with ALPN h2
+// when the listener is given a certificate and key (tls.h).
 //
 // The reference project serves gRPC through tritonserver's grpc++ endpoint
 // (reference: server-side; its client repo only consumes it). This framework
@@ -30,6 +30,7 @@
 #include <vector>
 
 #include "hpack.h"
+#include "tls.h"
 
 namespace ctpu {
 namespace h2srv {
@@ -175,11 +176,15 @@ class ServerConnection {
 class Listener {
  public:
   // Binds host:port (port 0 picks a free port). Returns nullptr + *err on
-  // failure. `cbs` is shared by every accepted connection. Plain h2c only:
-  // TLS is not ported yet.
+  // failure. `cbs` is shared by every accepted connection. With `tls`,
+  // accepted sockets handshake TLS (ALPN h2) before h2 adoption; the
+  // handshake runs on a per-connection thread so a slow client can never
+  // stall the accept loop. The listener owns its one TLS context.
   static std::unique_ptr<Listener> Start(const std::string& host, int port,
                                          ConnectionCallbacks cbs,
-                                         std::string* err);
+                                         std::string* err,
+                                         const tls::ServerOptions* tls =
+                                             nullptr);
   ~Listener();
 
   int port() const { return port_; }
@@ -201,6 +206,13 @@ class Listener {
 
   std::mutex mu_;
   std::vector<std::shared_ptr<ServerConnection>> conns_;
+
+  std::unique_ptr<tls::ServerContext> tls_ctx_;
+  // In-flight TLS handshake threads; Stop() drains them (each is bounded
+  // by the handshake's absolute deadline, so the wait is finite).
+  std::mutex hs_mu_;
+  std::condition_variable hs_cv_;
+  size_t hs_inflight_ = 0;
 };
 
 }  // namespace h2srv

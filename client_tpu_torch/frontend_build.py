@@ -1,7 +1,8 @@
 """Build and load the native gRPC front-end (``csrc/frontend/``).
 
-Host C++ with a plain C interface (no ``Python.h``, numpy or protobuf
-headers), compiled by ``g++`` into ``build/client_tpu_torch/`` at first use
+Host C++ with a plain C interface (no ``Python.h``, numpy, protobuf or
+OpenSSL headers: ``tls.cc`` reaches ``libssl.so.3`` through ``dlopen``),
+compiled by ``g++`` into ``build/client_tpu_torch/`` at first use
 and bound with :mod:`ctypes`, as :mod:`client_tpu_torch.kernels` builds the
 CUDA kernels. The library's name carries a hash of the sources, headers and
 flags, so an edit builds anew and an unchanged tree loads what is there.
@@ -24,8 +25,10 @@ from pathlib import Path
 from client_tpu_torch.kernels import BUILD_DIR, CSRC_DIR
 
 SOURCE_DIR = CSRC_DIR / "frontend"
-SOURCES = ("grpc_frontend.cc", "h2_server.cc", "hpack.cc")
+SOURCES = ("grpc_frontend.cc", "h2_server.cc", "hpack.cc", "tls.cc")
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-pthread"]
+# tls.cc reaches libssl.so.3 through dlopen/dlsym, never by linking it
+LINK_FLAGS = ["-ldl"]
 
 _lock = threading.Lock()
 _library = None
@@ -44,7 +47,7 @@ def library_path() -> Path:
     for path in sorted(SOURCE_DIR.glob("*")):
         if path.suffix in (".cc", ".h"):
             digest.update(path.name.encode() + path.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
+    digest.update(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"grpc_frontend-{digest.hexdigest()[:16]}.so"
 
 
@@ -60,7 +63,7 @@ def build() -> Path:
             return target
         partial = target.with_suffix(f".{os.getpid()}.tmp")
         command = [find_cxx(), *CXX_FLAGS, "-o", str(partial),
-                   *(str(SOURCE_DIR / s) for s in SOURCES)]
+                   *(str(SOURCE_DIR / s) for s in SOURCES), *LINK_FLAGS]
         proc = subprocess.run(command, capture_output=True, text=True)
         if proc.returncode != 0:
             partial.unlink(missing_ok=True)
@@ -77,7 +80,7 @@ def load() -> ctypes.CDLL:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
             u64, i32, ptr = ctypes.c_uint64, ctypes.c_int, ctypes.c_char_p
-            lib.ctpu_grpc_start.argtypes = [ptr, i32, ptr, i32]
+            lib.ctpu_grpc_start.argtypes = [ptr, i32, ptr, ptr, ptr, i32]
             lib.ctpu_grpc_start.restype = u64
             lib.ctpu_grpc_port.argtypes = [u64]
             lib.ctpu_grpc_port.restype = i32

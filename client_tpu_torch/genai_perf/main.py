@@ -8,10 +8,12 @@ into LLM metrics, and report. Runs the harness in-process rather than
 subprocess-forking a binary (the wrapper builds the same CLI argument list
 the reference would, reference wrapper.py:53-121).
 
-The port's genai-perf speaks OpenAI over HTTP only: the ``kserve-*``
-endpoint types (KServe over gRPC in the JAX package) are not ported yet
-(ROADMAP Queue 1 item 4d), so they are refused (exit code 2) in favour of
-``--service-kind openai``.
+``--service-kind triton`` (the default) with ``--endpoint-type kserve-ids``
+or ``kserve-text`` drives the model over KServe v2 gRPC (``-i grpc``,
+``ModelStreamInfer`` with ``--streaming``) through the port's own gRPC
+client, and reads the engine's speculation counters from its model config
+before and after the run; ``--service-kind openai`` drives the OpenAI
+routes over HTTP.
 """
 
 import argparse
@@ -144,8 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--service-kind",
         default="triton",
         choices=["triton", "openai"],
-        help="backend service flavor (triton, over gRPC, is refused: not "
-        "ported yet)",
+        help="backend service flavor",
     )
     parser.add_argument(
         "--endpoint-type",
@@ -156,8 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
             "openai-chat",
             "openai-completions",
         ],
-        help="input flavor: OpenAI chat/completions payloads (the KServe "
-        "token-id/text tensors ride gRPC and are refused: not ported yet)",
+        help="input flavor: KServe token-id/text tensors, or OpenAI "
+        "chat/completions payloads",
     )
     parser.add_argument(
         "--endpoint",
@@ -289,12 +290,30 @@ def json_summary_line(metrics, spec_delta: Optional[dict] = None) -> dict:
 
 
 def fetch_spec_stats(url: str, model: str) -> Optional[dict]:
-    """The engine's live speculation counters. The JAX package reads them
-    from the model config over gRPC and returns None for OpenAI runs, the
-    only runs the port's genai-perf has (the KServe endpoints wait for
-    ROADMAP Queue 1 item 4d), so this is always None and the summary is
-    the plain one."""
-    return None
+    """The engine's live speculation counters, via the model config's
+    ``speculation_stats`` parameter over gRPC (the one schemaless wire
+    channel — the proto statistics schema is frozen), read through the
+    port's own gRPC client. None when the server/model does not expose
+    them (non-engine model, speculation off, unreachable), so callers
+    degrade to the plain summary."""
+    import json
+
+    try:
+        from client_tpu_torch.grpc import InferenceServerClient
+
+        client = InferenceServerClient(url)
+        try:
+            config = client.get_model_config(
+                model, as_json=True, client_timeout=10
+            )
+        finally:
+            client.close()
+        raw = config["config"]["parameters"]["speculation_stats"][
+            "string_value"
+        ]
+        return json.loads(raw)
+    except Exception:  # noqa: BLE001 - the summary must never fail on this
+        return None
 
 
 def spec_stats_delta(
@@ -331,18 +350,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     from client_tpu_torch.perf import cli as perf_cli
 
     args = build_parser().parse_args(argv)
-    openai = (
-        args.service_kind == "openai"
-        or args.endpoint_type.startswith("openai")
-    )
-    if not openai:
-        print(
-            f"error: --service-kind {args.service_kind} with --endpoint-type "
-            f"{args.endpoint_type} (the KServe endpoints over gRPC) is not "
-            "ported yet (ROADMAP Queue 1 item 4d); use --service-kind openai",
-            file=sys.stderr,
-        )
-        return 2
     from client_tpu_torch.genai_perf.logging import getLogger, init_logging
 
     init_logging(verbose=args.verbose)
@@ -353,7 +360,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     inputs_path = os.path.join(artifact_dir, "llm_inputs.json")
     export_path = os.path.join(artifact_dir, args.profile_export_file)
 
-    if args.endpoint_type.startswith("kserve"):
+    openai = (
+        args.service_kind == "openai"
+        or args.endpoint_type.startswith("openai")
+    )
+    if openai and args.endpoint_type.startswith("kserve"):
         if args.endpoint_type != "kserve-ids":
             # The default endpoint-type silently upgrades; an explicit
             # kserve choice conflicts with the openai service kind.
@@ -402,7 +413,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         input_name=args.input_name,
         tokenizer=tokenizer,
         model=args.model,
-        streaming=args.streaming,
+        streaming=openai and args.streaming,
         dataset_path=args.input_dataset,
         dataset_format=args.dataset_format,
         prompts=hub_prompts,
@@ -410,7 +421,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         speculation=args.speculation,
     )
     log.info("profiling model %s at %s", args.model, args.url)
-
+    # Speculation A/B bookkeeping: snapshot the engine's speculation
+    # counters around the run so the summary reports tokens-per-step and
+    # acceptance over EXACTLY this workload (kserve/gRPC only — the
+    # openai client has no model-config surface to read them from).
+    spec_before = None if openai else fetch_spec_stats(args.url, args.model)
 
     # Build the perf-harness invocation (reference wrapper.Profiler role).
     perf_args = [
@@ -422,7 +437,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--max-trials", str(args.max_trials),
         "--profile-export-file", export_path,
     ]
-    perf_args += ["--service-kind", "openai", "--endpoint", args.endpoint]
+    if openai:
+        perf_args += ["--service-kind", "openai", "--endpoint", args.endpoint]
+    else:
+        perf_args += ["-i", "grpc"]
     if args.streaming:
         perf_args.append("--streaming")
     # output lengths are embedded per request in the generated input data
@@ -440,13 +458,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     if code != 0:
         return code
 
+    spec_delta = (
+        None
+        if openai
+        else spec_stats_delta(
+            spec_before, fetch_spec_stats(args.url, args.model)
+        )
+    )
     metrics = LLMProfileDataParser(export_path).parse()
     print()
     print(console_table(metrics))
     if args.json_summary:
         import json as _json
 
-        print(_json.dumps(json_summary_line(metrics)))
+        print(_json.dumps(json_summary_line(metrics, spec_delta)))
     from client_tpu_torch.genai_perf.tokenizer import tokenizer_provenance
 
     export_csv(metrics, os.path.join(artifact_dir, "llm_metrics.csv"))

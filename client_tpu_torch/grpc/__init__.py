@@ -10,10 +10,11 @@ TPU shared memory, unary, prepared and async inference, and the decoupled
 bidirectional stream (:class:`~client_tpu_torch.grpc._infer_stream.InferStream`,
 which reconnects on UNAVAILABLE under a retry policy). The message classes
 are the port's own (``service_pb2``, ``model_config_pb2``); ``as_json=True``
-gives what ``json_format.MessageToDict`` gives.
-
-Not ported yet: ``stream_mode=True`` (ROADMAP Queue 1 item 4b) and TLS
-(item 4c); both raise.
+gives what ``json_format.MessageToDict`` gives. ``stream_mode=True`` sends
+every unary infer over one multiplexed ``ModelStreamInfer`` stream
+(the aio client's
+:class:`~client_tpu_torch.grpc._mux.AioStreamMultiplexer`, on the client's
+loop); ``ssl=True`` speaks TLS with ALPN ``h2``.
 """
 
 import concurrent.futures
@@ -35,7 +36,6 @@ from client_tpu_torch.grpc._utils import (
     StatusCode,
     _grpc_compression,
     get_inference_request,
-    refuse_unported,
     rpc_error_to_exception,
 )
 from client_tpu_torch.resilience import CircuitBreakerOpenError, record_breaker_outcome
@@ -152,18 +152,20 @@ class InferenceServerClient:
     ):
         """The aio client's arguments (see
         :class:`client_tpu_torch.grpc.aio.InferenceServerClient`). The
-        client may be used from several threads: calls run on its loop."""
-        refuse_unported(stream_mode=stream_mode, ssl=ssl, creds=creds,
-                        root_certificates=root_certificates, private_key=private_key,
-                        certificate_chain=certificate_chain)
+        client may be used from several threads: calls run on its loop.
+        With ``stream_mode=True`` unary :meth:`infer` and
+        :meth:`infer_prepared` ride the aio client's multiplexed stream."""
         self._verbose = verbose
         self._runner = EventLoopRunner(name="client-tpu-torch-grpc")
         self._aio_client = _aio.InferenceServerClient(
-            url, verbose=verbose, keepalive_options=keepalive_options,
+            url, verbose=verbose, ssl=ssl, root_certificates=root_certificates,
+            private_key=private_key, certificate_chain=certificate_chain, creds=creds,
+            keepalive_options=keepalive_options,
             channel_args=channel_args, retry_policy=retry_policy,
             circuit_breaker=circuit_breaker, tracer=tracer, urls=urls,
             endpoint_cooldown_s=endpoint_cooldown_s, logger=logger,
-            routing_policy=routing_policy, hedge_policy=hedge_policy)
+            routing_policy=routing_policy, hedge_policy=hedge_policy,
+            stream_mode=stream_mode)
         self._pool = self._aio_client._pool
         self._retry_policy = self._aio_client._retry_policy
         self._circuit_breaker = circuit_breaker

@@ -1,4 +1,4 @@
-"""An h2c (HTTP/2 over cleartext TCP) gRPC transport on stdlib asyncio.
+"""An HTTP/2 gRPC transport on stdlib asyncio: h2c, or TLS with ALPN h2.
 
 The port imports no ``grpcio``, so its gRPC clients speak HTTP/2
 themselves: this module is their channel. It implements what a
@@ -18,6 +18,14 @@ gRPC client needs of RFC 7540 and RFC 7541:
   timeout, compressed requests (``grpc-encoding`` gzip or deflate, by
   stdlib ``zlib``), and trailers-only responses.
 
+With an ``ssl.SSLContext`` (stdlib :mod:`ssl`;
+``_utils.client_ssl_context`` builds one from the clients' arguments as
+grpcio's ``ssl_channel_credentials`` would) the connection
+is TLS: the context offers ALPN ``h2`` and a server that does not select
+it fails the connection, UNAVAILABLE. Frames are read from the decrypted
+byte stream, so TLS records that split or join HTTP/2 frames change
+nothing.
+
 :class:`Channel` is one connection per target, opened on first use and
 again after it dies. ``unary_unary`` sends one message and returns the
 response's; ``stream_stream`` opens a bidirectional call. Failures raise
@@ -26,6 +34,7 @@ response's; ``stream_stream`` opens a bidirectional call. Failures raise
 
 import asyncio
 import re
+import ssl as _ssl
 import struct
 import time
 import zlib
@@ -388,13 +397,25 @@ class _Connection:
                                 and keepalive.keepalive_time_ms < 2**31 - 1 else None)
 
     @classmethod
-    async def open(cls, host: str, port: int, timeout: Optional[float], keepalive=None):
+    async def open(cls, host: str, port: int, timeout: Optional[float], keepalive=None,
+                   ssl_context: Optional[_ssl.SSLContext] = None):
+        tls = {} if ssl_context is None else {"ssl": ssl_context, "server_hostname": host}
         try:
             reader, writer = await asyncio.wait_for(
-                asyncio.open_connection(host, port, limit=1 << 22), timeout)
+                asyncio.open_connection(host, port, limit=1 << 22, **tls), timeout)
         except (OSError, asyncio.TimeoutError) as e:
+            # ssl.SSLError (a failed handshake, a certificate that does not
+            # verify) is an OSError too
             raise RpcError(StatusCode.UNAVAILABLE,
-                           f"failed to connect to {host}:{port}: {e}") from None
+                           f"failed to connect to {host}:{port}: {e or type(e).__name__}") from None
+        if ssl_context is not None:
+            tls_object = writer.get_extra_info("ssl_object")
+            selected = tls_object.selected_alpn_protocol() if tls_object else None
+            if selected != "h2":
+                writer.close()
+                raise RpcError(StatusCode.UNAVAILABLE,
+                               f"failed to connect to {host}:{port}: the server did not "
+                               f"select ALPN h2 (selected {selected!r})")
         conn = cls(reader, writer, f"{host}:{port}", keepalive)
         settings = struct.pack(">HI", SETTINGS_ENABLE_PUSH, 0) + \
             struct.pack(">HI", SETTINGS_INITIAL_WINDOW_SIZE, _RECV_WINDOW)
@@ -746,12 +767,15 @@ class StreamCall:
 
 
 class Channel:
-    """One h2c connection to ``target`` (``host:port``), opened on first
-    use and again after it dies; calls multiplex on it."""
+    """One HTTP/2 connection to ``target`` (``host:port``), h2c or over
+    ``ssl_context``, opened on first use and again after it dies; calls
+    multiplex on it. Over TLS the server's certificate must name the
+    target's host."""
 
     def __init__(self, target: str, keepalive=None, user_agent: str = "client-tpu-torch-grpc",
                  max_send_message_length: int = _MAX_MESSAGE,
-                 max_receive_message_length: int = _MAX_MESSAGE):
+                 max_receive_message_length: int = _MAX_MESSAGE,
+                 ssl_context: Optional[_ssl.SSLContext] = None):
         host, _, port = target.rpartition(":")
         if not host or not port.isdigit():
             raise ValueError(f"gRPC target must be host:port, got {target!r}")
@@ -762,6 +786,8 @@ class Channel:
         self._user_agent = user_agent
         self._max_send = max_send_message_length
         self._max_receive = max_receive_message_length
+        self._ssl_context = ssl_context
+        self._scheme = "http" if ssl_context is None else "https"
         self._conn: Optional[_Connection] = None
         self._connecting: Optional[asyncio.Future] = None
 
@@ -771,7 +797,8 @@ class Channel:
             return conn
         if self._connecting is None or self._connecting.done():
             self._connecting = asyncio.ensure_future(
-                _Connection.open(self._host, self._port, timeout, self._keepalive))
+                _Connection.open(self._host, self._port, timeout, self._keepalive,
+                                 self._ssl_context))
         try:
             conn = await asyncio.shield(self._connecting)
         finally:
@@ -783,7 +810,7 @@ class Channel:
         return conn
 
     def _headers(self, method: str, metadata, timeout, compression) -> List[Tuple[str, str]]:
-        headers = [(":method", "POST"), (":scheme", "http"), (":path", method),
+        headers = [(":method", "POST"), (":scheme", self._scheme), (":path", method),
                    (":authority", self.target), ("content-type", "application/grpc"),
                    ("te", "trailers"), ("user-agent", self._user_agent),
                    ("grpc-accept-encoding", "identity,deflate,gzip")]

@@ -9,6 +9,7 @@ reference's ``InferenceServerException.status()`` carry.
 
 import dataclasses
 import enum
+import ssl as _ssl
 from typing import Any, Dict, Optional
 
 from client_tpu_torch.grpc._generated import grpc_service_pb2 as pb
@@ -50,17 +51,33 @@ def _to_json(message) -> Dict[str, Any]:
     return message_to_dict(message)
 
 
-def refuse_unported(stream_mode=False, ssl=False, creds=None, root_certificates=None,
-                    private_key=None, certificate_chain=None) -> None:
-    """Raise for the client options the port does not have yet, naming
-    their ROADMAP item."""
-    if stream_mode:
+def client_ssl_context(ssl=False, creds=None, root_certificates=None, private_key=None,
+                       certificate_chain=None) -> Optional[_ssl.SSLContext]:
+    """The clients' TLS arguments as the transport takes them: None for
+    h2c, else a stdlib ``SSLContext`` built as grpcio's
+    ``ssl_channel_credentials`` builds its credentials from the same PEM
+    files (the reference's clients read them so): the server verified
+    against ``root_certificates`` (the system's roots when None), a client
+    certificate for mutual TLS when ``certificate_chain`` and its
+    ``private_key`` are given, and ALPN ``h2`` offered. As in the
+    reference, the PEM paths count only with ``ssl=True``. ``creds`` (a
+    ``grpc.ChannelCredentials`` object) is refused: it is grpcio's own
+    type, and the port does not use grpcio."""
+    if creds is not None:
         raise InferenceServerException(
-            "stream_mode: the multiplexed persistent stream is not ported yet "
-            "(ROADMAP Queue 1 item 4b)")
-    if ssl or creds is not None or root_certificates or private_key or certificate_chain:
-        raise InferenceServerException(
-            "gRPC over TLS is not ported yet (ROADMAP Queue 1 item 4c)")
+            "creds: a grpc.ChannelCredentials object belongs to grpcio, which the "
+            "port does not use; pass ssl=True with root_certificates, private_key "
+            "and certificate_chain (PEM file paths) instead")
+    if not ssl:
+        return None
+    try:
+        context = _ssl.create_default_context(cafile=root_certificates)
+        if certificate_chain:
+            context.load_cert_chain(certificate_chain, private_key)
+    except (OSError, ValueError) as e:
+        raise InferenceServerException(f"gRPC TLS: cannot load the PEM files: {e}") from None
+    context.set_alpn_protocols(["h2"])
+    return context
 
 
 class StatusCode(enum.Enum):

@@ -7,10 +7,11 @@ port imports no grpcio. The same methods, ``retry_policy=``,
 plus the trace, log and CUDA shared-memory methods of the sync client (on
 which ``client_tpu_torch.grpc`` builds). ``stream_infer`` is an async
 iterator over the decoupled bidirectional stream, with cancellation.
-
-Not ported yet: ``stream_mode=True`` (the multiplexed persistent stream,
-ROADMAP Queue 1 item 4b) and TLS (``ssl``, ``creds``: item 4c); both
-raise.
+``stream_mode=True`` sends every unary infer over one multiplexed
+``ModelStreamInfer`` stream (:mod:`client_tpu_torch.grpc._mux`).
+``ssl=True`` speaks TLS with ALPN ``h2`` through stdlib :mod:`ssl`;
+``creds`` (a grpcio ``ChannelCredentials`` object) is refused, as the port
+does not use grpcio.
 """
 
 import asyncio
@@ -30,9 +31,9 @@ from client_tpu_torch.grpc._utils import (
     RpcError,
     _grpc_compression,
     _to_json,
+    client_ssl_context,
     get_inference_request,
     is_sequence_request as _is_sequence_request,
-    refuse_unported,
     request_is_hedgeable,
     request_routing_key,
     rpc_error_to_exception,
@@ -43,6 +44,7 @@ from client_tpu_torch.lifecycle import (
     grpc_status_is_endpoint_outage,
     hedged_send_async,
     resolve_hedge_policy,
+    status_is_unavailable,
 )
 from client_tpu_torch.observability.trace import (
     NOOP_TRACE,
@@ -110,16 +112,28 @@ class InferenceServerClient(InferenceServerClientBase):
         counts. Sequence requests and requests carrying shm-ring tickets
         never hedge.
 
+        ``stream_mode=True`` routes every unary :meth:`infer` over one
+        long-lived multiplexed ``ModelStreamInfer`` stream (correlation
+        ids, concurrent server-side execution), amortizing per-RPC setup
+        — the small-request fast path. Requests carrying explicit
+        ``request_id`` must keep them unique while in flight.
+
+        ``ssl=True`` speaks TLS (ALPN ``h2``), the server verified against
+        ``root_certificates`` (a PEM path; the system's roots when None),
+        with ``private_key`` and ``certificate_chain`` for mutual TLS.
+        ``creds`` (grpcio's ``ChannelCredentials``) raises: the port does
+        not use grpcio.
+
         ``keepalive_options`` (:class:`KeepAliveOptions`) sends HTTP/2
         PINGs on each connection; ``channel_args`` may set the
         ``grpc.max_send_message_length``, ``max_receive_message_length``
-        and ``primary_user_agent`` options. ``stream_mode``, ``ssl`` and
-        ``creds`` are not ported yet and raise."""
-        refuse_unported(stream_mode=stream_mode, ssl=ssl, creds=creds,
-                        root_certificates=root_certificates, private_key=private_key,
-                        certificate_chain=certificate_chain)
+        and ``primary_user_agent`` options."""
+        ssl_context = client_ssl_context(ssl, creds, root_certificates, private_key,
+                                         certificate_chain)
         super().__init__()
         self._verbose = verbose
+        self._stream_mode = stream_mode
+        self._mux = None
         self._pool = EndpointPool.resolve(
             url,
             urls,
@@ -140,6 +154,7 @@ class InferenceServerClient(InferenceServerClientBase):
         }
         options.update(dict(channel_args or ()))
         self._channel_options = options
+        self._ssl_context = ssl_context
         self._keepalive = keepalive_options
         self._channels: Dict[str, _h2.Channel] = {}
         self._stubs: Dict[str, GRPCInferenceServiceStub] = {}
@@ -162,6 +177,7 @@ class InferenceServerClient(InferenceServerClientBase):
                 max_receive_message_length=options[
                     "grpc.max_receive_message_length"
                 ],
+                ssl_context=self._ssl_context,
             )
             self._channels[url] = channel
         return channel
@@ -332,7 +348,73 @@ class InferenceServerClient(InferenceServerClientBase):
             description=f"gRPC {name}",
         )
 
+    def _use_mux(self, trace, headers, compression_algorithm) -> bool:
+        # per-request headers and compression need the unary path, and so
+        # does a sampled traceparent, which must ride per-request metadata
+        # that the long-lived stream cannot carry
+        return (self._stream_mode and headers is None and compression_algorithm is None
+                and not trace.traceparent)
+
+    async def _mux_infer(
+        self,
+        trace,
+        client_timeout,
+        idempotent: bool,
+        **kwargs,
+    ) -> InferResult:
+        """One multiplexed-stream infer under the retry/breaker rules,
+        with per-request endpoint-pool telemetry (the stream pins its
+        endpoint at open; every request brackets it); finishes ``trace``."""
+        if self._mux is None:
+            from client_tpu_torch.grpc._mux import AioStreamMultiplexer
+
+            self._mux = AioStreamMultiplexer(self)
+        mux = self._mux
+        pool = self._pool
+
+        async def _send(attempt_timeout):
+            mux._ensure_open()
+            endpoint = mux.endpoint
+            started = pool.begin(endpoint)
+            try:
+                value = await mux.infer(
+                    client_timeout=attempt_timeout, **kwargs
+                )
+            except InferenceServerException as e:
+                pool.finish(endpoint, started, ok=False)
+                if status_is_unavailable(e.status()):
+                    pool.observe(endpoint, token=e.status())
+                    if pool.has_alternative(endpoint):
+                        e.retry_backoff_cap_s = 0.0
+                raise
+            except BaseException:
+                pool.finish(endpoint, started, ok=False)
+                raise
+            pool.finish(endpoint, started, ok=True)
+            pool.observe(endpoint, ok=True)
+            return value
+
+        try:
+            response = await run_with_resilience_async(
+                trace.wrap_attempt_async(_send),
+                retry_policy=self._retry_policy,
+                circuit_breaker=self._circuit_breaker,
+                budget_s=client_timeout,
+                idempotent=idempotent,
+                description="gRPC mux ModelInfer",
+            )
+            with trace.stage("deserialize"):
+                result = InferResult(response)
+        except BaseException as e:
+            trace.finish(error=e)
+            raise
+        trace.finish()
+        return result
+
     async def close(self) -> None:
+        if self._mux is not None:
+            mux, self._mux = self._mux, None
+            await mux.close()
         # release pins of stream iterators the caller abandoned without
         # cancelling — the snapshot's pinned_streams must not outlive
         # the client that counted them
@@ -705,6 +787,10 @@ class InferenceServerClient(InferenceServerClientBase):
         trace = start_trace(
             self._tracer, "infer", surface="grpc", model=request.model_name
         )
+        if self._use_mux(trace, headers, compression_algorithm):
+            return await self._mux_infer(trace, client_timeout,
+                                         not _is_sequence_request(request),
+                                         prepared_request=request)
         if trace.traceparent:
             headers = {
                 **(headers or {}),
@@ -762,6 +848,24 @@ class InferenceServerClient(InferenceServerClientBase):
         trace = start_trace(
             self._tracer, "infer", surface="grpc", model=model_name
         )
+        if self._use_mux(trace, headers, compression_algorithm):
+            # serialization happens inside the mux (protobuf-free builder)
+            return await self._mux_infer(
+                trace,
+                client_timeout,
+                sequence_is_idempotent(sequence_id),
+                model_name=model_name,
+                inputs=inputs,
+                model_version=model_version,
+                request_id=request_id,
+                outputs=outputs,
+                parameters=parameters,
+                priority=priority,
+                timeout=timeout,
+                sequence_id=sequence_id,
+                sequence_start=sequence_start,
+                sequence_end=sequence_end,
+            )
         try:
             with trace.stage("serialize"):
                 request = get_inference_request(

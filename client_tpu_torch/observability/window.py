@@ -25,7 +25,7 @@ import bisect
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 __all__ = ["WindowSnapshot", "WindowedCounter", "WindowedHistogram"]
 

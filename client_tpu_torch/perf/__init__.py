@@ -10,9 +10,8 @@ stdlib-asyncio REST readers) or call a
 :class:`~client_tpu_torch.server.core.ServerCore` in-process. The harness
 never touches the card: it only speaks HTTP, gRPC and shared memory.
 
-Not ported yet: the multiplexed gRPC stream (``--stream-mode``),
-multi-process runs and in-process fleets; the CLI refuses their flags
-with exit code 2.
+Not ported yet: multi-process runs and in-process fleets; the CLI
+refuses their flags with exit code 2.
 """
 
 from client_tpu_torch.perf.records import (  # noqa: F401

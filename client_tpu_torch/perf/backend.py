@@ -334,8 +334,8 @@ class HttpPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
 
 class GrpcPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
     """The harness over the port's gRPC client
-    (:mod:`client_tpu_torch.grpc.aio`). ``stream_mode`` (the multiplexed
-    persistent stream) is not ported yet (ROADMAP Queue 1 item 4b)."""
+    (:mod:`client_tpu_torch.grpc.aio`). ``stream_mode`` sends every unary
+    infer over one multiplexed ``ModelStreamInfer`` stream."""
 
     kind = "grpc"
     supports_streaming = True
@@ -350,12 +350,16 @@ class GrpcPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
         stream_mode: bool = False,
         routing_policy=None,
         hedge_policy=None,
+        root_certificates=None,
     ):
         from client_tpu_torch.grpc import aio as grpcclient
 
         self._mod = grpcclient
+        self._stream_mode = stream_mode
         self._client = grpcclient.InferenceServerClient(
             url,
+            ssl=root_certificates is not None,
+            root_certificates=root_certificates,
             retry_policy=retry_policy,
             circuit_breaker=circuit_breaker,
             tracer=tracer,
@@ -427,7 +431,10 @@ class GrpcPerfBackend(_PreparedRequestCacheMixin, PerfBackend):
         timeout_us=None,
         cache_token=None,
     ):
-        if cache_token is not None:
+        if cache_token is not None and not self._stream_mode:
+            # stream mode skips the prepared-proto cache: the mux's
+            # protobuf-free builder memoizes templates itself, and a
+            # shared prepared proto would race the per-send correlation id
             request = self._get_or_build_prepared(
                 cache_token,
                 lambda: self._client.prepare_request(

@@ -176,8 +176,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--stream-mode",
         action="store_true",
-        help="gRPC only; refused: not ported yet",
+        help="push unary infers over one persistent multiplexed "
+        "ModelStreamInfer stream (gRPC only): correlation ids, "
+        "concurrent server-side execution, per-RPC setup amortized",
     )
+    # the C++ perf_analyzer's option of that name (gRPC only); it implies TLS
+    parser.add_argument("--ssl-grpc-root-certifications-file", default=None,
+                        help="gRPC over TLS (ALPN h2), the server verified "
+                        "against these PEM roots")
     parser.add_argument("--sequence-length", type=int, default=0)
     parser.add_argument("--num-of-sequences", type=int, default=4)
     parser.add_argument("-f", "--filename", default=None, help="CSV output")
@@ -403,9 +409,6 @@ def refusal(args) -> Optional[str]:
     """The one-line error for a flag whose piece the port lacks, naming
     that piece and its ROADMAP item; None when every flag is served."""
     refused = [
-        (args.stream_mode,
-         "--stream-mode: the multiplexed gRPC stream is not ported yet "
-         "(ROADMAP Queue 1 item 4b)"),
         (args.metrics_url is not None and "," in args.metrics_url,
          "--metrics-url with several replicas: the fleet view "
          "(observability/fleet.py) is not ported yet (ROADMAP Queue 1 "
@@ -606,6 +609,18 @@ async def run(args) -> int:
             backend_kwargs["routing_policy"] = args.routing_policy
         if args.hedge_after_s is not None:
             backend_kwargs["hedge_policy"] = args.hedge_after_s
+        if args.stream_mode:
+            if args.protocol != "grpc":
+                print("error: --stream-mode needs the gRPC protocol (-i grpc)",
+                      file=sys.stderr)
+                return 2
+            backend_kwargs["stream_mode"] = True
+        if args.ssl_grpc_root_certifications_file:
+            if args.protocol != "grpc":
+                print("error: --ssl-grpc-root-certifications-file needs the gRPC "
+                      "protocol (-i grpc)", file=sys.stderr)
+                return 2
+            backend_kwargs["root_certificates"] = args.ssl_grpc_root_certifications_file
         backend = create_backend(args.protocol, args.url, **backend_kwargs)
     if args.streaming and not backend.supports_streaming:
         if args.service_kind in ("tfserving", "torchserve"):

@@ -14,11 +14,19 @@ keyword when it declares one). Every model runs on ``--device`` (default
 
 ``--grpc-port`` adds the KServe v2 gRPC service on the native front-end
 (``server/native_frontend.py``; ``--grpc-frontend native`` or ``auto``,
-built with ``g++`` at first use); stdout then says ``serving gRPC on
-host:PORT (native)``. Unlike the reference, which always serves gRPC on
-8001, the port serves it only when asked. ``--grpc-frontend aio`` and the
-TLS flags exit 2: the grpc.aio server stands on grpcio, which the port
-does not import, and TLS is not ported yet.
+built with ``g++`` at first use). Unlike the reference, which always
+serves gRPC on 8001, the port serves it only when asked.
+``--grpc-tls-cert`` with ``--grpc-tls-key`` makes that port speak TLS
+(ALPN ``h2``), terminated in C++ through ``libssl.so.3``; when the
+library cannot be loaded or a PEM cannot be read the server exits 1 and
+its log names the cause: it never serves plaintext instead.
+``--grpc-frontend aio`` exits 2: the grpc.aio server stands on grpcio,
+which the port does not import.
+
+Startup is announced, as the reference announces it, only through the
+structured log (JSON lines on stderr): one ``model_state`` record a model,
+then ``server_started`` with ``host``, ``http_port``, ``grpc_port`` and
+``grpc_frontend``.
 
 On SIGTERM or SIGINT the server drains first: ``/v2/health/ready``
 answers 503 while ``/v2/health/live`` stays 200, new inferences get 503 +
@@ -51,9 +59,11 @@ def main(argv=None) -> int:
         "'aio' (grpc.aio) is not ported",
     )
     parser.add_argument("--grpc-tls-cert", default=None,
-                        help="PEM certificate chain for gRPC TLS (not ported)")
+                        help="PEM certificate chain: the native gRPC front-end "
+                        "terminates TLS itself (grpcs, ALPN h2); requires "
+                        "--grpc-tls-key")
     parser.add_argument("--grpc-tls-key", default=None,
-                        help="PEM private key for --grpc-tls-cert (not ported)")
+                        help="PEM private key for --grpc-tls-cert")
     parser.add_argument(
         "--model-repository",
         default=None,
@@ -95,9 +105,10 @@ def main(argv=None) -> int:
                      "(client_tpu/server/grpc_server.py) stands on grpcio, which the "
                      "port does not import, and is not ported (ROADMAP, "
                      "\"Not to port\"); use native")
-    if args.grpc_tls_cert or args.grpc_tls_key:
-        parser.error("--grpc-tls-cert/--grpc-tls-key: TLS is not ported yet "
-                     "(ROADMAP Queue 1 item 4c)")
+    if bool(args.grpc_tls_cert) != bool(args.grpc_tls_key):
+        parser.error("--grpc-tls-cert and --grpc-tls-key go together")
+    if args.grpc_tls_cert and args.grpc_port is None:
+        parser.error("--grpc-tls-cert needs --grpc-port")
 
     from client_tpu_torch.server.core import ServerCore
     from client_tpu_torch.server.http_server import serve_http
@@ -105,21 +116,28 @@ def main(argv=None) -> int:
 
     repository = build_repository(args.model_repository, builtin=not args.no_builtin_models,
                                   zoo=args.zoo_models, device=args.device)
-    for entry in repository.index():
-        print(f"model {entry['name']}: {entry['state']} {entry['reason']}".rstrip(),
-              flush=True)
     core = ServerCore(repository, max_workers=args.max_workers, device=args.device)
+    for entry in repository.index():
+        core.logger.info("model_state", model=entry["name"], state=entry["state"],
+                         reason=entry["reason"])
 
-    async def serve() -> None:
+    async def serve() -> int:
         server = await serve_http(core, args.host, args.http_port)
-        print(f"serving HTTP on {args.host}:{server.port}", flush=True)
         grpc_frontend, grpc_port = None, None
         if args.grpc_port is not None:
             from client_tpu_torch.server.native_frontend import serve_grpc_native
 
-            grpc_frontend, grpc_port = await serve_grpc_native(core, args.host,
-                                                               args.grpc_port)
-            print(f"serving gRPC on {args.host}:{grpc_port} (native)", flush=True)
+            try:
+                grpc_frontend, grpc_port = await serve_grpc_native(
+                    core, args.host, args.grpc_port, tls_cert=args.grpc_tls_cert,
+                    tls_key=args.grpc_tls_key)
+            except OSError as e:
+                # a TLS listener that cannot load libssl or its PEM never
+                # falls back to plaintext: the server does not start
+                core.logger.error("server_failed", error=str(e))
+                await server.close()
+                core.close()
+                return 1
         core.logger.info("server_started", host=args.host, http_port=server.port,
                          grpc_port=grpc_port,
                          grpc_frontend="native" if grpc_frontend else None)
@@ -139,9 +157,9 @@ def main(argv=None) -> int:
                 grpc_frontend.stop()
             await server.close()
             core.close()
+        return 0
 
-    asyncio.run(serve())
-    return 0
+    return asyncio.run(serve())
 
 
 if __name__ == "__main__":

@@ -43,7 +43,6 @@ import base64
 import binascii
 import gzip
 import json
-import logging
 import os
 import re
 import tempfile
@@ -77,8 +76,6 @@ from client_tpu_torch.utils import InferenceServerException, serialize_byte_tens
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 1 << 30
 HEADER_CONTENT_LENGTH = "Inference-Header-Content-Length"
-
-_log = logging.getLogger(__name__)
 
 
 class HttpError(Exception):
@@ -348,7 +345,9 @@ class HttpServer:
                 if request.streamed:
                     # the status is committed: all that is left is to
                     # cut the stream, which the client sees as truncated
-                    _log.exception("stream failed on %s", request.path)
+                    self.core.logger.error("stream_failed", exc=e,
+                                           rate_key=("stream_failed", request.path),
+                                           path=request.path, protocol="http")
                     raise ConnectionResetError("stream failed") from e
                 if isinstance(e, InferenceServerException):
                     return error_response(e)

@@ -4,8 +4,9 @@ An own copy of ``client_tpu/server/native_frontend.py``, over a plain C ABI
 (``csrc/frontend/grpc_frontend.cc``, built and bound by
 ``client_tpu_torch.frontend_build``) instead of a CPython extension.
 
-C++ owns the sockets, HTTP/2, HPACK, flow control, the gRPC framing,
-``grpc-timeout`` and the trailers; it hands up each whole request message
+C++ owns the sockets, TLS when asked for (``csrc/frontend/tls.cc``, ALPN
+``h2``), HTTP/2, HPACK, flow control, the gRPC framing, ``grpc-timeout``
+and the trailers; it hands up each whole request message
 as bytes through one event queue. This bridge:
 
 * runs one pump thread that drains that queue in batches
@@ -147,11 +148,21 @@ class NativeGrpcFrontend:
 
     # -- lifecycle -------------------------------------------------------------
 
-    def start(self, host: str = "0.0.0.0", port: int = 0) -> None:
-        err = ctypes.create_string_buffer(512)
-        fid = self._lib.ctpu_grpc_start(host.encode(), int(port), err, len(err))
+    def start(self, host: str = "0.0.0.0", port: int = 0,
+              tls_cert: Optional[str] = None, tls_key: Optional[str] = None) -> None:
+        """Bind and serve. ``tls_cert`` and ``tls_key`` (PEM paths) make the
+        port speak TLS with ALPN ``h2``; a context the C++ side cannot
+        build (no ``libssl.so.3``, a PEM it cannot read) raises OSError
+        naming the cause, and nothing is served."""
+        if bool(tls_cert) != bool(tls_key):
+            raise OSError("gRPC TLS needs both a certificate chain and a key")
+        err = ctypes.create_string_buffer(1024)
+        fid = self._lib.ctpu_grpc_start(
+            host.encode(), int(port), tls_cert.encode() if tls_cert else None,
+            tls_key.encode() if tls_key else None, err, len(err))
         if not fid:
-            raise OSError(f"gRPC front-end failed to start: {err.value.decode()}")
+            raise OSError(f"gRPC front-end failed to start: "
+                          f"{err.value.decode('utf-8', 'replace')}")
         self._id = fid
         self.port = self._lib.ctpu_grpc_port(fid)
         self._pump = threading.Thread(target=self._pump_loop, name="ctpu-grpc-pump",
@@ -448,9 +459,11 @@ class NativeGrpcFrontend:
         self._lib.ctpu_grpc_complete_rpc(handle, body, len(body), 0, None)
 
 
-async def serve_grpc_native(core: ServerCore, host: str = "0.0.0.0", port: int = 8001):
-    """Start the native gRPC front-end; returns (frontend, bound_port).
-    ``frontend.stop()`` is synchronous."""
+async def serve_grpc_native(core: ServerCore, host: str = "0.0.0.0", port: int = 8001,
+                            tls_cert: Optional[str] = None, tls_key: Optional[str] = None):
+    """Start the native gRPC front-end (over TLS with ``tls_cert`` and
+    ``tls_key``); returns (frontend, bound_port). ``frontend.stop()`` is
+    synchronous."""
     frontend = NativeGrpcFrontend(core, asyncio.get_running_loop())
-    frontend.start(host, port)
+    frontend.start(host, port, tls_cert=tls_cert, tls_key=tls_key)
     return frontend, frontend.port

@@ -6,7 +6,8 @@ thread of their own, so a test or a benchmark drives the full client /
 server path without a separate server process. ``grpc=True`` (or
 ``"native"``) adds the native gRPC front-end, as the reference's does;
 unlike the reference, gRPC is off by default, and ``"aio"`` (the grpc.aio
-server, on grpcio, which the port does not import) is refused. :meth:`InProcessServer.stop`
+server, on grpcio, which the port does not import) is refused;
+``tls=(cert, key)`` serves that port over TLS. :meth:`InProcessServer.stop`
 drains first, as the reference's does: readiness flips false, in-flight
 and queued work finishes inside the drain deadline, and only then do the
 front-ends and the core close.
@@ -34,6 +35,7 @@ class InProcessServer:
         drain_timeout_s: float = 5.0,
         grpc=False,
         grpc_port: int = 0,
+        tls=None,
     ):
         """``builtin_models`` installs the built-in models on ``device``
         (``cuda`` unless the caller passes ``"cpu"``; with no card the
@@ -42,12 +44,16 @@ class InProcessServer:
         its predecessor's so it comes back at the same address.
         ``drain_timeout_s`` bounds the graceful half of :meth:`stop`.
         ``grpc`` True or ``"native"`` starts the native gRPC front-end on
-        ``grpc_port`` (0: any free port)."""
+        ``grpc_port`` (0: any free port); ``tls=(cert_path, key_path)``
+        makes that port speak TLS (ALPN ``h2``), and a pair the front-end
+        cannot load fails :meth:`start`."""
         if grpc == "aio":
             raise ValueError("the grpc.aio server stands on grpcio and is not ported; "
                              "use grpc='native'")
         if grpc not in (True, False, "native"):
             raise ValueError(f"grpc must be True, False or 'native', not {grpc!r}")
+        if tls is not None and not grpc:
+            raise ValueError("tls= needs the gRPC front-end (grpc=True)")
         if core is None:
             core = ServerCore(ModelRepository(), device=device)
         self.core = core
@@ -59,6 +65,7 @@ class InProcessServer:
         self._http_bind_port = http_port
         self.grpc_impl: Optional[str] = "native" if grpc else None
         self._grpc_bind_port = grpc_port
+        self._tls = tuple(tls) if tls is not None else None
         self.grpc_port: Optional[int] = None
         self._drain_timeout_s = drain_timeout_s
         self.http_port: Optional[int] = None
@@ -104,8 +111,10 @@ class InProcessServer:
             if self.grpc_impl:
                 from client_tpu_torch.server.native_frontend import serve_grpc_native
 
+                cert, key = self._tls or (None, None)
                 grpc_frontend, self.grpc_port = await serve_grpc_native(
-                    self.core, self._host, self._grpc_bind_port)
+                    self.core, self._host, self._grpc_bind_port, tls_cert=cert,
+                    tls_key=key)
         except BaseException:
             await server.close()
             raise
@@ -131,7 +140,7 @@ class InProcessServer:
         """Drain (bounded by the server's ``drain_timeout_s``), then close
         the front-end and its connections and the core (on the server's
         loop; again here, idempotently, if it never started)."""
-        if self._loop is not None and self._stop is not None:
+        if self._loop is not None and self._stop is not None and not self._loop.is_closed():
             self._loop.call_soon_threadsafe(self._stop.set)
         if self._thread is not None:
             self._thread.join(timeout=self._drain_timeout_s + 30)

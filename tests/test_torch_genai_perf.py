@@ -12,7 +12,14 @@ package's (``client_tpu.genai_perf``).
   server holding the tiny fp32 ``llm_engine`` on the CPU (weights from
   ``params_from_jax``): every request's token events equal its
   ``max_tokens``, and the server books every stream.
-- The ``kserve*`` endpoint types, which ride gRPC in the reference, exit 2.
+- ``--service-kind triton --endpoint-type kserve-ids --streaming`` over
+  the port's gRPC, held to the reference's genai-perf over the
+  reference's gRPC server on the same tiny fp32 weights (32000 tokens, so
+  the synthetic tokenizer's ids fit): every prompt gets the same token
+  ids, every request one response timestamp a token; with speculation on,
+  the JSON summary carries the engine's counter delta, read from the model
+  config over gRPC (``fetch_spec_stats``), which the port's client renders
+  as protobuf's ``MessageToDict`` does.
 """
 
 import io
@@ -410,6 +417,170 @@ def test_the_harness_times_an_openai_stream_event_by_event(llm_server, tmp_path,
     ["--endpoint-type", "kserve-text"],
 ])
 def test_kserve_endpoint_types_are_refused(flags, capsys):
-    assert main.main(["-m", "llm_decode", "-u", "127.0.0.1:9"] + flags) == 2
+    """No longer refused: the KServe endpoints go to the harness over gRPC,
+    which fails here only because nothing listens at the address, as the
+    reference's genai-perf fails there."""
+    argv = ["-m", "llm_decode", "-u", "127.0.0.1:9", "--measurement-interval", "100",
+            "--max-trials", "1"] + flags
+    code = main.main(argv)
     err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 4" in err and "--service-kind openai" in err
+    assert code == jax_main.main(argv) == 1
+    assert "ROADMAP" not in err and "failed to connect" in err
+
+
+# ---------------------------------------------------------------------------
+# KServe over gRPC: the port's genai-perf against the reference's
+# ---------------------------------------------------------------------------
+
+KSERVE_VOCAB = 32000  # the synthetic tokenizer's ids are < 32000
+KSERVE_SIZING = dict(block_size=8, num_blocks=1 + 8 * 8, max_active=8, max_queue=32,
+                     max_seq_len=64)
+KSERVE_ARGS = ["-m", "llm_engine", "--service-kind", "triton", "--endpoint-type",
+               "kserve-ids", "--streaming", "--tokenizer", "synthetic", "--num-prompts", "6",
+               "--synthetic-input-tokens-mean", "12", "--output-tokens-mean", "6",
+               "--concurrency", "2", "--stability-percentage", "100", "--max-trials", "2",
+               "--json-summary"]
+
+
+@pytest.fixture(scope="module")
+def kserve_weights():
+    config = jax_llama.LlamaConfig.tiny(max_seq_len=64, dtype=jnp.float32,
+                                        vocab_size=KSERVE_VOCAB)
+    return config, jax.jit(lambda key: jax_llama.init_params(key, config))(
+        jax.random.PRNGKey(0))
+
+
+def _port_engine(kserve_weights, **kwargs):
+    _, jax_params = kserve_weights
+    return LlmEngineModel(
+        config=llama.LlamaConfig.tiny(max_seq_len=64, dtype=torch.float32,
+                                      vocab_size=KSERVE_VOCAB),
+        params=llama.params_from_jax(jax.tree.map(np.asarray, jax_params), device="cpu"),
+        engine_config=EngineConfig(**KSERVE_SIZING), device="cpu", **kwargs)
+
+
+def _record_streams(core, log):
+    """Wrap ``core.infer_decoupled``: each request's input ids -> the token
+    ids its responses carried."""
+    inner = core.infer_decoupled
+
+    async def recorded(request, *args, **kwargs):
+        ids = tuple(int(v) for v in np.asarray(request.inputs[0].data).reshape(-1))
+        out = []
+        async for response in inner(request, *args, **kwargs):
+            for tensor in response.outputs:
+                if tensor.name == "OUTPUT_IDS":
+                    out.extend(int(v) for v in np.asarray(tensor.data).reshape(-1))
+            yield response
+        log.setdefault(ids, []).append(out)
+
+    core.infer_decoupled = recorded
+
+
+def _genai_run(package_main, url, artifact_dir, capsys, extra=(), window_ms=300):
+    """One genai-perf run; the JAX engine compiles in its first requests,
+    so its windows are longer."""
+    code = package_main.main(KSERVE_ARGS + ["-u", url, "--artifact-dir", str(artifact_dir),
+                                            "--measurement-interval", str(window_ms),
+                                            *extra])
+    out = capsys.readouterr().out
+    assert code == 0, out
+    summary = json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+    requests = json.loads((artifact_dir / "profile_export.json").read_text())[
+        "experiments"][0]["requests"]
+    return summary, requests
+
+
+def test_genai_perf_kserve_ids_over_grpc_gives_the_references_token_ids(
+        kserve_weights, tmp_path, capsys):
+    from client_tpu.llm.engine import EngineConfig as JaxEngineConfig
+    from client_tpu.llm.serving import LlmEngineModel as JaxLlmEngineModel
+    from client_tpu.testing import InProcessServer as JaxServer
+
+    config, jax_params = kserve_weights
+    logs = {"port": {}, "ref": {}}
+    port_server = InProcessServer(builtin_models=False, device="cpu", grpc=True)
+    port_server.core.repository.add_model(_port_engine(kserve_weights))
+    ref_server = JaxServer(builtin_models=False, grpc="aio")
+    ref_server.core.repository.add_model(JaxLlmEngineModel(
+        config=config, params=jax_params, engine_config=JaxEngineConfig(**KSERVE_SIZING)))
+    _record_streams(port_server.core, logs["port"])
+    _record_streams(ref_server.core, logs["ref"])
+    port_server.start()
+    ref_server.start()
+    try:
+        (tmp_path / "port").mkdir()
+        (tmp_path / "ref").mkdir()
+        ours, port_requests = _genai_run(main, port_server.grpc_url, tmp_path / "port",
+                                         capsys)
+        theirs, ref_requests = _genai_run(jax_main, ref_server.grpc_url, tmp_path / "ref",
+                                          capsys, window_ms=3000)
+    finally:
+        port_server.stop()
+        ref_server.stop()
+    # the same corpus, and every prompt the same greedy tokens on both sides
+    assert (tmp_path / "port" / "llm_inputs.json").read_bytes() == (
+        tmp_path / "ref" / "llm_inputs.json").read_bytes()
+    for package, log in logs.items():
+        assert len(log) == 6, package
+        assert all(len(set(map(tuple, runs))) == 1 for runs in log.values()), package
+    assert {k: v[0] for k, v in logs["port"].items()} == {
+        k: v[0] for k, v in logs["ref"].items()}
+    # one response timestamp a token in every request (max_tokens reached
+    # the engine over gRPC), and the summary has no spec delta
+    for requests in (port_requests, ref_requests):
+        assert requests and all(r["success"] and len(r["response_timestamps"]) == 6
+                                for r in requests)
+    assert ours["output_tokens_avg"] == theirs["output_tokens_avg"] == 6.0
+    assert set(ours) == set(theirs) and "tokens_per_step" not in ours
+
+
+def test_genai_perf_kserve_summary_carries_the_spec_delta(kserve_weights, tmp_path, capsys):
+    """Self-drafting speculation (K=3): the summary's tokens per step and
+    acceptance are the engine's own counter deltas over the run."""
+    model = _port_engine(kserve_weights,
+                         speculation={"mode": "draft", "draft": "self", "k": 3})
+    server = InProcessServer(builtin_models=False, device="cpu", grpc=True)
+    server.core.repository.add_model(model)
+    server.start()
+    try:
+        before = model.engine.stats()
+        summary, requests = _genai_run(main, server.grpc_url, tmp_path, capsys,
+                                       extra=["--speculation", "on"])
+        after = model.engine.stats()
+        fetched = main.fetch_spec_stats(server.grpc_url, "llm_engine")
+    finally:
+        server.stop()
+    delta = {key: after[key] - before[key] for key in after if key in before}
+    assert delta["spec_proposed"] > 0
+    assert summary["tokens_per_step"] == round(
+        delta["step_tokens"] / max(1, delta["lane_steps"]), 3)
+    assert summary["spec_acceptance_rate"] == round(
+        delta["spec_accepted"] / max(1, delta["spec_proposed"]), 3) == 1.0
+    assert fetched and fetched == {key: after[key] for key in fetched}
+    assert requests and all(len(r["response_timestamps"]) == 6 for r in requests)
+
+
+def test_the_model_config_renders_as_protobuf_renders_it(kserve_weights):
+    """``get_model_config(as_json=True)``, where ``fetch_spec_stats``
+    reads ``config.parameters.speculation_stats.string_value``: the port's
+    client gives protobuf's ``MessageToDict`` output (the reference's
+    grpcio client on the same server)."""
+    import client_tpu.grpc as ref_grpc
+    import client_tpu_torch.grpc as port_grpc
+
+    server = InProcessServer(builtin_models=False, device="cpu", grpc=True)
+    server.core.repository.add_model(_port_engine(kserve_weights,
+                                                  speculation={"mode": "ngram", "k": 4}))
+    server.start()
+    try:
+        docs = []
+        for module in (port_grpc, ref_grpc):
+            client = module.InferenceServerClient(server.grpc_url)
+            docs.append(client.get_model_config("llm_engine", as_json=True))
+            client.close()
+    finally:
+        server.stop()
+    assert docs[0] == docs[1]
+    stats = json.loads(docs[0]["config"]["parameters"]["speculation_stats"]["string_value"])
+    assert {"spec_proposed", "spec_accepted", "step_tokens", "lane_steps"} <= set(stats)

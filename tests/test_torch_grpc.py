@@ -706,15 +706,18 @@ def test_llm_engine_streams_over_grpc_and_a_cancel_frees_its_blocks():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags,needle", [
-    (["--grpc-frontend", "aio"], "Not to port"),
-    (["--grpc-tls-cert", "c.pem", "--grpc-tls-key", "k.pem"], "item 4c"),
+@pytest.mark.parametrize("flags,needle,code", [
+    (["--grpc-frontend", "aio"], "Not to port", 2),
+    (["--grpc-tls-cert", "c.pem", "--grpc-tls-key", "k.pem"], "c.pem", 1),
 ])
-def test_server_cli_refuses_unported_grpc_flags(flags, needle):
+def test_server_cli_refuses_unported_grpc_flags(flags, needle, code):
+    """``--grpc-frontend aio`` is refused (the grpc.aio server is not to
+    be ported); the TLS flags are served now, so a certificate that does
+    not exist stops the server, its log naming the file."""
     proc = subprocess.run(
         [sys.executable, "-m", "client_tpu_torch.server", "--device", "cpu", "--grpc-port", "0",
-         *flags], cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and needle in proc.stderr, proc.stderr
+         "--http-port", "0", *flags], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == code and needle in proc.stderr, proc.stderr
 
 
 @pytest.mark.parametrize("shm_kind", ["none", "system", "shm_tpu"])
@@ -736,19 +739,19 @@ def test_perf_harness_over_grpc(shm_kind, servers, capsys):
 
 def test_server_cli_serves_grpc(tmp_path):
     """``python -m client_tpu_torch.server --grpc-port 0`` says where it
-    serves gRPC, ``(native)``, and answers there."""
-    import re
-
+    serves gRPC in its ``server_started`` record (``grpc_frontend``
+    ``native``), as the reference's does, and answers there."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "client_tpu_torch.server", "--device", "cpu", "--http-port", "0",
-         "--grpc-port", "0", "--host", "127.0.0.1"], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.DEVNULL, text=True)
+         "--grpc-port", "0", "--host", "127.0.0.1"], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
     try:
         port = None
-        for line in proc.stdout:
-            match = re.search(r"serving gRPC on [^:]+:(\d+) \(native\)", line)
-            if match:
-                port = int(match.group(1))
+        for line in proc.stderr:
+            if '"server_started"' in line:
+                started = json.loads(line)
+                assert started["grpc_frontend"] == "native"
+                port = started["grpc_port"]
                 break
         assert port is not None
         client = port_grpc.InferenceServerClient(f"127.0.0.1:{port}")

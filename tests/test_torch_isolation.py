@@ -6,8 +6,10 @@
   ``google`` (protobuf) or ``client_tpu``.
 - A subprocess in which importing ``jax``, ``aiohttp``, ``grpc``,
   ``google`` or ``client_tpu`` fails imports every module of the port
-  (the perf harness's CLI, genai-perf's and the gRPC client and server
-  among them).
+  (the perf harness's CLI, genai-perf's, the gRPC client with its
+  multiplexed stream and the server among them).
+- The C++ front-end includes no OpenSSL header: its TLS reaches
+  ``libssl.so.3`` through ``dlopen`` alone.
 - On a host with no card, an entry point called without
   ``device="cpu"`` (the LLM engine, the text encoder, the image
   classifier, the built-in models, ``llm_decode``, the server's device
@@ -73,7 +75,7 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.grpc._generated.grpc_service_pb2",
                  "client_tpu_torch.grpc._generated.model_config_pb2",
                  "client_tpu_torch.server._grpc_codec", "client_tpu_torch.server.native_frontend",
-                 "client_tpu_torch.frontend_build")
+                 "client_tpu_torch.frontend_build", "client_tpu_torch.grpc._mux")
 
 
 def _port_files():
@@ -126,6 +128,17 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("imported")
+
+
+def test_the_front_end_includes_no_openssl_header():
+    import re
+
+    sources = sorted((PORT / "csrc" / "frontend").glob("*.[ch]*"))
+    assert {p.name for p in sources} >= {"tls.cc", "tls.h", "h2_server.cc", "grpc_frontend.cc"}
+    includes = [(p.name, line) for p in sources for line in p.read_text().splitlines()
+                if re.match(r"\s*#\s*include\s*[<\"]openssl/", line)]
+    assert includes == []
+    assert 'dlopen("libssl.so.3"' in (PORT / "csrc" / "frontend" / "tls.cc").read_text()
 
 
 @pytest.fixture

@@ -832,7 +832,6 @@ def test_server_cli_drains_on_sigterm(tmp_path):
     SIGTERM drains (ready 503, live 200), logs ``drain_started`` and
     ``drain_completed``, and exits 0."""
     import os
-    import re
     import signal
     import subprocess
     import sys
@@ -856,10 +855,9 @@ def test_server_cli_drains_on_sigterm(tmp_path):
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         port = None
-        for line in proc.stdout:
-            match = re.search(r"serving HTTP on [^:]+:(\d+)", line)
-            if match:
-                port = int(match.group(1))
+        for line in proc.stderr:
+            if '"server_started"' in line:
+                port = json.loads(line)["http_port"]
                 break
         assert port is not None
         url = f"127.0.0.1:{port}"

@@ -18,9 +18,13 @@
   the reference's, and a CPU-only ``torch.profiler`` capture writes a
   Chrome trace inside the temp directory and nowhere else.
 - ``tools/metric_lint.py`` and ``tools/clock_lint.py`` find nothing in
-  the port's ``server/metrics.py`` and ``observability/``.
+  the port's ``server/metrics.py`` and ``observability/`` (the clock lint
+  nothing in ``grpc/_mux.py`` either), ``tools/log_lint.py`` nothing in
+  its ``server/`` and ``observability/``, and ``tools/lint.py``'s
+  unused-import check nothing in ``client_tpu_torch/``.
 """
 
+import ast
 import http.client
 import json
 import os
@@ -51,6 +55,8 @@ from client_tpu_torch.testing import InProcessServer
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import clock_lint  # noqa: E402
+import lint  # noqa: E402
+import log_lint  # noqa: E402
 import metric_lint  # noqa: E402
 
 torch.set_num_threads(1)
@@ -416,5 +422,21 @@ def test_lints_find_nothing_in_the_port():
     files = sorted((ROOT / "client_tpu_torch" / "observability").glob("*.py"))
     assert {f.name for f in files} >= {"metrics.py", "window.py", "slo.py", "recorder.py",
                                        "logging.py", "server.py", "profiling.py", "trace.py"}
-    for path in files + [ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py"]:
+    # the reference's clock lint pins its multiplexer too (TARGET_FILES)
+    for path in files + [ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py",
+                         ROOT / "client_tpu_torch" / "grpc" / "_mux.py"]:
         assert clock_lint.check_source(path.read_text(), str(path)) == [], path.name
+    # the structured-logging lint over the directories the reference's
+    # covers in its own package: no bare print(), no stdlib logging
+    for directory in ("server", "observability"):
+        for path in sorted((ROOT / "client_tpu_torch" / directory).glob("*.py")):
+            assert log_lint.check_source(path.read_text(), str(path)) == [], path.name
+    # and the unused-import check over the whole port
+    unused = []
+    for path in sorted((ROOT / "client_tpu_torch").rglob("*.py")):
+        if "_generated" in path.parts:
+            continue
+        source = path.read_text()
+        unused += [(path.name, name, line) for name, line in
+                   lint.unused_imports(ast.parse(source, filename=str(path)), source)]
+    assert unused == []

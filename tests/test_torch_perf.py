@@ -965,8 +965,6 @@ def test_openai_transport_errors_are_inference_server_exceptions():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-i", "grpc", "--stream-mode"], "item 4"),
-    (["--stream-mode"], "item 4"),
     (["--metrics-url", "localhost:8000,localhost:8001"], "item 7"),
     (["--fleet", "2"], "item 7"),
     (["--world-size", "2"], "item 7"),
@@ -1052,10 +1050,19 @@ def test_observability_flags_cross_the_packages(servers, harness, server, capsys
     assert summary["server_batch_avg"] >= 1 and summary["server_stage_cpu_us"]["compute"] > 0
 
 
+# the C++ perf_analyzer's TLS option, which the port's harness adds for gRPC
+# over TLS (the reference's Python harness has no TLS)
+CXX_TLS_FLAG = "--ssl-grpc-root-certifications-file"
+
+
 def test_every_reference_flag_is_parsed():
     port_flags = {o for a in cli.build_parser()._actions for o in a.option_strings}
     ref_flags = {o for a in jax_cli.build_parser()._actions for o in a.option_strings}
-    assert port_flags == ref_flags
+    assert port_flags - {CXX_TLS_FLAG} == ref_flags
+    assert CXX_TLS_FLAG in port_flags
+    cxx_cli = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "native", "perf", "cli.cc")).read()
+    assert f'"{CXX_TLS_FLAG}"' in cxx_cli
 
 
 def test_world_size_from_the_environment_is_refused(monkeypatch, capsys):
