@@ -191,6 +191,37 @@ result line:
    read over gRPC equal the engine's, at least half the steps and one per
    request are verify steps, and K2 launched >= 32 x verify steps
    (``genai 13d:``).
+14. fault injection and engine recovery: (a) inside phase 4, after 13c,
+   two rounds of phase 4's 8 streams on its 7B engine: once every stream
+   has 4 tokens, a decode step asks the card for more memory than it has
+   (a genuine ``torch.OutOfMemoryError``), then, on the recovered engine,
+   the engine is quarantined from another thread with its reload held
+   while a ninth stream is refused 503 with ``Retry-After`` and the
+   OpenAI error body and a tenth, over gRPC with ``recovery: fail``,
+   gets the error; each time the controller reloads the engine (a new
+   pool beside the quarantined one), the 8 survivors re-prefill and
+   finish equal to phase 4's (or part at a dense-forward near-tie, 11a's
+   rule) with no client error, ``describe()`` reads READY with 1 then 2
+   recoveries, ``tpu_recovery_total{tier="engine",outcome="success"}``
+   rises by 2, every KV block comes back, K1 launches >= 32 x decode
+   steps and the quarantined pools are freed (``recovery 14a:``,
+   fault-to-READY, the longest token gap, peak and settled memory,
+   ``tpu_server_state`` sampled); (b) a spawned ``--model-repository``
+   server whose ``llm_engine`` (7B widths, 2 layers) hits a device-side
+   assert with 4 streams in flight: every stream fails with the OpenAI
+   error inside 10 s, every reload fails on the poisoned context, the
+   controller reads FAILED after its attempts and
+   ``tpu_recovery_total{...,outcome="failed"}`` is 1, the routes that
+   still answer are recorded, and SIGTERM ends the process inside its
+   drain timeout (``recovery 14b:``); (c) beside 7b, ``InProcessServer``
+   with ``ChaosPolicy(error_rate=0.3)`` and a second with
+   ``reset_rate=0.15, truncate_rate=0.15``, both serving ``simple`` and
+   7b's ResNet-50 on the card: from 4 client processes with the
+   reference's retry policy 100 ``simple`` requests answer exactly and 64
+   images within 7b's 2 %, the servers booking only the requests that
+   reached the model; without a policy every run fails with 503; the
+   harness at ``-b 1`` c=8 with ``--max-error-rate 0.5`` sees about 30 %
+   errors, beside the same load on 7b's server (``chaos 14c:``).
 
 The last two lines are the card's name and power limit and the result
 object; the line before them lists every kernel with its numbers.
@@ -869,6 +900,7 @@ def serve_7b() -> tuple:
         lifecycle = lifecycle_7b(port, model, config, [r["tokens"] for r in records])
         over_grpc = grpc_7b(port, model, config, [r["tokens"] for r in records])
         kserve_grpc = genai_grpc_13c(port, model, config, served_by_harness)
+        recovered = recovery_7b(port, model, config, [r["tokens"] for r in records])
 
     result = latency(records, wall)
     result.update(decode_steps=decode_steps, k1_launches=launches,
@@ -878,6 +910,7 @@ def serve_7b() -> tuple:
     result["lifecycle_11a"] = lifecycle
     result["grpc_12c"] = over_grpc
     result["genai_13c"] = kserve_grpc
+    result["recovery_14a"] = recovered
     params = model._params
     # only one 17 GB pool at a time: drop this engine and its pool
     model.engine = None
@@ -1719,7 +1752,9 @@ def classifier_resnet50() -> dict:
         procs = image_procs(port, images, check, runs)
         harness = perf_image(port)
         metrics_10c = image_metrics(port)
+        chaos = chaos_14c(port, model, images, check)
     result = {"runs": runs, "procs": procs, "perf_9ab": harness, "metrics_10c": metrics_10c,
+              "chaos_14c": chaos,
               "load_s": load_s, "warmup_s": warmup_s,
               "parameters": count, "max_err_share_of_limit": worst[0],
               "least_gap_share_of_limit": distinct / 2e-2}
@@ -2261,8 +2296,57 @@ def _grpc_mux_task(barrier, plain_url, tls_url, roots, image, worker=0):
     yield checks
 
 
+CHAOS_SIMPLE = 100
+CHAOS_IMAGES = 64
+CHAOS_PROCS = 4
+CHAOS_ROUNDS = ("errors", "cuts", "errors_no_policy")
+
+
+def _chaos_task(barrier, runs, worker, images):
+    """Phase 14c's client process: for each ``(url, with_policy)`` of
+    ``runs``, once every process is ready, ``CHAOS_SIMPLE / CHAOS_PROCS``
+    ``simple`` requests (checked exactly) and then ``images`` through
+    ``image_classifier`` over inline binary, with the reference's chaos
+    retry policy or none. Without a policy the first failure ends the run
+    and its status goes back."""
+    import numpy as np
+
+    from client_tpu_torch.resilience import RetryPolicy
+    from client_tpu_torch.utils import InferenceServerException
+
+    for url, with_policy in runs:
+        policy = (RetryPolicy(max_attempts=10, initial_backoff_s=0.001, max_backoff_s=0.002)
+                  if with_policy else None)
+        wrong, answers, failed = 0, {}, None
+        with client_http.InferenceServerClient(url, network_timeout=600,
+                                               retry_policy=policy) as client:
+            barrier.wait(300)
+            try:
+                for i in range(CHAOS_SIMPLE // CHAOS_PROCS):
+                    a = (np.arange(16, dtype=np.int32) + 100 * worker + i).reshape(1, 16)
+                    b = np.full([1, 16], 3, dtype=np.int32)
+                    x = client_http.InferInput("INPUT0", [1, 16], "INT32")
+                    x.set_data_from_numpy(a)
+                    y = client_http.InferInput("INPUT1", [1, 16], "INT32")
+                    y.set_data_from_numpy(b)
+                    result = client.infer("simple", [x, y])
+                    if not ((result.as_numpy("OUTPUT0") == a + b).all()
+                            and (result.as_numpy("OUTPUT1") == a - b).all()):
+                        wrong += 1
+                for i, image in images.items():
+                    x = client_http.InferInput("INPUT", list(image.shape), "FP32")
+                    x.set_data_from_numpy(image)
+                    answers[i] = client.infer("image_classifier", [x]).as_numpy("OUTPUT")
+            except InferenceServerException as e:
+                if with_policy:
+                    raise
+                failed = {"status": e.status(), "message": e.message()[:120]}
+        yield {"wrong": wrong, "answers": answers, "failed": failed}
+
+
 CLIENT_TASKS = {"load": _load_task, "correctness": _correctness_task,
-                "grpc_correctness": _grpc_correctness_task, "grpc_mux": _grpc_mux_task}
+                "grpc_correctness": _grpc_correctness_task, "grpc_mux": _grpc_mux_task,
+                "chaos": _chaos_task}
 
 
 def run_client_processes(task, arglist, on_round, rounds=1):
@@ -4236,6 +4320,619 @@ def _genai_13d_run(genai_main, grpc_port, engine, config) -> dict:
                 spec_delta=delta, k1_launches=k1_launches, k2_launches=k2_launches)
 
 
+# -- phase 14: fault injection and engine recovery ----------------------------
+
+
+def _wait_for(predicate, timeout_s, what) -> None:
+    """Poll ``predicate`` every 2 ms until it holds; fails after
+    ``timeout_s`` naming ``what``."""
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {what} after {timeout_s} s")
+        time.sleep(0.002)
+
+
+def _stream_live(port, prompt, max_tokens, record) -> None:
+    """One streaming chat completion for ``llm_engine`` whose ``record``
+    fills while it runs: ``tokens`` and one ``stamps`` entry a token event
+    as they arrive, then ``status`` and ``done``; the first in-band error's
+    message in ``error`` with its time in ``error_at``; for a refused
+    request its ``Retry-After`` and ``body``. The server's answer never
+    raises here: the caller holds it to what it expects."""
+    record.update(tokens=[], stamps=[], status=None, done=False, error=None)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        body = json.dumps({"model": "llm_engine", "stream": True, "max_tokens": max_tokens,
+                           "messages": [{"role": "user", "content": prompt}]})
+        record["start"] = time.perf_counter()
+        conn.request("POST", "/v1/chat/completions", body=body,
+                     headers={"Content-Type": "application/json"})
+        response = conn.getresponse()
+        record["status"] = response.status
+        if response.status != 200:
+            record.update(retry_after=response.getheader("Retry-After"),
+                          body=response.read().decode(errors="replace"))
+            return
+        while True:
+            line = response.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                record["done"] = True
+                continue
+            event = json.loads(payload)
+            if "error" in event:
+                if record["error"] is None:
+                    record.update(error=event["error"].get("message", ""),
+                                  error_at=time.perf_counter())
+                continue
+            content = event["choices"][0].get("delta", {}).get("content")
+            if content:
+                record["stamps"].append(time.perf_counter())
+                record["tokens"].extend(int(t[3:]) for t in content.split())
+    except (OSError, http.client.HTTPException) as e:
+        record.update(error=f"transport: {e!r}", error_at=time.perf_counter())
+    finally:
+        conn.close()
+
+
+def _grpc_stream_fail(grpc_port, ids, max_tokens, record) -> None:
+    """One ``ModelStreamInfer`` stream for ``llm_engine`` with the request
+    parameter ``recovery: fail``, through the port's aio gRPC client, on a
+    thread of its own: ``record`` gets its tokens and its first in-band
+    error."""
+    import numpy as np
+
+    import client_tpu_torch.grpc.aio as grpc_aio
+
+    async def run():
+        client = grpc_aio.InferenceServerClient(f"127.0.0.1:{grpc_port}")
+        x = grpc_aio.InferInput("INPUT_IDS", [len(ids)], "INT32")
+        x.set_data_from_numpy(np.array(ids, dtype=np.int32))
+
+        async def requests():
+            yield {"model_name": "llm_engine", "inputs": [x],
+                   "parameters": {"max_tokens": max_tokens, "recovery": "fail"}}
+
+        try:
+            async for result, error in client.stream_infer(requests()):
+                if error is not None:
+                    record["error"] = error.message()
+                    break
+                out = result.as_numpy("OUTPUT_IDS")
+                if out is not None:
+                    record["tokens"].extend(int(t) for t in out.reshape(-1))
+                final = result.get_response().parameters.get("triton_final_response")
+                if final is not None and final.bool_param:
+                    break
+        finally:
+            await client.close()
+
+    record.update(tokens=[], error=None)
+    asyncio.run(run())
+
+
+class _StateSampler:
+    """Reads ``tpu_server_state`` from ``/metrics`` in a loop on a thread
+    of its own until :meth:`stop`; ``seen`` counts each value read."""
+
+    def __init__(self, port):
+        self.port, self.seen = port, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            status, _, text = _http(self.port, "/metrics")
+            match = re.search(r"^tpu_server_state (\S+)$", text, re.M)
+            value = match.group(1) if status == 200 and match else f"status {status}"
+            self.seen[value] = self.seen.get(value, 0) + 1
+            time.sleep(0.005)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(30)
+        return self.seen
+
+
+def _recovery_total(port, outcome) -> float:
+    from client_tpu_torch.observability.metrics import counter_total
+
+    return counter_total(_scrape(port).get("tpu_recovery_total"),
+                         {"tier": "engine", "outcome": outcome})
+
+
+def _count_prefills(model, counts) -> None:
+    """From now on every engine ``model`` builds counts its prefills in
+    ``counts`` (one entry an engine, in the order built); a warmup's probe
+    prefills, all zero tokens, are not counted."""
+    build = type(model)._build_device_fns
+
+    def counted(*args):
+        prefill, decode, decode_multi = build(model, *args)
+        counts.append(0)
+        slot = len(counts) - 1
+
+        def prefill_counted(tokens, *rest):
+            if tokens.any():
+                counts[slot] += 1
+            return prefill(tokens, *rest)
+
+        return prefill_counted, decode, decode_multi
+
+    model._build_device_fns = counted
+
+
+def _longest_gap_ms(records, t_fault) -> float:
+    """The longest gap between two token events of any stream that spans
+    ``t_fault`` (the fault falls inside it)."""
+    gaps = [b - a for r in records for a, b in zip(r["stamps"], r["stamps"][1:])
+            if a <= t_fault < b]
+    return 1e3 * max(gaps) if gaps else 0.0
+
+
+RECOVERY_MIN_TOKENS = 4
+
+
+def _recovery_round(port, grpc_port, model, config, plain_streams, fault) -> dict:
+    """One round of 14a: phase 4's 8 streams; once each has
+    ``RECOVERY_MIN_TOKENS`` tokens the engine faults — ``oom``: the next
+    decode call asks the card for more than it holds, a genuine
+    ``torch.OutOfMemoryError`` inside the step; ``quarantine``: the
+    reference's induced path, ``engine.quarantine`` from this thread, with
+    the reload held until a ninth stream has been refused 503 with
+    ``Retry-After`` and the debug state read, and a tenth stream over
+    gRPC with ``recovery: fail`` queued behind the 8. The controller
+    reloads the engine and the 8 resume."""
+    from client_tpu_torch.llm import recovery
+
+    controller = model._recovery
+    engine = model.engine
+    steps0 = engine.steps
+    recoveries0 = controller.recoveries
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _prompts()
+    records = [dict() for _ in prompts]
+    threads = [threading.Thread(target=_stream_live, args=(port, p, SERVE_TOKENS, r))
+               for p, r in zip(prompts, records)]
+    for thread in threads:
+        thread.start()
+    _wait_for(lambda: all(r.get("tokens") for r in records), 300, "first token a stream")
+    extra, gate, tenth = {}, threading.Event(), {}
+    if fault == "quarantine":
+        from client_tpu_torch.genai_perf.tokenizer import SyntheticTokenizer
+
+        ids = SyntheticTokenizer(config.vocab_size).encode(prompts[2])
+        tenth_thread = threading.Thread(target=_grpc_stream_fail,
+                                        args=(grpc_port, ids, SERVE_TOKENS, tenth))
+        tenth_thread.start()
+        _wait_for(lambda: engine.stats()["waiting_sequences"] >= 1, 60, "tenth stream queued")
+        reload = model.reload
+
+        def held_reload():
+            gate.wait(120)
+            reload()
+
+        model.reload = held_reload
+    sampler = _StateSampler(port)
+    _wait_for(lambda: all(len(r["tokens"]) >= RECOVERY_MIN_TOKENS for r in records), 300,
+              f"{RECOVERY_MIN_TOKENS} tokens a stream")
+    if fault == "oom":
+        fired = {}
+        decode = engine._decode
+        too_much = torch.cuda.get_device_properties(DEVICE).total_memory + 2**30
+
+        def oom_once(*args):
+            if not fired:
+                fired["at"] = time.perf_counter()
+                torch.empty(too_much, dtype=torch.uint8, device=DEVICE)
+                raise AssertionError("an allocation past the card's memory succeeded")
+            return decode(*args)
+
+        engine._decode = oom_once
+        _wait_for(lambda: fired, 60, "faulted decode step")
+        t_fault = fired["at"]
+    else:
+        t_fault = time.perf_counter()
+        engine.quarantine("induced device failure (phase 14a)")
+        _wait_for(lambda: model.recovering, 30, "recovering controller")
+        status, headers, text = _http(port, "/v1/chat/completions", "POST", {
+            "model": "llm_engine", "stream": True, "max_tokens": 4,
+            "messages": [{"role": "user", "content": prompts[0]}]})
+        message = json.loads(text).get("error", {}).get("message", "")
+        if status != 503 or headers.get("Retry-After") != "1" or "recovering" not in message:
+            raise AssertionError(f"a stream sent while recovering got {status} "
+                                 f"{headers.get('Retry-After')} {text[:200]}")
+        doc = json.loads(_http(port, "/v2/debug/state")[2])
+        if not doc["server"]["recovering"] or \
+                doc["llm"]["llm_engine"]["recovery"]["state"] != recovery.RECOVERING:
+            raise AssertionError(f"the debug state while recovering: {doc['server']}, "
+                                 f"{doc['llm']['llm_engine'].get('recovery')}")
+        _wait_for(lambda: "3" in sampler.seen, 30, "tpu_server_state 3")
+        extra.update(refused_status=status, refused_retry_after=headers["Retry-After"],
+                     refused_message=message)
+        extra["held_ms"] = (time.perf_counter() - t_fault) * 1e3
+        gate.set()
+    _wait_for(lambda: controller.recoveries > recoveries0 or controller.state == recovery.FAILED,
+              120, "recovery")
+    t_ready = time.perf_counter()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if fault == "quarantine":
+        del model.reload
+        tenth_thread.join(120)
+    seen = sampler.stop()
+    doc = controller.describe()
+    if doc["state"] != recovery.READY or doc["recoveries"] != recoveries0 + 1:
+        raise AssertionError(f"the controller after the {fault} round: {doc}")
+    old_steps, old_blocks = engine.steps - steps0, engine.allocator.blocks_in_use
+    del engine
+    for thread in threads:
+        thread.join(600)
+    new = model.engine
+    _wait_idle(new, timeout_s=60)
+    ties = {}
+    for i, record in enumerate(records):
+        if record["status"] != 200 or not record["done"] or record["error"] is not None:
+            raise AssertionError(f"stream {i} across the {fault} recovery: {record['status']}, "
+                                 f"done {record['done']}, error {record['error']}")
+        if len(record["tokens"]) != SERVE_TOKENS:
+            raise AssertionError(f"stream {i} delivered {len(record['tokens'])} tokens")
+        tie = _same_or_tie(model._params, config, prompts[i], plain_streams[i],
+                           record["tokens"])
+        if tie:
+            ties[i] = tie
+    if old_blocks or new.allocator.blocks_in_use:
+        raise AssertionError(f"KV blocks in use after the {fault} round: {old_blocks} in the "
+                             f"quarantined engine, {new.allocator.blocks_in_use} in the new")
+    if fault == "quarantine" and ("induced device failure" not in (tenth.get("error") or "")):
+        raise AssertionError(f"the recovery: fail stream: {tenth}")
+    if fault == "quarantine":
+        extra.update(opt_out_error=tenth["error"][:120], opt_out_tokens=len(tenth["tokens"]))
+    return dict(extra, fault=fault, fault_to_ready_ms=(t_ready - t_fault) * 1e3,
+                controller_duration_ms=doc["last_duration_s"] * 1e3,
+                longest_gap_ms=_longest_gap_ms(records, t_fault),
+                itl_ms_p50=1e3 * percentile([b - a for r in records
+                                             for a, b in zip(r["stamps"], r["stamps"][1:])],
+                                            0.5),
+                peak_gib=peak_bytes / 2**30, server_state_seen=seen,
+                decode_steps=old_steps + new.steps, parted_at_near_ties=ties,
+                describe=doc)
+
+
+def recovery_7b(port, model, config, plain_streams) -> dict:
+    """Phase 14a on phase 4's server and 7B engine, after 13c: two rounds
+    of :func:`_recovery_round` — a genuine CUDA OOM inside a decode step,
+    then the reference's induced quarantine. Each round's 8 streams equal
+    phase 4's (or part at a dense-forward near-tie, 11a's rule) with no
+    client error; the controller reads READY with 1, then 2 recoveries;
+    ``tpu_recovery_total{tier="engine",outcome="success"}`` rises by 2;
+    each new engine re-prefills the 8 survivors; every KV block comes back;
+    K1 launches >= 32 x decode steps; the quarantined pools are freed."""
+    from client_tpu_torch.server.native_frontend import NativeGrpcFrontend
+
+    t0 = time.perf_counter()
+    if model._recovery is None or model._recovery.recoveries:
+        raise AssertionError(f"phase 4's model has no fresh recovery controller: "
+                             f"{model._recovery and model._recovery.describe()}")
+    core, loop = SERVING[port]
+    frontend = NativeGrpcFrontend(core, loop)
+    frontend.start("127.0.0.1", 0)
+    prefills = []
+    _count_prefills(model, prefills)
+    success0 = _recovery_total(port, "success")
+    _wait_idle(model.engine)
+    gc.collect()
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    rounds = []
+    try:
+        # -- the path of 14a: K1's counter zeroed just before, read once idle --
+        pa.paged_attention_cuda.launches = 0
+        for fault in ("oom", "quarantine"):
+            rounds.append(_recovery_round(port, frontend.port, model, config, plain_streams,
+                                          fault))
+            rounds[-1]["re_prefills"] = prefills[-1]
+        launches = pa.paged_attention_cuda.launches
+        # ------------------------------------------------------------------------
+    finally:
+        frontend.stop()
+        del model._build_device_fns
+    steps = sum(r["decode_steps"] for r in rounds)
+    if launches < config.n_layers * steps:
+        raise AssertionError(f"K1 launched {launches} times for {steps} decode steps x "
+                             f"{config.n_layers} layers")
+    if [r["re_prefills"] for r in rounds] != [8, 8]:
+        raise AssertionError(f"re-prefills a recovery: {[r['re_prefills'] for r in rounds]}")
+    if "3" not in rounds[1]["server_state_seen"]:
+        raise AssertionError(f"tpu_server_state never read 3: {rounds[1]['server_state_seen']}")
+    successes = _recovery_total(port, "success") - success0
+    if successes != 2:
+        raise AssertionError(f"tpu_recovery_total success rose by {successes}, not 2")
+    doc = json.loads(_http(port, "/v2/debug/state")[2])["llm"]["llm_engine"].get("recovery")
+    if not doc or doc["state"] != "ready" or doc["recoveries"] != 2:
+        raise AssertionError(f"the debug state's recovery document: {doc}")
+    gc.collect()
+    torch.cuda.synchronize()
+    after_bytes = torch.cuda.memory_allocated()
+    # a quarantined engine's pool goes once nothing names it: a recovery
+    # that kept it would hold a second 16 GiB pool for good
+    if after_bytes > before_bytes + 2**30:
+        raise AssertionError(f"{(after_bytes - before_bytes) / 2**30:.2f} GiB more allocated "
+                             f"after the recoveries than before")
+    result = {"rounds": rounds, "k1_launches": launches, "decode_steps": steps,
+              "recovery_total_success_delta": successes,
+              "allocated_gib_before": before_bytes / 2**30,
+              "allocated_gib_settled": after_bytes / 2**30,
+              "card_gib": torch.cuda.get_device_properties(DEVICE).total_memory / 2**30,
+              "wall_s": time.perf_counter() - t0}
+    print("recovery 14a: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+# 14b's model: phase 4's widths cut to 2 layers; its decode callable reads
+# past the end of a device tensor once the trigger file appears: the
+# indexing kernel's device-side assert, surfaced by the synchronise, poisons
+# the process's CUDA context
+STICKY_MODEL_PY = """
+import os
+
+import torch
+
+from client_tpu_torch.llm.serving import LlmEngineModel
+from client_tpu_torch.models import llama
+
+TRIGGER = {trigger!r}
+
+
+class StickyFault(LlmEngineModel):
+    def _build_device_fns(self, *args):
+        prefill, decode, decode_multi = super()._build_device_fns(*args)
+        device = self.device
+
+        def decode_once_faulty(tokens, positions, page_tables, pages):
+            if os.path.exists(TRIGGER):
+                os.remove(TRIGGER)
+                table = torch.zeros(4, device=device)
+                table[torch.tensor([1 << 20], device=device)]
+                torch.cuda.synchronize(device)
+            return decode(tokens, positions, page_tables, pages)
+
+        return prefill, decode_once_faulty, decode_multi
+
+
+def create_model(device):
+    return StickyFault(config=llama.LlamaConfig(n_layers=2), device=device)
+"""
+STICKY_STREAMS = 4
+STICKY_TOKENS = 64
+STICKY_ROUTES = (("GET", "/v2/health/live"), ("GET", "/v2/health/ready"), ("GET", "/metrics"),
+                 ("GET", "/v2/debug/state"), ("POST", "/v2/repository/index"),
+                 ("GET", "/v2/models/llm_engine/config"), ("GET", "/v2/models/stats"))
+
+
+def sticky_14b() -> dict:
+    """Phase 14b: ``python -m client_tpu_torch.server --model-repository``
+    spawned with the card serves the built-ins and ``llm_engine`` at 7B
+    widths with 2 layers, whose decode callable raises a device-side
+    assert once a trigger file appears. With 4 streams in flight the
+    trigger fires: every stream fails with the OpenAI error inside 10 s of
+    the fault; the reloads all fail on the poisoned context, so the
+    controller reads FAILED after ``max_attempts`` attempts and
+    ``tpu_recovery_total{tier="engine",outcome="failed"}`` is 1. Which
+    routes still answer is recorded; the process exits on SIGTERM inside
+    its 20 s drain timeout."""
+    import signal
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trigger = os.path.join(tmp, "fire")
+        os.makedirs(os.path.join(tmp, "llm_engine"))
+        with open(os.path.join(tmp, "llm_engine", "model.py"), "w") as f:
+            f.write(STICKY_MODEL_PY.format(trigger=trigger))
+        proc, started, log, reader = spawn_server("--model-repository", tmp,
+                                                  "--drain-timeout", "20")
+        try:
+            port = started["http_port"]
+            if _http(port, "/v2/health/ready")[0] != 200:
+                raise AssertionError("the spawned server is not ready")
+            start_s = time.perf_counter() - t0
+            records = [dict() for _ in range(STICKY_STREAMS)]
+            threads = [threading.Thread(target=_stream_live,
+                                        args=(port, p, STICKY_TOKENS, r))
+                       for p, r in zip(_prompts(), records)]
+            for thread in threads:
+                thread.start()
+            _wait_for(lambda: all(len(r.get("tokens", ())) >= 2 for r in records), 300,
+                      "2 tokens a stream")
+            t_fault = time.perf_counter()
+            with open(trigger, "w"):
+                pass
+            for thread in threads:
+                thread.join(60)
+
+            def events(name):
+                return [json.loads(line) for line in list(log)
+                        if line.startswith("{") and f'"{name}"' in line]
+
+            _wait_for(lambda: events("llm_engine_recovery_exhausted"), 60,
+                      "llm_engine_recovery_exhausted in the log")
+            t_failed = time.perf_counter()
+            routes = {path: _http(port, path, method)[0] for method, path in STICKY_ROUTES}
+            with client_http.InferenceServerClient(f"127.0.0.1:{port}") as client:
+                a = client_http.InferInput("INPUT0", [1, 16], "INT32")
+                a.set_data_from_numpy(np.arange(16, dtype=np.int32).reshape(1, 16))
+                b = client_http.InferInput("INPUT1", [1, 16], "INT32")
+                b.set_data_from_numpy(np.ones([1, 16], dtype=np.int32))
+                try:
+                    out = client.infer("simple", [a, b]).as_numpy("OUTPUT0")
+                    routes["simple /infer"] = 200 if (out == np.arange(1, 17)).all() else "wrong"
+                except Exception as e:  # noqa: BLE001 - recorded: the context is gone
+                    routes["simple /infer"] = f"{type(e).__name__}: {str(e)[:80]}"
+            after = dict()
+            _stream_live(port, _prompts()[0], 4, after)
+            routes["new stream"] = after["status"] if after["status"] != 200 else \
+                f"200, in-band error {str(after['error'])[:80]}"
+            failed = (_recovery_total(port, "failed") if routes["/metrics"] == 200
+                      else "no /metrics")
+            state = json.loads(_http(port, "/v2/debug/state")[2])["llm"]["llm_engine"][
+                "recovery"] if routes["/v2/debug/state"] == 200 else None
+            t_sig = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(30)
+            exit_ms = (time.perf_counter() - t_sig) * 1e3
+            reader.join(30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    attempts = events("llm_engine_recovery_attempt_failed")
+    exhausted = events("llm_engine_recovery_exhausted")[0]
+    late = []
+    for i, record in enumerate(records):
+        error_ms = (record.get("error_at", float("inf")) - t_fault) * 1e3
+        if record["status"] != 200 or record["error"] is None or error_ms > 10e3:
+            late.append((i, record["status"], record["error"], error_ms))
+    if late:
+        raise AssertionError(f"streams without a retryable error inside 10 s: {late}")
+    if failed != 1:
+        raise AssertionError(f"tpu_recovery_total failed reads {failed}, routes {routes}")
+    if state is None or state["state"] != "failed" or state["failures"] != 1 or \
+            len(attempts) != state["max_attempts"] or exhausted["attempts"] != len(attempts):
+        raise AssertionError(f"the controller: {state}, {len(attempts)} failed attempts")
+    if exit_ms > 20e3:
+        raise AssertionError(f"the server exited {code} after {exit_ms:.0f} ms")
+    result = {"server_start_s": start_s,
+              "fault_to_failed_ms": (t_failed - t_fault) * 1e3,
+              "stream_error_ms": [(r["error_at"] - t_fault) * 1e3 for r in records],
+              "stream_tokens": [len(r["tokens"]) for r in records],
+              "stream_error": records[0]["error"][:160],
+              "attempt_errors": [a.get("error", "")[:120] for a in attempts],
+              "describe": state, "recovery_total_failed": failed,
+              "routes_after": routes, "sigterm_to_exit_ms": exit_ms, "exit_code": code,
+              "wall_s": time.perf_counter() - t0}
+    print("recovery 14b: " + json.dumps(result) + f" [{card()}]", flush=True)
+    return result
+
+
+def chaos_14c(port, model, images, check) -> dict:
+    """Phase 14c beside 7b: ``InProcessServer`` on the card serving the
+    built-ins and 7b's ResNet-50 with ``ChaosPolicy(error_rate=0.3)``, and
+    a second with ``reset_rate=0.15, truncate_rate=0.15``. From 4 client
+    processes, with the reference's retry policy, 100 ``simple`` requests
+    answer exactly and 64 images each within 7b's 2 % of its unbatched
+    forward, on both servers; the servers' statistics book only the
+    requests that reached the model; without a policy every process's run
+    fails with 503. Then the harness at ``-b 1`` c=8 with
+    ``--max-error-rate 0.5`` on the error server and on 7b's server with
+    no chaos, one 2 s window each."""
+    from client_tpu_torch.resilience import ChaosPolicy
+    from client_tpu_torch.testing import InProcessServer
+
+    t0 = time.perf_counter()
+    servers = {"errors": InProcessServer(device=DEVICE,
+                                         chaos=ChaosPolicy(error_rate=0.3, seed=14)),
+               "cuts": InProcessServer(device=DEVICE, chaos=ChaosPolicy(
+                   reset_rate=0.15, truncate_rate=0.15, seed=15))}
+    for server in servers.values():
+        server.core.repository.add_model(model)
+        server.start()
+    timings = {"setup_s": time.perf_counter() - t0}
+    try:
+        urls = {name: server.http_url for name, server in servers.items()}
+        runs = [(urls["errors"], True), (urls["cuts"], True), (urls["errors"], False)]
+        share = CHAOS_IMAGES // CHAOS_PROCS
+        arglist = [{"runs": runs, "worker": w,
+                    "images": {i: images[i:i + 1] for i in range(w * share, (w + 1) * share)}}
+                   for w in range(CHAOS_PROCS)]
+        rounds = {}
+
+        def on_round(go):
+            label = CHAOS_ROUNDS[len(rounds)]
+            server = servers[label.split("_")[0]]
+            before = (dict(server.chaos.injected), _stats(server.http_port, "simple"),
+                      _stats(server.http_port, "image_classifier"))
+            got, wall = go()
+            after = (dict(server.chaos.injected), _stats(server.http_port, "simple"),
+                     _stats(server.http_port, "image_classifier"))
+            injected = {fate: after[0].get(fate, 0) - before[0].get(fate, 0)
+                        for fate in ("error", "reset", "truncate")}
+            rounds[label] = {"results": got, "wall_s": wall, "injected": injected,
+                             "booked": {m: (_booked(b, a), _booked(b, a, "fail"))
+                                        for m, b, a in (("simple", before[1], after[1]),
+                                                        ("image_classifier", before[2],
+                                                         after[2]))}}
+
+        run_client_processes("chaos", arglist, on_round, rounds=len(CHAOS_ROUNDS))
+        timings["clients_s"] = time.perf_counter() - t0 - timings["setup_s"]
+        summary = {}
+        for label, run in rounds.items():
+            injected, booked = run["injected"], run["booked"]
+            faults = sum(injected.values())
+            if label == "errors_no_policy":
+                statuses = [r["failed"] and r["failed"]["status"] for r in run["results"]]
+                if statuses != ["503"] * CHAOS_PROCS:
+                    raise AssertionError(f"without a policy: {[r['failed'] for r in run['results']]}")
+                summary[label] = {"statuses": statuses, "injected": injected}
+                continue
+            if any(r["wrong"] for r in run["results"]):
+                raise AssertionError(f"{label}: simple answered wrong under chaos")
+            for r in run["results"]:
+                for i, answer in r["answers"].items():
+                    check(i, f"chaos {label}", [answer])
+            answered = sum(len(r["answers"]) for r in run["results"])
+            if answered != CHAOS_IMAGES or not faults:
+                raise AssertionError(f"{label}: {answered} images answered, faults {injected}")
+            # injected errors and resets never reach the model; a truncated
+            # answer was computed, booked, then cut on the wire
+            reached = booked["simple"][0] + booked["image_classifier"][0]
+            if booked["simple"][1] or booked["image_classifier"][1] or \
+                    reached != CHAOS_SIMPLE + CHAOS_IMAGES + injected["truncate"]:
+                raise AssertionError(f"{label}: the server booked {booked} for "
+                                     f"{CHAOS_SIMPLE + CHAOS_IMAGES} requests, {injected}")
+            summary[label] = {"injected": injected, "booked": booked,
+                              "retries_per_request": faults / (CHAOS_SIMPLE + CHAOS_IMAGES),
+                              "wall_s": run["wall_s"]}
+        harness_args = ["-m", "image_classifier", "-b", "1", "--concurrency-range", "8",
+                        "--measurement-interval", "2000", "--max-trials", "1",
+                        "--max-error-rate", "0.5", "--json-summary"]
+        t_harness = time.perf_counter()
+        server = servers["errors"]
+        before = (dict(server.chaos.injected), _stats(server.http_port, "image_classifier"))
+        chaotic = json.loads(_harness("client_tpu_torch.perf", harness_args + [
+            "-u", urls["errors"]]).strip().splitlines()[-1])
+        after = (dict(server.chaos.injected), _stats(server.http_port, "image_classifier"))
+        plain = json.loads(_harness("client_tpu_torch.perf", harness_args + [
+            "-u", f"127.0.0.1:{port}"]).strip().splitlines()[-1])
+        timings["harness_s"] = time.perf_counter() - t_harness
+    finally:
+        for server in servers.values():
+            server.stop()
+    injected_errors = after[0].get("error", 0) - before[0].get("error", 0)
+    booked = _booked(before[1], after[1])
+    error_share = chaotic["errors"] / max(1, chaotic["errors"] + chaotic["count"])
+    if not (chaotic["errors"] and 0.15 <= error_share <= 0.45
+            and injected_errors >= chaotic["errors"] and booked >= chaotic["count"]
+            and _booked(before[1], after[1], "fail") == 0 and not plain["errors"]):
+        raise AssertionError(f"harness under chaos: {chaotic}, injected {injected_errors}, "
+                             f"booked {booked}; without chaos {plain}")
+    summary["harness"] = {
+        "errors": chaotic["errors"], "count": chaotic["count"], "error_share": error_share,
+        "injected_error_delta": injected_errors, "booked_success_delta": booked,
+        "infer_per_s": chaotic["throughput"], "p99_ms": chaotic["p99_us"] / 1e3,
+        "no_chaos_infer_per_s": plain["throughput"], "no_chaos_p99_ms": plain["p99_us"] / 1e3}
+    summary.update(timings, wall_s=time.perf_counter() - t0)
+    print("chaos 14c: " + json.dumps(summary) + f" [{card()}]", flush=True)
+    return summary
+
+
 def main() -> int:
     faulthandler.enable()  # a fault in native code prints every thread's stack
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4268,6 +4965,7 @@ def main() -> int:
     lifecycle_server()
     embedded_11f()
     grpc_server()
+    sticky_14b()
     line = {
         "kernels": [
             {
@@ -4288,6 +4986,7 @@ def main() -> int:
                 "lifecycle_11a_launches": served["lifecycle_11a"]["k1_launches"],
                 "grpc_12c_launches": served["grpc_12c"]["k1_launches"],
                 "grpc_13c_launches": served["genai_13c"]["k1_launches"],
+                "recovery_14a_launches": served["recovery_14a"]["k1_launches"],
             },
             {
                 "name": "paged_attention_decode_mq",

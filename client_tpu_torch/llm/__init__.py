@@ -1,6 +1,6 @@
 """Continuous-batching LLM serving: the engine, its KV-block allocator, the
-draft proposers of speculative decoding and the repository model that
-wraps them."""
+draft proposers of speculative decoding, the engine's auto-recovery
+controller and the repository model that wraps them."""
 
 from client_tpu_torch.llm.engine import (
     EngineConfig,
@@ -13,6 +13,7 @@ from client_tpu_torch.llm.kv_cache import (
     BlockAllocator,
     CacheCapacityError,
 )
+from client_tpu_torch.llm.recovery import EngineRecovery
 from client_tpu_torch.llm.speculation import (
     DraftModelProposer,
     NgramProposer,
@@ -25,6 +26,7 @@ __all__ = [
     "DraftModelProposer",
     "EngineConfig",
     "EngineRecoveringError",
+    "EngineRecovery",
     "LlmEngine",
     "NgramProposer",
     "Sequence",

@@ -40,6 +40,7 @@ testable on fake clocks.
 """
 
 import asyncio
+import concurrent.futures
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -388,6 +389,9 @@ class LlmEngine:
         )
         self._pages = pages
         self._executor = executor
+        # device calls running on the executor: a quarantine cancels the
+        # step loop, not a call a worker thread is running (settle())
+        self._device_calls = set()
         self._waiting = PriorityQueue(levels=engine_config.priority_levels)
         self._running: List[Sequence] = []
         # the one sequence mid-prefill in _admit: it owns blocks but is
@@ -841,10 +845,18 @@ class LlmEngine:
     async def _run_device(self, fn, *args):
         if self._executor is None:
             return fn(*args)
-        loop = asyncio.get_running_loop()
-        return await loop.run_in_executor(
-            self._executor, lambda: fn(*args)
-        )
+        future = self._executor.submit(fn, *args)
+        self._device_calls.add(future)
+        future.add_done_callback(self._device_calls.discard)
+        return await asyncio.wrap_future(future)
+
+    def settle(self, timeout_s: float = 60.0) -> None:
+        """Wait (up to ``timeout_s``) for the device calls still running
+        on the executor — after a quarantine, the step the loop gave up
+        on may still be issuing work for the old pool. Thread-safe."""
+        pending = list(self._device_calls)
+        if pending:
+            concurrent.futures.wait(pending, timeout=timeout_s)
 
     async def _run(self) -> None:
         try:

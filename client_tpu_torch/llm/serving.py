@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch.llm.engine import EngineConfig, LlmEngine, block_bucket
+from client_tpu_torch.llm.recovery import RECOVERING, EngineRecovery
 from client_tpu_torch.llm.speculation import build_proposer
 from client_tpu_torch.models import llama, paged_attention
 from client_tpu_torch.server.model_repository import Model
@@ -36,6 +37,12 @@ class LlmEngineModel(Model):
     attention is the multi-query twin of the decode kernel (K2 on a
     card). ``draft_config``/``draft_params`` name a draft model.
     Tensor parallelism is not ported yet.
+
+    With ``auto_recovery`` (the default) warmup wires an
+    :class:`~client_tpu_torch.llm.recovery.EngineRecovery` controller onto
+    the engine, built with ``recovery_options``: a fatal step failure
+    reloads the engine in the background and resumes the streams that did
+    not opt out (request parameter ``recovery: fail``).
     """
 
     decoupled = True
@@ -44,6 +51,16 @@ class LlmEngineModel(Model):
     backend = "pytorch"
     inputs = [{"name": "INPUT_IDS", "datatype": "INT32", "shape": [-1]}]
     outputs = [{"name": "OUTPUT_IDS", "datatype": "INT32", "shape": [1]}]
+
+    #: engine-fatal auto-recovery (tier 1 of the self-healing stack): when
+    #: True, warmup wires an EngineRecovery controller onto the engine, so
+    #: a fatal device failure triggers a bounded-retry background reload
+    #: instead of closed-until-manual-reload
+    auto_recovery: bool = True
+
+    #: knobs forwarded to the EngineRecovery constructor (repository model
+    #: attr, e.g. ``{"max_attempts": 5, "retry_after_s": 2.0}``)
+    recovery_options: Optional[Dict[str, Any]] = None
 
     def __init__(
         self,
@@ -88,6 +105,9 @@ class LlmEngineModel(Model):
         # ("cuda" on a card, "fused" on the CPU); reported in config()
         self.decode_kernel: Optional[str] = None
         self._core = None
+        # one recovery controller per model instance, created by the first
+        # warmup and re-attached across engine swaps
+        self._recovery = None
 
     @property
     def vocab_size(self) -> int:
@@ -228,6 +248,37 @@ class LlmEngineModel(Model):
         self.decode_kernel = name
         self.engine = engine
         self._core = None  # rebind the executor after a reload
+        self._wire_recovery()
+
+    def _wire_recovery(self) -> None:
+        """Attach the auto-recovery controller to the (possibly brand
+        new) engine. The controller itself re-attaches after its reloads;
+        this covers the initial warmup and manual reloads."""
+        if not self.auto_recovery:
+            return
+        if self._recovery is None:
+            self._recovery = EngineRecovery(self, **dict(self.recovery_options or {}))
+        self._recovery.attach(self.engine)
+
+    def reload(self) -> None:
+        """Rebuild device state from scratch: fresh KV pool, re-probed
+        kernels, a new engine (:meth:`warmup`, called through the class as
+        the reference does). First the quarantined engine's device calls
+        still running on the executor settle, and on a card the device is
+        synchronised: an asynchronous CUDA error surfaces there, and a
+        sticky one (an illegal address, a device-side assert) fails every
+        attempt. A reload never falls back to the CPU."""
+        if self.engine is not None:
+            self.engine.settle()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        type(self).warmup(self)
+
+    @property
+    def recovering(self) -> bool:
+        """True while a background engine reload is in flight (surfaced in
+        ``debug_state()`` and the ``tpu_server_state`` overlay)."""
+        return self._recovery is not None and self._recovery.state == RECOVERING
 
     def config(self) -> Dict[str, Any]:
         """Model config with the warmup-selected decode kernel, the tp

@@ -1,10 +1,10 @@
 """Transport-agnostic resilience for the port's clients: retries,
-deadlines, circuit breaking.
+deadlines, circuit breaking, and fault injection for its in-process
+server.
 
-An own copy of the client side of ``client_tpu/resilience``; its fault
-injection (``chaos.py``, for the JAX package's in-process servers) is not
-ported. Everything is off by default — a client with no ``retry_policy``
-and no ``circuit_breaker`` makes one attempt a call.
+An own copy of ``client_tpu/resilience``. Everything is off by default —
+a client with no ``retry_policy`` and no ``circuit_breaker`` makes one
+attempt a call, and a server with no ``chaos`` injects nothing.
 
 RetryPolicy
     Capped exponential backoff with full jitter and retryable-error
@@ -15,7 +15,12 @@ Deadline
     A total time budget shared by every attempt of one call.
 CircuitBreaker
     closed/open/half-open breaker with a failure threshold and cooldown.
+ChaosPolicy
+    Seeded per-request fault plan (errors, latency, resets, truncated
+    bodies) for ``InProcessServer(chaos=...)``'s HTTP front-end.
 """
+
+from client_tpu_torch.resilience.chaos import ChaosPolicy
 
 from client_tpu_torch.resilience.policy import (
     CONNECTION_ERROR_STATUS,
@@ -40,6 +45,7 @@ __all__ = [
     "CONNECTION_ERROR_STATUS",
     "DEFAULT_RETRYABLE_GRPC_CODES",
     "DEFAULT_RETRYABLE_HTTP_STATUSES",
+    "ChaosPolicy",
     "CircuitBreaker",
     "CircuitBreakerOpenError",
     "Deadline",

@@ -48,8 +48,6 @@ The native gRPC front-end (``server/native_frontend.py``) runs unary
 requests through :meth:`ServerCore.infer_direct`, synchronously on a
 worker thread of each model: the same grouping into one execution, the
 same census, statistics, metrics and trace stages as the event-loop path.
-
-Not ported yet: the engine recovery overlay (ROADMAP Queue 1 item 5).
 """
 
 import asyncio
@@ -776,6 +774,22 @@ class ServerCore:
         Liveness (:attr:`live`) stays true through a drain."""
         return self.live and self.lifecycle.accepting and not self.repository.degraded()
 
+    @property
+    def recovering(self) -> bool:
+        """True while any loaded model's engine reload is in flight
+        (surfaced in ``debug_state()`` and overlaid on the
+        ``tpu_server_state`` gauge; readiness is not dropped — the server
+        keeps serving its healthy models and answers the quarantined one
+        with retryable 503s)."""
+        for entry in self.repository.index():
+            try:
+                model = self.repository.peek(entry["name"])
+            except Exception:  # noqa: BLE001 - introspection best-effort
+                continue
+            if getattr(model, "recovering", False):
+                return True
+        return False
+
     def _lifecycle_admit(self, model_name: str, trace=None) -> None:
         """Drain gate + in-flight tracking for one request; books the
         rejection counter and the trace event when draining."""
@@ -1127,16 +1141,22 @@ class ServerCore:
             }
             for name, batcher in list(self._batchers.items())
         }
-        # engine-backed models: the document engine.stats() returns
+        # engine-backed models: the document engine.stats() returns, with
+        # the recovery controller's state beside it
         llm: Dict[str, Any] = {}
         for entry in self.repository.index():
-            engine = getattr(self.repository.peek(entry["name"]), "engine", None)
-            stats = getattr(engine, "stats", None)
+            model = self.repository.peek(entry["name"])
+            stats = getattr(getattr(model, "engine", None), "stats", None)
             if callable(stats):
-                llm[entry["name"]] = stats()
+                doc = stats()
+                controller = getattr(model, "_recovery", None)
+                if controller is not None:
+                    doc["recovery"] = controller.describe()
+                llm[entry["name"]] = doc
         return {
             "server": {"name": SERVER_NAME, "version": SERVER_VERSION,
-                       "live": self.live, "ready": self.ready, "recovering": False},
+                       "live": self.live, "ready": self.ready,
+                       "recovering": self.recovering},
             "llm": llm,
             "lifecycle": self.lifecycle.snapshot(),
             "devices": self.device_topology(),

@@ -36,6 +36,11 @@ drive :meth:`ServerCore.load_model` / :meth:`ServerCore.unload_model`. A
 load runs on the serving loop, as the reference's does, so the loop
 stalls for the model's warmup. The TensorFlow-Serving and TorchServe
 REST routes come from ``server/compat_frontends.py``.
+
+``HttpServer(core, chaos=...)`` injects faults from a
+:class:`~client_tpu_torch.resilience.ChaosPolicy` into the requests whose
+path it matches: an added latency, injected errors, resets and truncated
+bodies, as the reference's chaos middleware does.
 """
 
 import asyncio
@@ -218,11 +223,14 @@ async def _read_request(reader: asyncio.StreamReader):
 class HttpServer:
     """The port's HTTP front-end over a :class:`ServerCore`."""
 
-    def __init__(self, core: ServerCore):
+    def __init__(self, core: ServerCore, chaos=None):
         from client_tpu_torch.server.compat_frontends import CompatFrontends
         from client_tpu_torch.server.openai_frontend import OpenAiFrontend
 
         self.core = core
+        # a ChaosPolicy (client_tpu_torch.resilience) injects faults into
+        # the requests whose path it matches; None injects nothing
+        self.chaos = chaos
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by close()
         # one sampling run at a time: a second concurrent
@@ -306,7 +314,10 @@ class HttpServer:
                 method, path, query, version, headers, body = parsed
                 request = Request(method, path, headers, body, {}, writer,
                                   query=dict(parse_qsl(query)))
-                response = await self._dispatch(request)
+                if self.chaos is not None and self.chaos.applies_to(path):
+                    response = await self._dispatch_chaos(request)
+                else:
+                    response = await self._dispatch(request)
                 if response is not None:
                     await self._write(writer, response)
                 connection = headers.get("connection", "").lower()
@@ -326,6 +337,41 @@ class HttpServer:
         headers["Content-Length"] = str(len(response.body))
         writer.write(_head(response.status, headers) + response.body)
         await writer.drain()
+
+    async def _dispatch_chaos(self, request: Request) -> Optional[Response]:
+        """:meth:`_dispatch` under the chaos plan (the reference's chaos
+        middleware, ``client_tpu/server/http_server.py``): the added
+        latency as a loop sleep, then one drawn fate. ``error`` answers
+        the policy's ``http_status``; ``reset`` aborts the connection
+        before anything is written; ``truncate`` declares the full
+        ``Content-Length``, writes half the body and aborts. A fate is
+        counted only where it fired: not when the peer is already gone,
+        nor for a body under two bytes or a streamed one."""
+        chaos = self.chaos
+        if chaos.latency_s:
+            await asyncio.sleep(chaos.latency_s)
+        fate = chaos.draw()
+        transport = request.writer.transport
+        if fate == "error":
+            chaos.record("error")
+            return json_response({"error": "chaos: injected unavailability"},
+                                 status=chaos.http_status)
+        if fate == "reset" and not transport.is_closing():
+            chaos.record("reset")
+            transport.abort()
+            raise ConnectionResetError("chaos: injected reset")
+        response = await self._dispatch(request)
+        if fate != "truncate" or response is None or len(response.body) < 2 \
+                or transport.is_closing():
+            return response
+        chaos.record("truncate")
+        body = response.body
+        headers = dict(response.headers)
+        headers["Content-Length"] = str(len(body))
+        request.writer.write(_head(response.status, headers) + body[: len(body) // 2])
+        await request.writer.drain()
+        transport.abort()
+        raise ConnectionResetError("chaos: injected truncation")
 
     async def _dispatch(self, request: Request) -> Optional[Response]:
         allowed = []
@@ -865,8 +911,10 @@ def _inflate(body: bytes, encoding: str) -> bytes:
 
 
 async def serve_http(core: ServerCore, host: str = "127.0.0.1",
-                     port: int = 0) -> HttpServer:
-    """Start the HTTP front-end; ``server.port`` is the bound port."""
-    server = HttpServer(core)
+                     port: int = 0, chaos=None) -> HttpServer:
+    """Start the HTTP front-end; ``server.port`` is the bound port.
+    ``chaos`` (a :class:`~client_tpu_torch.resilience.ChaosPolicy`)
+    injects faults into the requests it matches."""
+    server = HttpServer(core, chaos=chaos)
     await server.start(host, port)
     return server

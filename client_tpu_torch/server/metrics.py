@@ -57,7 +57,7 @@ from typing import Callable
 
 import torch
 
-from client_tpu_torch.lifecycle.drain import STATE_VALUES
+from client_tpu_torch.lifecycle.drain import RECOVERING, SERVING, STATE_VALUES
 from client_tpu_torch.observability.metrics import (
     Counter,
     Gauge,
@@ -673,9 +673,13 @@ class ServerMetrics:
                 inference["success"]["ns"]
             )
             self.legacy_fail_count.labels(name).set(inference["fail"]["count"])
-        # the drain lifecycle: 0 serving, 1 draining, 2 stopped (the
-        # port has no engine recovery, so 3 never shows)
-        self.server_state.set(float(STATE_VALUES.get(self.core.lifecycle.state, 0)))
+        # the drain lifecycle: 0 serving, 1 draining, 2 stopped; 3 is the
+        # self-healing overlay — an engine reload in flight while the
+        # lifecycle keeps serving (probes still see ready)
+        state = self.core.lifecycle.state
+        if state == SERVING and getattr(self.core, "recovering", False):
+            state = RECOVERING
+        self.server_state.set(float(STATE_VALUES.get(state, 0)))
         busy_ns = self.core.device_busy_ns_total
         now_ns = self._clock_ns()
         with self._duty_lock:
@@ -710,14 +714,17 @@ class ServerMetrics:
     def _collect_memory(self) -> None:
         """Device memory of the metrics' device: the CUDA caching
         allocator's bytes in use and the card's capacity; a CPU server
-        exports ``tpu_device_memory_bytes{device="cpu"}`` 0."""
+        exports ``tpu_device_memory_bytes{device="cpu"}`` 0. Both are
+        host reads (the allocator's statistics, the device properties
+        CUDA's initialisation cached), so a scrape still answers after a
+        sticky fault has poisoned the process's CUDA context."""
         device = resolve_device(self._device)
         if device.type != "cuda":
             self.device_memory.labels(device.type).set(0.0)
             return
         label = device_label(device)
         used = float(torch.cuda.memory_stats(device)["allocated_bytes.all.current"])
-        _free, limit = torch.cuda.mem_get_info(device)
+        limit = torch.cuda.get_device_properties(device).total_memory
         self.device_memory.labels(label).set(used)
         self.memory_used.labels(label).set(used)
         self.memory_limit.labels(label).set(limit)

@@ -7,7 +7,11 @@ server path without a separate server process. ``grpc=True`` (or
 ``"native"``) adds the native gRPC front-end, as the reference's does;
 unlike the reference, gRPC is off by default, and ``"aio"`` (the grpc.aio
 server, on grpcio, which the port does not import) is refused;
-``tls=(cert, key)`` serves that port over TLS. :meth:`InProcessServer.stop`
+``tls=(cert, key)`` serves that port over TLS; ``chaos`` (a
+:class:`~client_tpu_torch.resilience.ChaosPolicy`) injects faults into the
+HTTP front-end, and is refused beside gRPC, since the native front-end has
+no injection hooks and the port has no grpc.aio server to fall back to, as
+the reference does. :meth:`InProcessServer.stop`
 drains first, as the reference's does: readiness flips false, in-flight
 and queued work finishes inside the drain deadline, and only then do the
 front-ends and the core close.
@@ -36,6 +40,7 @@ class InProcessServer:
         grpc=False,
         grpc_port: int = 0,
         tls=None,
+        chaos=None,
     ):
         """``builtin_models`` installs the built-in models on ``device``
         (``cuda`` unless the caller passes ``"cpu"``; with no card the
@@ -46,7 +51,9 @@ class InProcessServer:
         ``grpc`` True or ``"native"`` starts the native gRPC front-end on
         ``grpc_port`` (0: any free port); ``tls=(cert_path, key_path)``
         makes that port speak TLS (ALPN ``h2``), and a pair the front-end
-        cannot load fails :meth:`start`."""
+        cannot load fails :meth:`start`. ``chaos`` injects faults into
+        the HTTP front-end's matched requests (errors, latency, resets,
+        truncated bodies); it cannot be combined with ``grpc``."""
         if grpc == "aio":
             raise ValueError("the grpc.aio server stands on grpcio and is not ported; "
                              "use grpc='native'")
@@ -54,6 +61,11 @@ class InProcessServer:
             raise ValueError(f"grpc must be True, False or 'native', not {grpc!r}")
         if tls is not None and not grpc:
             raise ValueError("tls= needs the gRPC front-end (grpc=True)")
+        if grpc and chaos is not None:
+            raise ValueError(
+                "chaos injection is not supported by the native gRPC "
+                "front-end, and the port has no grpc.aio server; use grpc=False"
+            )
         if core is None:
             core = ServerCore(ModelRepository(), device=device)
         self.core = core
@@ -61,6 +73,7 @@ class InProcessServer:
             from client_tpu_torch.server.models import register_builtin_models
 
             register_builtin_models(self.core.repository, device=device)
+        self.chaos = chaos
         self._host = host
         self._http_bind_port = http_port
         self.grpc_impl: Optional[str] = "native" if grpc else None
@@ -104,7 +117,8 @@ class InProcessServer:
         from client_tpu_torch.server.http_server import serve_http
 
         self._stop = asyncio.Event()
-        server = await serve_http(self.core, self._host, self._http_bind_port)
+        server = await serve_http(self.core, self._host, self._http_bind_port,
+                                  chaos=self.chaos)
         self.http_port = server.port
         grpc_frontend = None
         try:

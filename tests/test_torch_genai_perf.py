@@ -25,6 +25,7 @@ package's (``client_tpu.genai_perf``).
 import io
 import json
 import sys
+import time
 import urllib.request
 
 import jax
@@ -535,6 +536,27 @@ def test_genai_perf_kserve_ids_over_grpc_gives_the_references_token_ids(
     assert set(ours) == set(theirs) and "tokens_per_step" not in ours
 
 
+def _idle_stats(engine, timeout_s: float = 60.0) -> dict:
+    """The engine's counters once no lane runs, waits or is mid-prefill,
+    twice 0.2 s apart with no step between: the streams the harness cut
+    at its window's end are gone, so no further step (one that counts a
+    step but no lane-step) can land after the read."""
+    def idle():
+        stats = engine.stats()
+        quiet = (not stats["active_sequences"] and not stats["waiting_sequences"]
+                 and engine._admitting is None)
+        return quiet, stats
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        quiet, first = idle()
+        time.sleep(0.2)
+        still, stats = idle()
+        if quiet and still and stats["steps"] == first["steps"]:
+            return stats
+        assert time.monotonic() < deadline, f"the engine did not go idle: {stats}"
+
+
 def test_genai_perf_kserve_summary_carries_the_spec_delta(kserve_weights, tmp_path, capsys):
     """Self-drafting speculation (K=3): the summary's tokens per step and
     acceptance are the engine's own counter deltas over the run."""
@@ -547,7 +569,7 @@ def test_genai_perf_kserve_summary_carries_the_spec_delta(kserve_weights, tmp_pa
         before = model.engine.stats()
         summary, requests = _genai_run(main, server.grpc_url, tmp_path, capsys,
                                        extra=["--speculation", "on"])
-        after = model.engine.stats()
+        after = _idle_stats(model.engine)
         fetched = main.fetch_spec_stats(server.grpc_url, "llm_engine")
     finally:
         server.stop()

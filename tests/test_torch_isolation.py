@@ -75,7 +75,8 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.grpc._generated.grpc_service_pb2",
                  "client_tpu_torch.grpc._generated.model_config_pb2",
                  "client_tpu_torch.server._grpc_codec", "client_tpu_torch.server.native_frontend",
-                 "client_tpu_torch.frontend_build", "client_tpu_torch.grpc._mux")
+                 "client_tpu_torch.frontend_build", "client_tpu_torch.grpc._mux",
+                 "client_tpu_torch.resilience.chaos", "client_tpu_torch.llm.recovery")
 
 
 def _port_files():

@@ -422,13 +422,19 @@ def test_lints_find_nothing_in_the_port():
     files = sorted((ROOT / "client_tpu_torch" / "observability").glob("*.py"))
     assert {f.name for f in files} >= {"metrics.py", "window.py", "slo.py", "recorder.py",
                                        "logging.py", "server.py", "profiling.py", "trace.py"}
-    # the reference's clock lint pins its multiplexer too (TARGET_FILES)
-    for path in files + [ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py",
-                         ROOT / "client_tpu_torch" / "grpc" / "_mux.py"]:
+    # the reference's clock lint pins its multiplexer too (TARGET_FILES),
+    # and covers the engine, its recovery and the resilience layer
+    # (TARGET_DIRS llm/ and resilience/)
+    engine_and_resilience = sorted((ROOT / "client_tpu_torch" / "llm").glob("*.py")) + sorted(
+        (ROOT / "client_tpu_torch" / "resilience").glob("*.py"))
+    assert {f.name for f in engine_and_resilience} >= {"recovery.py", "chaos.py", "engine.py"}
+    for path in files + engine_and_resilience + [
+            ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py",
+            ROOT / "client_tpu_torch" / "grpc" / "_mux.py"]:
         assert clock_lint.check_source(path.read_text(), str(path)) == [], path.name
     # the structured-logging lint over the directories the reference's
     # covers in its own package: no bare print(), no stdlib logging
-    for directory in ("server", "observability"):
+    for directory in ("server", "observability", "llm"):
         for path in sorted((ROOT / "client_tpu_torch" / directory).glob("*.py")):
             assert log_lint.check_source(path.read_text(), str(path)) == [], path.name
     # and the unused-import check over the whole port
