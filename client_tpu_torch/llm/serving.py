@@ -17,8 +17,9 @@ from client_tpu_torch.llm.engine import EngineConfig, LlmEngine, block_bucket
 from client_tpu_torch.llm.recovery import RECOVERING, EngineRecovery
 from client_tpu_torch.llm.speculation import build_proposer
 from client_tpu_torch.models import llama, paged_attention
+from client_tpu_torch.parallel import TP_AXIS, sharding
 from client_tpu_torch.server.model_repository import Model
-from client_tpu_torch.utils import InferenceServerException, resolve_device
+from client_tpu_torch.utils import InferenceServerException
 
 
 class LlmEngineModel(Model):
@@ -36,7 +37,16 @@ class LlmEngineModel(Model):
     and its next position in one ``decode_step_paged_multi`` call, whose
     attention is the multi-query twin of the decode kernel (K2 on a
     card). ``draft_config``/``draft_params`` name a draft model.
-    Tensor parallelism is not ported yet.
+
+    ``tp`` > 1 shards the model and the page pool over a ``{"tp": N}``
+    mesh resolved at warmup against ``devices`` (default: every card of
+    the process, or the CPU for a CPU model; an explicit list may repeat
+    a device). Each shard holds ``H/tp`` query heads, ``KV/tp`` KV heads
+    and its own pool, and runs K1/K2 on its head slice
+    (:func:`~client_tpu_torch.models.paged_attention.make_tp_attention`);
+    the attention and MLP partials are all-reduced. Too few devices, or a
+    ``tp`` that does not divide the head counts, fails the load with the
+    reference's reason. ``device`` defaults to the first of ``devices``.
 
     With ``auto_recovery`` (the default) warmup wires an
     :class:`~client_tpu_torch.llm.recovery.EngineRecovery` controller onto
@@ -73,12 +83,13 @@ class LlmEngineModel(Model):
         draft_config: Optional[llama.LlamaConfig] = None,
         draft_params: Optional[Dict[str, Any]] = None,
         device=None,
+        devices=None,
     ):
-        if int(tp) != 1:
-            raise InferenceServerException("tp > 1 is not yet ported")
         self.name = name
-        self.tp = 1
-        self.device = resolve_device(device)
+        self.tp = int(tp)
+        self.device, self.devices = sharding.mesh_devices(device, devices)
+        # the resolved {"tp": N} mesh (None at tp 1), published by warmup
+        self.mesh_plan = None
         self._config = config or llama.LlamaConfig.tiny(max_seq_len=512)
         if engine_config is None:
             # default pool: 8 full-length sequences' worth of blocks
@@ -172,6 +183,36 @@ class LlmEngineModel(Model):
 
         return prefill, decode, decode_multi
 
+    def _resolve_tp_plan(self, config: llama.LlamaConfig) -> sharding.MeshPlan:
+        """Validate and resolve the ``{"tp": N}`` mesh for this model.
+        Raises :class:`InferenceServerException` (a load failure) when
+        the head counts do not divide or the devices are not there."""
+        if config.n_heads % self.tp or config.n_kv_heads % self.tp:
+            raise InferenceServerException(
+                f"tp={self.tp} must divide n_heads={config.n_heads} and "
+                f"n_kv_heads={config.n_kv_heads}"
+            )
+        try:
+            spec = sharding.MeshSpec.parse({"axes": {TP_AXIS: self.tp}})
+            return sharding.resolve(spec, self.devices, self.device)
+        except (sharding.MeshDeclarationError, sharding.MeshUnavailableError) as e:
+            raise InferenceServerException(str(e)) from e
+
+    def _shard_pages(self, config: llama.LlamaConfig, plan: sharding.MeshPlan) -> list:
+        """One zeroed pool per shard, on its device, holding its ``KV/tp``
+        heads: every layer's ``(k_pages, v_pages)`` of ``[num_blocks,
+        block_size, KV/tp, D]``, each its own contiguous tensor (the
+        kernels take no strided view of a wider pool)."""
+        engine_config = self.engine_config
+        shape = (engine_config.num_blocks, engine_config.block_size,
+                 config.n_kv_heads // self.tp, config.head_dim)
+        return [
+            [(torch.zeros(shape, dtype=config.dtype, device=device),
+              torch.zeros(shape, dtype=config.dtype, device=device))
+             for _ in range(config.n_layers)]
+            for device in plan.devices
+        ]
+
     def warmup(self) -> None:
         """Build the pool and the device callables and probe them at the
         shapes the engine serves: prefill at the smallest bucket, one
@@ -180,7 +221,10 @@ class LlmEngineModel(Model):
         1) and at T = spec_k + 1 (all writes land in the trash block).
         One kernel is picked for the device — the CUDA kernels on a card —
         and a probe that fails fails the load with its error, as does a
-        malformed speculation declaration.
+        malformed speculation declaration. Under ``tp`` > 1 the mesh is
+        resolved first, the parameters are cut per ``llama.param_specs``
+        (shard copies beside the unsharded weights) and every shard gets
+        its own pool; the probes run every shard.
 
         A reload (``ModelRepository.load``) builds and probes the new pool
         and engine first and closes the running engine only after that,
@@ -189,6 +233,9 @@ class LlmEngineModel(Model):
         device."""
         config = self._config
         engine_config = self.engine_config
+        # a tp mesh that cannot be built fails the load before any weight
+        # is drawn
+        plan = self._resolve_tp_plan(config) if self.tp > 1 else None
         with torch.inference_mode():
             if self._params is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
@@ -212,12 +259,22 @@ class LlmEngineModel(Model):
             attn_mq = None
             if proposer is not None:
                 _, attn_mq = paged_attention.resolve_verify_attention(self.device)
+            if plan is None:
+                params = self._params
+                pages = llama.init_kv_pages(
+                    config, engine_config.num_blocks, engine_config.block_size,
+                    self.device,
+                )
+            else:
+                # each shard runs the kernel on its head slice
+                params = llama.shard_params(self._params, config, plan)
+                pages = self._shard_pages(config, plan)
+                attn = paged_attention.make_tp_attention(attn, plan)
+                if attn_mq is not None:
+                    attn_mq = paged_attention.make_tp_attention(attn_mq, plan,
+                                                                multi_query=True)
             prefill, decode, decode_multi = self._build_device_fns(
-                self._params, config, engine_config, attn, attn_mq
-            )
-            pages = llama.init_kv_pages(
-                config, engine_config.num_blocks, engine_config.block_size,
-                self.device,
+                params, config, engine_config, attn, attn_mq
             )
         max_blocks = engine_config.max_blocks_per_seq
         table = np.zeros([max_blocks], dtype=np.int32)
@@ -246,6 +303,7 @@ class LlmEngineModel(Model):
         if self.engine is not None:
             self.engine.close()
         self.decode_kernel = name
+        self.mesh_plan = plan
         self.engine = engine
         self._core = None  # rebind the executor after a reload
         self._wire_recovery()

@@ -18,16 +18,23 @@ model dtype; GELU is the tanh approximation (``jax.nn.gelu``'s default).
 Token id ``pad_token_id`` is padding wherever it appears. The big
 products are ``torch.matmul``/``einsum``: the JAX package computes them
 outside any Pallas kernel, so this path has no kernel of its own.
+
+Tensor parallelism (``param_specs``, Megatron-style): :func:`shard_params`
+cuts the parameters over a plan's devices, and :func:`forward` takes a tp
+group's per-shard dicts: heads and the FFN hidden split over the shards,
+one all-reduce after ``wo`` and one after ``w2``, the token embedding
+sharded by vocabulary rows.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from client_tpu_torch.parallel import TP_AXIS, collectives, sharding
 from client_tpu_torch.utils import numpy_to_tensor, resolve_device
 
 
@@ -128,6 +135,33 @@ def params_from_jax(tree: Dict[str, Any], config: BertConfig,
     return convert(tree)
 
 
+def param_specs(config: BertConfig) -> Dict[str, Any]:
+    """The spec twin of the parameter dict (Megatron-style tp)."""
+    layer = {
+        "wq": (None, TP_AXIS),
+        "wk": (None, TP_AXIS),
+        "wv": (None, TP_AXIS),
+        "wo": (TP_AXIS, None),
+        "w1": (None, TP_AXIS),
+        "w2": (TP_AXIS, None),
+        "ln1_scale": (None,),
+        "ln2_scale": (None,),
+    }
+    return {
+        "tok_emb": (TP_AXIS, None),
+        "pos_emb": (None, None),
+        "emb_ln_scale": (None,),
+        "emb_ln_bias": (None,),
+        "layers": [dict(layer) for _ in range(config.n_layers)],
+    }
+
+
+def shard_params(params: Dict[str, Any], config: BertConfig, plan) -> List[Dict[str, Any]]:
+    """``params`` cut per :func:`param_specs` over ``plan``'s devices: one
+    parameter dict per device (replicated over ``dp``)."""
+    return sharding.shard_tree(params, param_specs(config), plan)
+
+
 def _layernorm(x, scale, eps):
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
@@ -135,37 +169,58 @@ def _layernorm(x, scale, eps):
     return ((x32 - mean) * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
-def forward(params, input_ids: torch.Tensor,
+def forward(params: Union[Dict[str, Any], List[Dict[str, Any]]],
+            input_ids: torch.Tensor,
             config: BertConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode ``input_ids`` [B, L] -> (hidden [B, L, D], pooled [B, D] fp32).
 
     Padding positions (== pad_token_id) are masked out of attention and of
     the mean-pool, so bucket padding never changes the result; a row that
     is all padding gets a uniform softmax (finite) and a zero pool.
+
+    ``params`` is one dict, or a tp group's per-shard dicts
+    (:func:`shard_params`): each shard then computes its ``H/tp`` heads
+    and ``d_ff/tp`` hidden units, the partials are all-reduced after
+    ``wo`` and ``w2``, and the result is the first shard's.
     """
+    shards = params if isinstance(params, list) else [params]
+    devices = [shard["pos_emb"].device for shard in shards]
     B, L = input_ids.shape
-    H, hd = config.n_heads, config.head_dim
-    mask = input_ids != config.pad_token_id  # [B, L]
-    h = params["tok_emb"][input_ids] + params["pos_emb"][:L][None, :, :]
-    h = _layernorm(h, params["emb_ln_scale"], config.norm_eps)
+    H, hd = config.n_heads // len(shards), config.head_dim
+    ids = [input_ids.to(device) for device in devices]
+    mask = [i != config.pad_token_id for i in ids]  # [B, L]
+    tok = collectives.vocab_parallel_embedding([s["tok_emb"] for s in shards], input_ids)
+    h = [_layernorm(t + s["pos_emb"][:L][None, :, :], s["emb_ln_scale"], config.norm_eps)
+         for t, s in zip(tok, shards)]
+    bias = []
+    for m, device in zip(mask, devices):
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        neg = torch.full((), -1e9, dtype=torch.float32, device=device)
+        bias.append(torch.where(m[:, None, None, :], zero, neg))  # [B, 1, 1, L]
 
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    neg = torch.full((), -1e9, dtype=torch.float32, device=h.device)
-    attn_bias = torch.where(mask[:, None, None, :], zero, neg)  # [B, 1, 1, L]
+    def residual(h, partials):
+        return [hi + r for hi, r in zip(h, collectives.all_reduce(partials, devices))]
 
-    for layer in params["layers"]:
-        x = _layernorm(h, layer["ln1_scale"], config.norm_eps)
-        q = (x @ layer["wq"]).reshape(B, L, H, hd)
-        k = (x @ layer["wk"]).reshape(B, L, H, hd)
-        v = (x @ layer["wv"]).reshape(B, L, H, hd)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-        scores = scores / math.sqrt(hd) + attn_bias
-        probs = torch.softmax(scores, dim=-1).to(config.dtype)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
-        h = h + ctx @ layer["wo"]
-        x = _layernorm(h, layer["ln2_scale"], config.norm_eps)
-        h = h + F.gelu(x @ layer["w1"], approximate="tanh") @ layer["w2"]
+    for index in range(config.n_layers):
+        layers = [shard["layers"][index] for shard in shards]
+        partials = []
+        for layer, hi, attn_bias in zip(layers, h, bias):
+            x = _layernorm(hi, layer["ln1_scale"], config.norm_eps)
+            q = (x @ layer["wq"]).reshape(B, L, H, hd)
+            k = (x @ layer["wk"]).reshape(B, L, H, hd)
+            v = (x @ layer["wv"]).reshape(B, L, H, hd)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+            scores = scores / math.sqrt(hd) + attn_bias
+            probs = torch.softmax(scores, dim=-1).to(config.dtype)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+            partials.append(ctx @ layer["wo"])
+        h = residual(h, partials)
+        h = residual(h, [
+            F.gelu(_layernorm(hi, layer["ln2_scale"], config.norm_eps) @ layer["w1"],
+                   approximate="tanh") @ layer["w2"]
+            for layer, hi in zip(layers, h)
+        ])
 
-    denom = mask.sum(-1, keepdim=True).clamp(min=1).float()
-    pooled = (h.float() * mask[:, :, None]).sum(1) / denom
-    return h, pooled
+    denom = mask[0].sum(-1, keepdim=True).clamp(min=1).float()
+    pooled = (h[0].float() * mask[0][:, :, None]).sum(1) / denom
+    return h[0], pooled

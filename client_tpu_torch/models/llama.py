@@ -18,6 +18,19 @@ Numerics follow the reference: attention scores and softmax in fp32,
 ``rms_norm`` casts to the input dtype before the weight, RoPE rotates
 interleaved pairs, logits come back as fp32.
 
+Tensor parallelism (``param_specs``, Megatron-style, as the reference's):
+a tp plan's model is a list of per-shard parameter dicts
+(:func:`shard_params`) and a list of per-shard pools, each shard on its
+own device. The paged functions take either form. Per layer each shard
+computes its heads' q/k/v from its slice of ``wq``/``wk``/``wv``, writes
+and reads its KV-head slice of the pool, multiplies by its rows of
+``wo``; the partials are all-reduced (fp32, cast once) and added to the
+residual; the MLP runs on its columns of ``w_gate``/``w_up`` and rows of
+``w_down``, all-reduced likewise. The embedding is sharded by vocabulary
+rows, the LM head by columns, whose outputs are all-gathered. The dense
+:func:`forward` splits the sequence over a plan's ``sp`` shards and runs
+attention as ring attention (``parallel/ring_attention.py``).
+
 JAX updated the page pool through buffer donation (``llm/serving.py``
 warmup); here every page write is an in-place ``index_put_`` on the pool
 tensors, and the functions still return ``(logits, pages)`` so the
@@ -33,6 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from client_tpu_torch.parallel import SP_AXIS, TP_AXIS, collectives, sharding
+from client_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
 from client_tpu_torch.utils import numpy_to_tensor, resolve_device
 
 NEG_INF = -1e30
@@ -137,6 +152,36 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     return convert(tree)
 
 
+def param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """The spec twin of :func:`init_params` (tp = tensor parallel): heads
+    and the MLP hidden over ``tp``, the embedding over vocabulary rows,
+    the LM head over vocabulary columns."""
+    layer = {
+        "wq": (None, TP_AXIS, None),
+        "wk": (None, TP_AXIS, None),
+        "wv": (None, TP_AXIS, None),
+        "wo": (TP_AXIS, None, None),
+        "w_gate": (None, TP_AXIS),
+        "w_up": (None, TP_AXIS),
+        "w_down": (TP_AXIS, None),
+        "attn_norm": (),
+        "mlp_norm": (),
+    }
+    return {
+        "embed": (TP_AXIS, None),
+        "final_norm": (),
+        "lm_head": (None, TP_AXIS),
+        "layers": [layer] * config.n_layers,
+    }
+
+
+def shard_params(params: Dict[str, Any], config: LlamaConfig, plan) -> List[Dict[str, Any]]:
+    """``params`` cut per :func:`param_specs` over ``plan``'s devices: one
+    parameter dict per device, each tensor its contiguous block on that
+    device (:func:`~client_tpu_torch.parallel.sharding.shard_tree`)."""
+    return sharding.shard_tree(params, param_specs(config), plan)
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -201,21 +246,6 @@ def _logits(params, x, config: LlamaConfig):
     """Final norm and LM head over rows ``x [..., d]``; fp32 logits."""
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     return (x @ params["lm_head"]).float()
-
-
-def reference_attention(q, k, v, causal: bool = True, scale=None):
-    """Exact attention over ``[B, H, L, D]`` (the port's own copy of
-    ``client_tpu/parallel/ring_attention.py::reference_attention``)."""
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        q_len, k_len = q.shape[2], k.shape[2]
-        rows = torch.arange(q_len, device=q.device)[:, None]
-        cols = torch.arange(k_len, device=q.device)[None, :]
-        scores = torch.where((rows >= cols)[None, None], scores, NEG_INF)
-    weights = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", weights, v.float()).to(q.dtype)
 
 
 def _masked_attention(q, k_ctx, v_ctx, valid, n_rep: int):
@@ -339,26 +369,156 @@ def _table_lookup(page_table, logical_blocks):
     return torch.take_along_dim(page_table, index, dim=-1).long()
 
 
-def prefill_into_pages(params, tokens, page_table, pages: Pages,
-                       last_index: int, config: LlamaConfig):
-    """Prefill one prompt ``tokens [1, L]`` (L = padded bucket length)
-    on a dense scratch cache, then scatter positions ``0..last_index``
-    into the pool through ``page_table [max_blocks]``; the padded tail
-    goes to the trash block. Returns (logits of ``last_index`` [1, V],
-    pages)."""
+# ---------------------------------------------------------------------------
+# the layer stack over shards (one shard: the unsharded model)
+# ---------------------------------------------------------------------------
+
+
+def _as_shards(params, pages):
+    """(per-shard params, per-shard pools): a list of shard dicts is a tp
+    plan's model (:func:`shard_params`) with a list of per-shard pools;
+    a dict is the unsharded model, one shard."""
+    if isinstance(params, list):
+        return params, pages
+    return [params], [pages]
+
+
+def _devices(shards) -> List[torch.device]:
+    return [shard["final_norm"].device for shard in shards]
+
+
+def _embed(shards, tokens, config: LlamaConfig) -> List[torch.Tensor]:
+    """The token embeddings on every shard (the table sharded by
+    vocabulary rows under tp)."""
+    return [e.to(config.dtype) for e in collectives.vocab_parallel_embedding(
+        [shard["embed"] for shard in shards], tokens)]
+
+
+def _tp_residual(x, partials) -> List[torch.Tensor]:
+    """``x + sum(partials)`` on every shard: the partials all-reduced (no
+    reduction for one shard)."""
+    reduced = collectives.all_reduce(partials, [t.device for t in x])
+    return [xi + r for xi, r in zip(x, reduced)]
+
+
+def _layers(shards, x, positions, config: LlamaConfig, attend,
+            residual=_tp_residual) -> List[torch.Tensor]:
+    """The layer stack over the shards' activations ``x`` (one tensor per
+    shard) at ``positions`` (likewise). ``attend(layer_index, [(q, k, v)
+    per shard]) -> [out per shard]`` is each path's attention on the
+    shard's own heads (it writes the shard's pool); ``residual(x,
+    partials)`` adds the shards' attention and MLP partials — all-reduced
+    over tp shards by default."""
+    eps = config.norm_eps
+    for index in range(config.n_layers):
+        layers = [shard["layers"][index] for shard in shards]
+        qkv = [_qkv(layer, rms_norm(xi, layer["attn_norm"], eps), pos, config)
+               for layer, xi, pos in zip(layers, x, positions)]
+        outs = attend(index, qkv)
+        x = residual(x, [_merge_heads(out, layer["wo"]) for out, layer in zip(outs, layers)])
+        x = residual(x, [_mlp_block(layer, rms_norm(xi, layer["mlp_norm"], eps))
+                         for layer, xi in zip(layers, x)])
+    return x
+
+
+def _shard_logits(shards, rows, config: LlamaConfig) -> torch.Tensor:
+    """Final norm and LM head over each shard's ``rows [..., d]``; the
+    shards' vocabulary columns are all-gathered; fp32."""
+    parts = [_logits(shard, r, config) for shard, r in zip(shards, rows)]
+    return collectives.all_gather(parts, [p.device for p in parts], dim=-1)[0]
+
+
+def _on(tensor, devices) -> List[torch.Tensor]:
+    """A replicated host-side input (tokens, tables, positions) on every
+    shard's device; no copy where it already lives."""
+    return [tensor.to(d) for d in devices]
+
+
+def forward(params, tokens, config: LlamaConfig, mesh=None, positions=None):
+    """Full-sequence forward (prefill): ``tokens [B, L]`` -> fp32 logits
+    ``[B, L, V]``, without a KV cache.
+
+    Under a plan (``mesh``) with ``sp > 1`` the sequence is split over
+    the sp shards and attention runs as :func:`ring_attention`; every
+    other axis of the plan must have size 1. ``tokens`` may then be the
+    sp blocks ``[B, L/sp]`` on their devices, and the logits come back as
+    blocks; ``params`` is one dict, or one per sp shard on its device."""
+    sp = mesh.axis_size(SP_AXIS) if mesh is not None else 1
+    if mesh is not None and mesh.spec.device_count != sp:
+        raise ValueError(f"forward shards the sequence only; the plan has "
+                         f"axes {mesh.spec.axis_sizes}")
+    blocks = list(tokens) if isinstance(tokens, (list, tuple)) else None
+    devices = ([b.device for b in blocks] if blocks is not None else
+               [tokens.device] if sp == 1 else
+               [mesh.devices[i] for i in mesh.groups(SP_AXIS)[0]])
+    if blocks is not None and len(blocks) != sp:
+        raise ValueError(f"{len(blocks)} token blocks for sp={sp}")
+    if blocks is None:
+        if tokens.shape[1] % sp:
+            raise ValueError(f"length {tokens.shape[1]} does not split over sp={sp}")
+        blocks = [t.to(d) for t, d in zip(tokens.chunk(sp, dim=1), devices)]
+    b, lb = blocks[0].shape
+    if positions is None:
+        positions = torch.arange(lb * sp, device=devices[0])[None, :].expand(b, -1)
+    pos_blocks = [p.to(d) for p, d in zip(positions.chunk(sp, dim=-1), devices)]
+    replicas = params if isinstance(params, list) else [params] * sp
+    x = [replica["embed"][block.long()].to(config.dtype)
+         for replica, block in zip(replicas, blocks)]
+    n_rep = config.n_heads // config.n_kv_heads
+
+    def attend(index, qkv):
+        qh = [q.transpose(1, 2) for q, _, _ in qkv]
+        kh = [_repeat_kv(k, n_rep).transpose(1, 2) for _, k, _ in qkv]
+        vh = [_repeat_kv(v, n_rep).transpose(1, 2) for _, _, v in qkv]
+        if sp == 1:
+            outs = [reference_attention(qh[0], kh[0], vh[0], causal=True)]
+        else:
+            outs = ring_attention(qh, kh, vh, mesh, causal=True)
+        return [out.transpose(1, 2) for out in outs]
+
+    def residual(x, partials):  # the sp shards hold different rows
+        return [xi + p for xi, p in zip(x, partials)]
+
+    x = _layers(replicas, x, pos_blocks, config, attend, residual)
+    logits = [_logits(replica, xi, config) for replica, xi in zip(replicas, x)]
+    if isinstance(tokens, (list, tuple)):
+        return logits
+    return torch.cat([part.to(tokens.device) for part in logits], dim=1)
+
+
+def prefill_into_pages(params, tokens, page_table, pages, last_index: int,
+                       config: LlamaConfig):
+    """Prefill one prompt ``tokens [1, L]`` (L = padded bucket length),
+    writing positions ``0..last_index`` into the pool through ``page_table
+    [max_blocks]``; the padded tail goes to the trash block. Causal
+    attention reads the prompt's own K/V, never the pool. Returns (logits
+    of ``last_index`` [1, V], pages). ``params``/``pages`` are one model
+    and pool, or a tp plan's per-shard lists."""
+    shards, shard_pages = _as_shards(params, pages)
+    devices = _devices(shards)
     b, l = tokens.shape
-    block_size = pages[0][0].shape[1]
-    scratch = init_kv_cache(config, b, l, device=tokens.device)
-    logits, dense = prefill_with_cache(params, tokens, scratch, config,
-                                       last_index=last_index)
+    block_size = shard_pages[0][0][0].shape[1]
     pos = torch.arange(l, device=tokens.device)
     valid = pos <= last_index
     phys = torch.where(valid, _table_lookup(page_table, pos // block_size), 0)
     off = torch.where(valid, pos % block_size, 0)
-    for (k_pages, v_pages), (dense_k, dense_v) in zip(pages, dense):
-        k_pages.index_put_((phys, off), dense_k[0])
-        v_pages.index_put_((phys, off), dense_v[0])
-    return logits, pages
+    writes = list(zip(_on(phys, devices), _on(off, devices)))
+
+    def attend(index, qkv):
+        outs = []
+        for (q, k, v), layer_pages, (p, o) in zip(qkv, shard_pages, writes):
+            k_pages, v_pages = layer_pages[index]
+            k_pages.index_put_((p, o), k[0])
+            v_pages.index_put_((p, o), v[0])
+            n_rep = q.shape[2] // k.shape[2]
+            out = reference_attention(q.transpose(1, 2), _repeat_kv(k, n_rep).transpose(1, 2),
+                                      _repeat_kv(v, n_rep).transpose(1, 2), causal=True)
+            outs.append(out.transpose(1, 2))
+        return outs
+
+    x = _layers(shards, _embed(shards, tokens, config),
+                _on(pos[None, :].expand(b, l), devices), config, attend)
+    return _shard_logits(shards, [xi[:, int(last_index)] for xi in x], config), pages
 
 
 def _write_positions(page_tables, positions, block_size):
@@ -388,52 +548,81 @@ def decode_step_paged(params, tokens, positions, page_tables, pages: Pages,
     phys, off = _write_positions(page_tables, positions, block_size)
     valid = torch.arange(s, device=tokens.device)[None, :] <= pos2  # [B, S]
     tables = page_tables.long()
-    x = params["embed"][tokens.long()][:, None, :].to(config.dtype)
-    for layer, (k_pages, v_pages) in zip(params["layers"], pages):
-        normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
-        q, k, v = _qkv(layer, normed, pos2, config)
+
+    def attend(index, qkv):
+        ((q, k, v),) = qkv
+        k_pages, v_pages = pages[index]
         # scatter this step's K/V, THEN gather: the current position's
         # entry must be visible to its own attention
         k_pages.index_put_((phys, off), k[:, 0])
         v_pages.index_put_((phys, off), v[:, 0])
         k_ctx = k_pages[tables].reshape(b, s, config.n_kv_heads, config.head_dim)
         v_ctx = v_pages[tables].reshape(b, s, config.n_kv_heads, config.head_dim)
-        out = _masked_attention(q, k_ctx, v_ctx, valid, n_rep)
-        x = x + _merge_heads(out, layer["wo"])
-        x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
+        return [_masked_attention(q, k_ctx, v_ctx, valid, n_rep)]
+
+    (x,) = _layers([params], [params["embed"][tokens.long()][:, None, :].to(config.dtype)],
+                   [pos2], config, attend)
     return _logits(params, x[:, 0], config), pages
 
 
-def decode_step_paged_attn(params, tokens, positions, page_tables,
-                           pages: Pages, config: LlamaConfig, attn):
+def _paged_attend(shards, shard_pages, writes, page_tables, positions, attn, rows):
+    """The attention of the kernel paths: each shard writes its step's
+    K/V (``rows`` = the rows of one lane written, ``k[:, 0]`` for decode,
+    ``k`` for verify), THEN ``attn`` reads the pool on the same stream.
+    One shard calls ``attn`` as it is; a tp plan's ``attn`` is
+    :func:`~client_tpu_torch.models.paged_attention.make_tp_attention`'s
+    wrapper, given every shard's query block and pools."""
+
+    def attend(index, qkv):
+        pools = [layer_pages[index] for layer_pages in shard_pages]
+        for (_, k, v), (k_pages, v_pages), (p, o) in zip(qkv, pools, writes):
+            k_pages.index_put_((p, o), rows(k))
+            v_pages.index_put_((p, o), rows(v))
+        queries = [rows(q) for q, _, _ in qkv]
+        if len(shards) == 1:
+            outs = [attn(queries[0].contiguous(), pools[0][0], pools[0][1],
+                         page_tables, positions)]
+        else:
+            outs = attn(queries, [k for k, _ in pools], [v for _, v in pools],
+                        page_tables, positions)
+        return outs
+
+    return attend
+
+
+def decode_step_paged_attn(params, tokens, positions, page_tables, pages,
+                           config: LlamaConfig, attn):
     """:func:`decode_step_paged` with the attention read delegated to a
     ragged paged-attention implementation
     (``models/paged_attention.py``): ``attn(q[B, H, D], k_pages, v_pages,
     page_tables, positions) -> [B, H, D]``. The table width may be any
     bucket the caller picks; the engine slices it to the live batch's
     longest sequence. The step's K/V is written on the same stream
-    before ``attn`` reads the pool."""
-    block_size = pages[0][0].shape[1]
+    before ``attn`` reads the pool. Under a tp plan (per-shard ``params``
+    and ``pages``) ``attn`` is the per-shard wrapper, and each shard's
+    call sees its ``H/tp`` heads and its pool of ``KV/tp``."""
+    shards, shard_pages = _as_shards(params, pages)
+    devices = _devices(shards)
+    block_size = shard_pages[0][0][0].shape[1]
     pos2 = positions[:, None]  # [B, 1]
     phys, off = _write_positions(page_tables, positions, block_size)
-    x = params["embed"][tokens.long()][:, None, :].to(config.dtype)
-    for layer, (k_pages, v_pages) in zip(params["layers"], pages):
-        normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
-        q, k, v = _qkv(layer, normed, pos2, config)
-        # scatter this step's K/V, THEN attend: the current position's
-        # entry must be visible to its own attention
-        k_pages.index_put_((phys, off), k[:, 0])
-        v_pages.index_put_((phys, off), v[:, 0])
-        out = attn(q[:, 0].contiguous(), k_pages, v_pages, page_tables, positions)
-        x = x + _merge_heads(out, layer["wo"])[:, None, :]
-        x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
-    return _logits(params, x[:, 0], config), pages
+    writes = list(zip(_on(phys, devices), _on(off, devices)))
+    attend = _paged_attend(shards, shard_pages, writes, page_tables, positions, attn,
+                           lambda t: t[:, 0])
+
+    def attend_rows(index, qkv):
+        return [out[:, None] for out in attend(index, qkv)]
+
+    x = _layers(shards, _embed(shards, tokens[:, None], config), _on(pos2, devices),
+                config, attend_rows)
+    return _shard_logits(shards, [xi[:, 0] for xi in x], config), pages
 
 
 def decode_step_paged_multi(params, tokens, positions, lengths, page_tables,
-                            pages: Pages, config: LlamaConfig, attn_mq):
+                            pages, config: LlamaConfig, attn_mq):
     """The speculative verify step: T query positions per sequence in one
-    multi-query ragged paged-attention call per layer.
+    multi-query ragged paged-attention call per layer (per shard under a
+    tp plan).
 
     ``tokens [B, T]`` (row 0 each lane's last real token, rows ``1..``
     its draft tokens), ``positions [B, T]`` every row's absolute context
@@ -446,28 +635,26 @@ def decode_step_paged_multi(params, tokens, positions, lengths, page_tables,
     exactly its own speculative prefix, so the T logits rows equal T
     sequential :func:`decode_step_paged` calls feeding the draft tokens
     one at a time. Returns (logits [B, T, V] fp32, pages)."""
+    shards, shard_pages = _as_shards(params, pages)
+    devices = _devices(shards)
     t = tokens.shape[1]
-    block_size = pages[0][0].shape[1]
+    block_size = shard_pages[0][0][0].shape[1]
     row_valid = torch.arange(t, device=tokens.device)[None, :] < lengths[:, None]
     phys = torch.where(row_valid, _table_lookup(page_tables, positions // block_size), 0)
     off = torch.where(row_valid, positions % block_size, 0).long()
-    x = params["embed"][tokens.long()].to(config.dtype)  # [B, T, d]
-    for layer, (k_pages, v_pages) in zip(params["layers"], pages):
-        normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
-        q, k, v = _qkv(layer, normed, positions, config)
-        # write every verify row's K/V, THEN attend: row t's prefix rows
-        # 0..t-1 must be visible to it (the per-row mask hides t+1..)
-        k_pages.index_put_((phys, off), k)
-        v_pages.index_put_((phys, off), v)
-        out = attn_mq(q.contiguous(), k_pages, v_pages, page_tables, positions)
-        x = x + _merge_heads(out, layer["wo"])
-        x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
-    return _logits(params, x, config), pages
+    writes = list(zip(_on(phys, devices), _on(off, devices)))
+    # write every verify row's K/V, THEN attend: row t's prefix rows
+    # 0..t-1 must be visible to it (the per-row mask hides t+1..)
+    attend = _paged_attend(shards, shard_pages, writes, page_tables, positions, attn_mq,
+                           lambda x: x)
+    x = _layers(shards, _embed(shards, tokens, config), _on(positions, devices), config,
+                attend)
+    return _shard_logits(shards, x, config), pages
 
 
-def prefill_suffix_into_pages(params, tokens, page_table, pages: Pages,
-                              last_index: int, start_index: int,
-                              prefix_blocks: int, config: LlamaConfig):
+def prefill_suffix_into_pages(params, tokens, page_table, pages, last_index: int,
+                              start_index: int, prefix_blocks: int,
+                              config: LlamaConfig):
     """Prefill only a prompt's unshared suffix, attending to its shared
     prefix through the pool (the compute half of copy-on-write prefix
     sharing: matched blocks are read, never recomputed, never written).
@@ -479,13 +666,13 @@ def prefill_suffix_into_pages(params, tokens, page_table, pages: Pages,
     ``>= start_index // block_size`` that fixes the prefix gather width;
     slack slots are masked by absolute position. Only blocks at index
     ``>= start_index // block_size`` are written. Returns (logits of
-    ``last_index`` [1, V], pages)."""
+    ``last_index`` [1, V], pages); per-shard ``params``/``pages`` as for
+    :func:`prefill_into_pages`."""
+    shards, shard_pages = _as_shards(params, pages)
+    devices = _devices(shards)
     b, l = tokens.shape
     device = tokens.device
-    block_size = pages[0][0].shape[1]
-    kv_heads = config.n_kv_heads
-    hd = config.head_dim
-    g = config.n_heads // kv_heads
+    block_size = shard_pages[0][0][0].shape[1]
     pos = torch.arange(l, device=device)
     abs_pos = start_index + pos  # [L]
     valid_w = pos <= last_index
@@ -498,22 +685,29 @@ def prefill_suffix_into_pages(params, tokens, page_table, pages: Pages,
     suffix_valid = (pos[:, None] >= pos[None, :]) & (pos[None, :] <= last_index)
     mask = torch.cat([prefix_valid.expand(l, s0), suffix_valid], dim=1)  # [L, s0+L]
     prefix_table = page_table[:prefix_blocks].long()
-    x = params["embed"][tokens.long()].to(config.dtype)
-    for layer, (k_pages, v_pages) in zip(params["layers"], pages):
-        normed = rms_norm(x, layer["attn_norm"], config.norm_eps)
-        q, k, v = _qkv(layer, normed, abs_pos[None, :], config)
-        k_pages.index_put_((phys_w, off_w), k[0])
-        v_pages.index_put_((phys_w, off_w), v[0])
-        k_pref = k_pages[prefix_table].reshape(1, s0, kv_heads, hd)
-        v_pref = v_pages[prefix_table].reshape(1, s0, kv_heads, hd)
-        k_all = torch.cat([k_pref.to(k.dtype), k], dim=1)
-        v_all = torch.cat([v_pref.to(v.dtype), v], dim=1)
-        qg = q.reshape(b, l, kv_heads, g, hd)
-        scores = torch.einsum("blkgd,bskd->bkgls", qg.float(), k_all.float()) / np.sqrt(hd)
-        scores = torch.where(mask[None, None, None], scores, NEG_INF)
-        weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgls,bskd->blkgd", weights, v_all.float())
-        out = out.reshape(b, l, config.n_heads, hd).to(x.dtype)
-        x = x + _merge_heads(out, layer["wo"])
-        x = x + _mlp_block(layer, rms_norm(x, layer["mlp_norm"], config.norm_eps))
-    return _logits(params, x[:, int(last_index)], config), pages
+    per_shard = list(zip(_on(phys_w, devices), _on(off_w, devices),
+                         _on(prefix_table, devices), _on(mask, devices)))
+
+    def attend(index, qkv):
+        outs = []
+        for (q, k, v), layer_pages, (p, o, table, m) in zip(qkv, shard_pages, per_shard):
+            k_pages, v_pages = layer_pages[index]
+            kv_heads, hd = k.shape[2], k.shape[3]
+            g = q.shape[2] // kv_heads
+            k_pages.index_put_((p, o), k[0])
+            v_pages.index_put_((p, o), v[0])
+            k_pref = k_pages[table].reshape(1, s0, kv_heads, hd)
+            v_pref = v_pages[table].reshape(1, s0, kv_heads, hd)
+            k_all = torch.cat([k_pref.to(k.dtype), k], dim=1)
+            v_all = torch.cat([v_pref.to(v.dtype), v], dim=1)
+            qg = q.reshape(b, l, kv_heads, g, hd)
+            scores = torch.einsum("blkgd,bskd->bkgls", qg.float(), k_all.float()) / np.sqrt(hd)
+            scores = torch.where(m[None, None, None], scores, NEG_INF)
+            weights = torch.softmax(scores, dim=-1)
+            out = torch.einsum("bkgls,bskd->blkgd", weights, v_all.float())
+            outs.append(out.reshape(b, l, q.shape[2], hd).to(q.dtype))
+        return outs
+
+    x = _layers(shards, _embed(shards, tokens, config),
+                _on(abs_pos[None, :], devices), config, attend)
+    return _shard_logits(shards, [xi[:, int(last_index)] for xi in x], config), pages

@@ -410,6 +410,47 @@ def get_attention_impl_mq(name: str) -> Callable:
         ) from None
 
 
+def make_tp_attention(attn: Callable, plan, multi_query: bool = False) -> Callable:
+    """Wrap an attention implementation so it runs per shard under
+    ``plan``'s ``tp`` axis.
+
+    Tensor-parallel paged decode shards both q (on the query-head axis)
+    and the K/V pools (on the kv-head axis). Every implementation's math
+    is self-contained per kv-head group, and an even head split keeps
+    the group size ``H/KV``, so the per-shard call needs no collective:
+    shard ``i`` computes the output of its own heads against its own
+    pool, and the output stays head-sharded for the row-sharded ``wo``.
+
+    The wrapper takes ``q`` as the whole ``[B, (T,) H, D]`` query, of
+    which shard ``i`` takes the head slice ``q[..., i*H/tp:(i+1)*H/tp,
+    :]``, or as the list of those blocks; ``k_pages``/``v_pages`` as the
+    list of per-shard pools ``[N, bs, KV/tp, D]``, each its own
+    contiguous tensor; ``page_tables`` and ``positions`` replicated. It
+    returns the per-shard outputs. Each shard's block is made contiguous
+    and the shards run in turn on their devices' current streams: shards
+    on one card share its kernel workspace (``_scratch``), which is safe
+    only while their launches run in order on one stream."""
+    devices = [plan.devices[i] for i in plan.groups("tp")[0]]
+    rank = 4 if multi_query else 3
+
+    def tp_attention(q, k_pages, v_pages, page_tables, positions):
+        if torch.is_tensor(q):
+            heads = q.shape[-2] // len(devices)
+            q = [q[..., i * heads:(i + 1) * heads, :] for i in range(len(devices))]
+        if len(q) != len(devices) or any(block.dim() != rank for block in q):
+            raise ValueError(
+                f"expected {len(devices)} query blocks of rank {rank}, got "
+                f"{[tuple(block.shape) for block in q]}"
+            )
+        return [
+            attn(block.to(device).contiguous(), k, v, page_tables.to(device),
+                 positions.to(device))
+            for block, k, v, device in zip(q, k_pages, v_pages, devices)
+        ]
+
+    return tp_attention
+
+
 def resolve_decode_attention(device: torch.device) -> Tuple[str, Callable]:
     """The decode attention for ``device``: the CUDA kernel on a card,
     the fused plain version on the CPU."""

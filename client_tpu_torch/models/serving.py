@@ -7,6 +7,9 @@ of its "perf_analyzer concurrency sweep: BERT-large";
 ``llm_decode`` (:class:`LlmDecodeModel`, dense greedy decode, one stream
 at a time) and ``llm_engine`` (``client_tpu_torch/llm/serving.py``,
 continuous batching over paged attention) serve streaming generation.
+``text_encoder_tp`` (:class:`ShardedTextEncoderModel`, dp x tp) and
+``llama_ring`` (:class:`RingPrefillLlamaModel`, ring attention over sp)
+serve through a mesh (``client_tpu_torch/parallel/``).
 """
 
 import asyncio
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch.models import bert, llama, resnet
+from client_tpu_torch.parallel import SP_AXIS, TP_AXIS, ShardedExecutor, plan_for_model, sharding
 from client_tpu_torch.server.model_repository import Model
 from client_tpu_torch.server.models import pad_batch_bucket, run_bucketed
 from client_tpu_torch.utils import (
@@ -150,8 +154,22 @@ class TextEncoderModel(Model):
         if ids is not None and ids.size and (ids.min() < 0 or ids.max() >= vocab):
             raise InferenceServerException(f"token ids must lie in [0, {vocab})")
 
-    @torch.inference_mode()
     def execute(self, inputs, parameters):
+        ids, rows = self._bucketed_ids(inputs)
+        return {"EMBEDDING": self._encode(ids, rows)}
+
+    @torch.inference_mode()
+    def _encode(self, ids: np.ndarray, rows: int) -> np.ndarray:
+        """The pooled embeddings of the first ``rows`` rows of ``ids``."""
+        _, pooled = bert.forward(self._params, numpy_to_tensor(ids, self.device),
+                                 self._config)
+        (embedding,) = tensors_to_numpy([pooled[:rows]])
+        return embedding
+
+    def _bucketed_ids(self, inputs):
+        """INPUT_IDS validated and padded (rows to a power of two, length
+        to a power of two of at least 8, capped at ``max_seq_len``), and
+        the true row count."""
         if "INPUT_IDS" not in inputs:
             raise InferenceServerException(
                 f"model '{self.name}' expects input INPUT_IDS"
@@ -176,9 +194,188 @@ class TextEncoderModel(Model):
             padded = np.full([row_bucket, len_bucket], config.pad_token_id, dtype=np.int32)
             padded[:rows, :length] = ids
             ids = padded
-        _, pooled = bert.forward(self._params, numpy_to_tensor(ids, self.device), config)
-        (embedding,) = tensors_to_numpy([pooled[:rows]])
-        return {"EMBEDDING": embedding}
+        return ids, rows
+
+
+class ShardedTextEncoderModel(TextEncoderModel):
+    """Tensor-parallel text encoder over a ``dp x tp`` mesh.
+
+    The sharded twin of :class:`TextEncoderModel`: the same wire contract
+    (INPUT_IDS [-1] INT32 -> EMBEDDING [D]), but ``warmup()`` resolves the
+    declared mesh against ``devices`` (default: every card of the
+    process, or the CPU for a CPU model; an explicit list may repeat a
+    device), cuts the parameters per ``bert.param_specs`` (heads and the
+    FFN hidden over ``tp``) and executes through a
+    :class:`~client_tpu_torch.parallel.ShardedExecutor`: batch rows split
+    over ``dp``, products over ``tp``, and the output gathers back to the
+    host. Float32 by default, so results match the unsharded encoder to
+    rounding noise.
+
+    With fewer than ``dp*tp`` devices the model loads UNAVAILABLE with
+    reason ``load failed: mesh requires N devices, host has M``.
+    """
+
+    mesh = {
+        "axes": {"dp": 2, "tp": 2},
+        "inputs": {"INPUT_IDS": ["dp", None]},
+        "outputs": {"EMBEDDING": ["dp", None]},
+    }
+
+    def __init__(self, name: str = "text_encoder_tp",
+                 config: Optional[bert.BertConfig] = None,
+                 params: Optional[Dict[str, Any]] = None, device=None,
+                 dtype: Optional[torch.dtype] = None, devices=None):
+        device, self.devices = sharding.mesh_devices(device, devices)
+        super().__init__(name=name, config=config or bert.BertConfig.tiny(dtype=torch.float32),
+                         params=params, device=device, dtype=dtype)
+        self.mesh_plan = None
+        self._executor = None
+
+    def warmup(self) -> None:
+        plan = plan_for_model(self, self.devices)
+        if self._params is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            self._params = bert.init_params(generator, self._config, self.device)
+        config = self._config
+        shards = bert.shard_params(self._params, config, plan)
+        groups = plan.groups(TP_AXIS)
+
+        def run(arrays):
+            blocks = arrays["INPUT_IDS"]
+            out = [None] * len(plan.devices)
+            for group in groups:  # one tp group per dp block
+                _, pooled = bert.forward([shards[i] for i in group], blocks[group[0]], config)
+                for i in group:
+                    out[i] = pooled
+            return {"EMBEDDING": out}
+
+        executor = ShardedExecutor(plan, run)
+        # run the smallest bucket once, and publish the plan and executor
+        # only once it provably executes
+        executor({"INPUT_IDS": np.ones([1, 8], dtype=np.int32)}, rows=1)
+        self.mesh_plan = plan
+        self._executor = executor
+
+    def _encode(self, ids: np.ndarray, rows: int) -> np.ndarray:
+        # the executor places the dp blocks (padding the rows to the dp
+        # extent), runs every shard, and gathers and trims the output
+        return self._executor({"INPUT_IDS": ids}, rows=rows)["EMBEDDING"]
+
+
+class RingPrefillLlamaModel(Model):
+    """Long-context Llama prefill served through ring attention:
+    INPUT_IDS [-1] INT32 -> LOGITS [vocab] FP32, the real last token's
+    next-token logits. The sequence splits over the mesh's ``sp`` axis, so
+    attention runs as blockwise ring-rotated online softmax across the
+    shards (:func:`~client_tpu_torch.parallel.ring_attention`); the dense
+    prefill is the numerical reference.
+
+    Prompts pad to a power-of-two bucket (divisible by the sp extent);
+    causal attention keeps the padded tail out of the real last position.
+    ``config`` defaults to the tiny fp32 Llama with ``max_seq_len`` 256;
+    ``devices`` as for :class:`ShardedTextEncoderModel`. With too few
+    devices the model loads UNAVAILABLE with the reference's reason.
+    """
+
+    max_batch_size = 4
+    mesh = {
+        "axes": {"dp": 1, "tp": 1, "sp": 2},
+        "inputs": {"INPUT_IDS": [None, "sp"]},
+        "outputs": {"LOGITS": [None, None]},
+    }
+    inputs = [{"name": "INPUT_IDS", "datatype": "INT32", "shape": [-1]}]
+
+    def __init__(self, name: str = "llama_ring",
+                 config: Optional[llama.LlamaConfig] = None,
+                 params: Optional[Dict[str, Any]] = None, device=None, devices=None):
+        self.name = name
+        self.device, self.devices = sharding.mesh_devices(device, devices)
+        self._config = config or llama.LlamaConfig.tiny(max_seq_len=256, dtype=torch.float32)
+        self._params = params
+        self.outputs = [
+            {"name": "LOGITS", "datatype": "FP32", "shape": [self._config.vocab_size]}
+        ]
+        self.mesh_plan = None
+        self._executor = None
+
+    @property
+    def vocab_size(self) -> int:
+        return self._config.vocab_size
+
+    def warmup(self) -> None:
+        plan = plan_for_model(self, self.devices)
+        if self._params is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            self._params = llama.init_params(generator, self._config, self.device)
+        config = self._config
+        # the weights on every sp device (one tensor per distinct device)
+        replicas = {}
+        for device in plan.devices:
+            if device not in replicas:
+                replicas[device] = (self._params if self._params["embed"].device == device
+                                    else _to_device(self._params, device))
+        sp_devices = [plan.devices[i] for i in plan.groups(SP_AXIS)[0]]
+        params = [replicas[d] for d in sp_devices]
+
+        def run(arrays):
+            blocks = [arrays["INPUT_IDS"][i] for i in plan.groups(SP_AXIS)[0]]
+            last = int(arrays["LAST_INDEX"][0])
+            width = blocks[0].shape[1]
+            logits = llama.forward(params, blocks, config, mesh=plan)
+            row = logits[last // width][:, last % width]
+            return {"LOGITS": [row] * len(plan.devices)}
+
+        executor = ShardedExecutor(plan, run)
+        executor({"INPUT_IDS": np.zeros([1, 8], dtype=np.int32),
+                  "LAST_INDEX": np.int32(7)}, rows=1)
+        self.mesh_plan = plan
+        self._executor = executor
+
+    def check_inputs(self, inputs):
+        ids = inputs.get("INPUT_IDS")
+        vocab = self._config.vocab_size
+        if ids is not None and ids.size and (ids.min() < 0 or ids.max() >= vocab):
+            raise InferenceServerException(f"token ids must lie in [0, {vocab})")
+
+    def execute(self, inputs, parameters):
+        if "INPUT_IDS" not in inputs:
+            raise InferenceServerException(
+                f"model '{self.name}' expects input INPUT_IDS"
+            )
+        ids = np.asarray(inputs["INPUT_IDS"], dtype=np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        rows, length = ids.shape
+        if length < 1:
+            # LAST_INDEX would be -1 (a pad position): refuse instead of
+            # returning logits computed at padding
+            raise InferenceServerException(
+                f"model '{self.name}' requires a non-empty prompt"
+            )
+        if length > self._config.max_seq_len:
+            raise InferenceServerException(
+                f"sequence length {length} exceeds max {self._config.max_seq_len}"
+            )
+        self.check_inputs({"INPUT_IDS": ids})
+        # a power-of-two bucket bounds the shapes and divides by the sp
+        # extent (max_seq_len is itself a power of two)
+        bucket = min(pad_batch_bucket(length, minimum=8), self._config.max_seq_len)
+        if bucket != length:
+            padded = np.zeros([rows, bucket], dtype=np.int32)
+            padded[:, :length] = ids
+            ids = padded
+        out = self._executor({"INPUT_IDS": ids, "LAST_INDEX": np.int32(length - 1)},
+                             rows=rows)
+        return {"LOGITS": out["LOGITS"]}
+
+
+def _to_device(tree, device):
+    """A copy of a parameter tree on ``device``."""
+    if isinstance(tree, dict):
+        return {key: _to_device(value, device) for key, value in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(value, device) for value in tree]
+    return tree.to(device)
 
 
 class LlmDecodeModel(Model):
@@ -269,8 +466,12 @@ def register_zoo_models(repository, small: bool = True, device=None) -> None:
     """Install the model-zoo adapters on ``device``: ``image_classifier``
     (64 x 64 images through the thin ResNet-18 when ``small``, else 224 x
     224 through ResNet-50), ``llm_decode`` and ``llm_engine`` (the tiny
-    Llama) and ``text_encoder`` (the tiny BERT when ``small``, else
-    BERT-large's widths), random weights from seed 0."""
+    Llama), ``text_encoder`` (the tiny BERT when ``small``, else
+    BERT-large's widths), and the sharded ``text_encoder_tp`` (dp2 x tp2)
+    and ``llama_ring`` (sp2), random weights from seed 0. The sharded two
+    resolve their meshes against the host's devices: with too few they
+    register UNAVAILABLE with ``load failed: mesh requires N devices,
+    host has M`` instead of blocking startup."""
     from client_tpu_torch.llm.serving import LlmEngineModel
 
     repository.add_model(ImageClassifierModel(
@@ -282,3 +483,5 @@ def register_zoo_models(repository, small: bool = True, device=None) -> None:
     repository.add_model(TextEncoderModel(
         config=bert.BertConfig.tiny() if small else bert.BertConfig(), device=device
     ))
+    repository.add_model(ShardedTextEncoderModel(device=device))
+    repository.add_model(RingPrefillLlamaModel(device=device))

@@ -1046,15 +1046,29 @@ class ServerCore:
     # -- device busy accounting (duty cycle) ----------------------------------
 
     def add_busy_ns(self, model: Model, duration_ns: int) -> None:
-        """Credit one device execution's ns to the busy counter of the
-        model's device. Models on the CPU never count."""
-        device = getattr(model, "device", None)
-        if device is None or torch.device(device).type != "cuda":
+        """Credit one device execution's ns to the busy counter: once in
+        all, and once to each distinct card the model runs on — every
+        device of its mesh (all its shards work through the execution),
+        else its one device. A device a mesh repeats is credited once, so
+        a card's duty stays within (0, 1]. Models on the CPU never count."""
+        labels = self._device_labels_for(model)
+        if not labels:
             return
-        label = device_label(device)
         with self._busy_lock:
             self._device_busy_ns += duration_ns
-            self._device_busy[label] = self._device_busy.get(label, 0) + duration_ns
+            for label in labels:
+                self._device_busy[label] = self._device_busy.get(label, 0) + duration_ns
+
+    @staticmethod
+    def _device_labels_for(model: Model) -> tuple:
+        """The labels of the distinct cards ``model`` executes on."""
+        plan = getattr(model, "mesh_plan", None)
+        if plan is not None:
+            devices = plan.devices
+        else:
+            device = getattr(model, "device", None)
+            devices = () if device is None else (torch.device(device),)
+        return tuple(dict.fromkeys(device_label(d) for d in devices if d.type == "cuda"))
 
     def _default_device_label_value(self) -> str:
         """The label of the server's device (exported at 0 before the
@@ -1119,16 +1133,36 @@ class ServerCore:
     def device_topology(self) -> Dict[str, Any]:
         """The ``devices`` block of server metadata and ``debug_state()``:
         the server's device platform and its devices (every CUDA card of
-        the process, or the CPU). The port has no mesh-sharded models, so
-        ``models`` is empty."""
+        the process, or the CPU), and for every registered model that
+        resolved a mesh, its ``MeshPlan.describe()`` plus its executor's
+        cumulative place/compute/gather accounting; a declared mesh that
+        did not resolve shows what was asked for and why it failed."""
         device = resolve_device(self.device)
         if device.type == "cuda":
             devices = [{"id": i, "kind": torch.cuda.get_device_name(i), "process": 0}
                        for i in range(torch.cuda.device_count())]
         else:
             devices = [{"id": 0, "kind": device.type, "process": 0}]
+        models: Dict[str, Any] = {}
+        for entry in self.repository.index():
+            model = self.repository.peek(entry["name"])
+            if model is None:
+                continue
+            plan = getattr(model, "mesh_plan", None)
+            if plan is not None:
+                doc = plan.describe()
+                snapshot = getattr(getattr(model, "_executor", None), "snapshot", None)
+                if snapshot is not None:
+                    doc["executor"] = snapshot()
+                models[entry["name"]] = doc
+            elif isinstance(getattr(model, "mesh", None), dict):
+                models[entry["name"]] = {
+                    "axes": dict(model.mesh.get("axes", {})),
+                    "resolved": False,
+                    "reason": entry.get("reason", ""),
+                }
         return {"platform": device.type, "device_count": len(devices),
-                "devices": devices, "models": {}}
+                "devices": devices, "models": models}
 
     def debug_state(self) -> Dict[str, Any]:
         """One snapshot of the server's live internals

@@ -42,6 +42,22 @@ class ModelUnavailableError(InferenceServerException):
         super().__init__(msg, status="UNAVAILABLE")
 
 
+def _mesh_capacity_failure(exc: Optional[BaseException]) -> bool:
+    """True when a load failure is a mesh-capacity problem ("mesh
+    requires N devices, host has M") anywhere in the cause chain: a
+    property of the host, not a broken model, so it must not degrade
+    whole-server readiness the way corrupt weights do."""
+    from client_tpu_torch.parallel.sharding import MeshUnavailableError
+
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if isinstance(exc, MeshUnavailableError):
+            return True
+        seen.add(id(exc))
+        exc = exc.__cause__
+    return False
+
+
 class Model:
     """Base class for served models.
 
@@ -87,6 +103,16 @@ class Model:
     # neither of these (the core's batcher is always on for them).
     sequence_batching: Optional[Dict[str, Any]] = None
     ensemble_scheduling: Optional[Dict[str, Any]] = None
+    # Sharded execution (client_tpu_torch.parallel.sharding): a mesh
+    # declaration {"axes": {"dp": 2, "tp": 2}, "inputs": {name: spec},
+    # "outputs": {name: spec}} resolved at load time into a MeshPlan.
+    # Models that resolve one publish it as ``mesh_plan`` (read by the
+    # devices block of server metadata and debug_state(), and by the
+    # per-device busy accounting). Too few devices surface the model as
+    # UNAVAILABLE with reason "load failed: mesh requires N devices, host
+    # has M".
+    mesh: Optional[Dict[str, Any]] = None
+    mesh_plan: Optional[Any] = None
 
     def metadata(self) -> Dict[str, Any]:
         def entry(tensor):
@@ -153,6 +179,15 @@ class Model:
             config["ensemble_scheduling"] = {
                 "step": [dict(s) for s in self.ensemble_scheduling.get("step", [])]
             }
+        if isinstance(self.mesh, dict):
+            # the mesh topology rides the config's parameters map (the
+            # ModelParameter wire shape) so both protocols expose it: a
+            # resolved plan reports the live topology, an unresolved
+            # declaration what was asked for
+            plan = self.mesh_plan
+            payload = (plan.describe() if plan is not None
+                       else {"axes": dict(self.mesh.get("axes", {})), "resolved": False})
+            config["parameters"] = {"mesh": {"string_value": json.dumps(payload)}}
         return config
 
     def labels(self, output_name: str) -> Optional[List[str]]:
@@ -217,6 +252,10 @@ class ModelRepository:
         # per-name load/unload generation: async unload finalization and
         # batcher eviction only apply when no load() happened in between
         self._epoch: Dict[str, int] = {}
+        # names whose "load failed" is a host-capacity (mesh) problem:
+        # left out of degraded() so one oversized mesh never pulls the
+        # whole replica out of its load balancer
+        self._capacity_failed: set = set()
         self._lock = threading.Lock()
         self._repository_path = repository_path
         self.device = device
@@ -225,6 +264,18 @@ class ModelRepository:
         # lock held by caller
         self._state[name] = state
         self._reason[name] = reason
+        if state == STATE_READY:
+            self._capacity_failed.discard(name)
+
+    def _fail_load(self, name: str, exc: BaseException) -> None:
+        """Mark a load failure (lock held by caller). Membership of the
+        capacity set tracks the latest failure: a capacity miss followed
+        by a real load bug must degrade, and vice versa."""
+        self._set_state(name, STATE_UNAVAILABLE, f"load failed: {exc}")
+        if _mesh_capacity_failure(exc):
+            self._capacity_failed.add(name)
+        else:
+            self._capacity_failed.discard(name)
 
     def add_model(self, model: Model, ready: bool = True) -> None:
         """Register a programmatic model after its warmup. A warmup
@@ -232,15 +283,15 @@ class ModelRepository:
         reason ``load failed: <why>`` (the index semantics a failed
         directory load gets), and requests to it get a 503. A later
         programmatic ``load()`` re-runs warmup and recovers it."""
-        failure: Optional[str] = None
+        failure: Optional[Exception] = None
         try:
             model.warmup()
         except Exception as e:  # noqa: BLE001 - surfaced via the index
-            failure = f"load failed: {e}"
+            failure = e
         with self._lock:
             self._models[model.name] = model
             if failure is not None:
-                self._set_state(model.name, STATE_UNAVAILABLE, failure)
+                self._fail_load(model.name, failure)
             else:
                 self._set_state(model.name, STATE_READY if ready else STATE_UNAVAILABLE)
             self._epoch[model.name] = self._epoch.get(model.name, 0) + 1
@@ -281,14 +332,14 @@ class ModelRepository:
     def degraded(self) -> bool:
         """True when the ready set is degraded: a model is mid-load or
         stuck in a failed load. Intentional removals (unloading,
-        unloaded) do not degrade readiness. (The reference exempts a
-        load that failed for want of mesh devices; the port has no
-        meshes yet, so every failed load counts.)"""
+        unloaded) do not degrade readiness, nor does a load that failed
+        for want of mesh devices (a property of the host)."""
         with self._lock:
             for name in self._models:
                 if self._state.get(name) == STATE_LOADING:
                     return True
-                if self._reason.get(name, "").startswith("load failed"):
+                if (self._reason.get(name, "").startswith("load failed")
+                        and name not in self._capacity_failed):
                     return True
         return False
 
@@ -339,7 +390,7 @@ class ModelRepository:
             except Exception as e:  # noqa: BLE001 - surfaced to caller
                 with self._lock:
                     if not was_ready:
-                        self._set_state(name, STATE_UNAVAILABLE, f"load failed: {e}")
+                        self._fail_load(name, e)
                 raise InferenceServerException(f"failed to load '{name}': {e}") from e
             with self._lock:
                 self._set_state(name, STATE_READY)
@@ -377,7 +428,7 @@ class ModelRepository:
                     # event, not a state
                     self._reason[name] = ""
                 elif known:
-                    self._set_state(name, STATE_UNAVAILABLE, f"load failed: {e}")
+                    self._fail_load(name, e)
                 else:
                     # a never-loaded name: no registry entry to degrade
                     self._state.pop(name, None)

@@ -121,22 +121,25 @@ def test_out_of_vocabulary_ids_are_refused(model):
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [({"tp": 2}, "tp > 1"), ({"speculation": {"mode": "bogus"}}, "speculative")],
+    [({"tp": 2}, "load failed: mesh requires 2 devices, host has 1"),
+     ({"speculation": {"mode": "bogus"}}, "speculative")],
 )
 def test_unported_options_raise(weights, kwargs, match):
-    """``tp > 1`` is refused when the model is made. Speculation is
-    ported; a declaration it cannot build (an unknown mode) fails the
-    load: the repository entry is UNAVAILABLE with the reason."""
-    if "tp" in kwargs:
-        with pytest.raises(InferenceServerException, match=match):
-            LlmEngineModel(device="cpu", **kwargs)
-        return
+    """An option the host cannot serve fails the load: the repository
+    entry is UNAVAILABLE with the reason. ``tp=2`` without ``devices``
+    resolves its mesh against the host's devices — here the one CPU — and
+    fails with the reference's reason; a speculation declaration it
+    cannot build (an unknown mode) fails likewise."""
     repository = ModelRepository()
-    repository.add_model(_tiny_model(weights[1], name="bad_spec", **kwargs))
+    repository.add_model(_tiny_model(weights[1], name="bad_option", **kwargs))
     (entry,) = repository.index()
     assert entry["state"] == "UNAVAILABLE"
-    assert match in entry["reason"] and "unknown speculation mode 'bogus'" in entry["reason"]
-    assert not repository.is_ready("bad_spec")
+    assert match in entry["reason"]
+    if "speculation" in kwargs:
+        assert "unknown speculation mode 'bogus'" in entry["reason"]
+    else:
+        assert entry["reason"] == match
+    assert not repository.is_ready("bad_option")
 
 
 def test_a_failing_warmup_probe_fails_the_load(weights, monkeypatch):

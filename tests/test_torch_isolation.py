@@ -76,7 +76,10 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.grpc._generated.model_config_pb2",
                  "client_tpu_torch.server._grpc_codec", "client_tpu_torch.server.native_frontend",
                  "client_tpu_torch.frontend_build", "client_tpu_torch.grpc._mux",
-                 "client_tpu_torch.resilience.chaos", "client_tpu_torch.llm.recovery")
+                 "client_tpu_torch.resilience.chaos", "client_tpu_torch.llm.recovery",
+                 "client_tpu_torch.parallel", "client_tpu_torch.parallel.sharding",
+                 "client_tpu_torch.parallel.collectives", "client_tpu_torch.parallel.executor",
+                 "client_tpu_torch.parallel.ring_attention")
 
 
 def _port_files():

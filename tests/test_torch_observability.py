@@ -423,11 +423,13 @@ def test_lints_find_nothing_in_the_port():
     assert {f.name for f in files} >= {"metrics.py", "window.py", "slo.py", "recorder.py",
                                        "logging.py", "server.py", "profiling.py", "trace.py"}
     # the reference's clock lint pins its multiplexer too (TARGET_FILES),
-    # and covers the engine, its recovery and the resilience layer
-    # (TARGET_DIRS llm/ and resilience/)
+    # and covers the engine, its recovery, the resilience layer and the
+    # sharded executor (TARGET_DIRS llm/, resilience/ and parallel/)
     engine_and_resilience = sorted((ROOT / "client_tpu_torch" / "llm").glob("*.py")) + sorted(
-        (ROOT / "client_tpu_torch" / "resilience").glob("*.py"))
-    assert {f.name for f in engine_and_resilience} >= {"recovery.py", "chaos.py", "engine.py"}
+        (ROOT / "client_tpu_torch" / "resilience").glob("*.py")) + sorted(
+        (ROOT / "client_tpu_torch" / "parallel").glob("*.py"))
+    assert {f.name for f in engine_and_resilience} >= {"recovery.py", "chaos.py", "engine.py",
+                                                       "executor.py"}
     for path in files + engine_and_resilience + [
             ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py",
             ROOT / "client_tpu_torch" / "grpc" / "_mux.py"]:
