@@ -72,7 +72,7 @@ result line:
    routes, 64 requests each, bit-exact (``data-plane-procs:``).
 9. the port's perf harness and genai-perf (``python -m
    client_tpu_torch.perf`` / ``client_tpu_torch.genai_perf``), each run a
-   subprocess that cannot see the card, with three 2 s windows (4 s for
+   subprocess that cannot see the card, with three 0.5 s windows (2 s for
    9d) and its own guards: no error, every completed request booked by
    the server's statistics, non-zero server queue and compute times, no
    region left registered. They run on the servers they measure, inside
@@ -120,8 +120,9 @@ result line:
    ``POST .../load`` re-warms it (a new pool, the old engine closed after
    the probes) and the 8 streams equal phase 4's again, K1 launched >= 32
    x decode steps, every block back (``lifecycle 11a:``, the reload's
-   peak memory); (b)-(e) ``python -m client_tpu_torch.server
-   --model-repository`` spawned with the card, serving ``resnet50`` and
+   peak memory); (b)-(e) after phases 12-13 on their ``python -m
+   client_tpu_torch.server --model-repository`` spawned with the card,
+   serving ``resnet50`` and
    ``resnet50_sched`` (ResNet-50's widths, seed 0; the second with two
    priority levels, a queue of 16 with the "continue" timeout action and
    one ``card`` rate-limiter resource) from ``<name>/model.py`` files, the
@@ -143,9 +144,10 @@ result line:
    11f:``).
 12. the KServe v2 gRPC surface (the native front-end, built with ``g++``,
    and the port's own gRPC clients; no grpcio): (a)-(b), (d) on
-   ``python -m client_tpu_torch.server --grpc-port 0 --model-repository``
-   spawned with the card, serving the built-ins, ``resnet50`` (as 11b) and
-   the ``grpc_hold`` identity: (a) from a client process, the port's sync
+   ``python -m client_tpu_torch.server --grpc-port 0 --model-repository
+   --drain-timeout 20`` spawned with the card (the server 11b-11e use
+   after it), serving the built-ins, ``resnet50`` (as 11b), 11's models
+   and the ``grpc_hold`` identity: (a) from a client process, the port's sync
    gRPC client: every RPC answers (health, metadata, config, statistics,
    repository index / unload / load, system and TPU shm register / status
    / unregister, CUDA shm status empty, trace and log settings),
@@ -154,7 +156,7 @@ result line:
    route's answer (both at batch 1), and the server's statistics book
    every request (``grpc 12a:``); (b) the harness with ``-i grpc`` beside
    ``-i http``, ResNet-50 ``-b 1`` c=8 over ``--shared-memory none`` and
-   ``tpu``, three 2 s windows, phase 9's guards (``grpc 12b:``); (d) a
+   ``tpu``, three 0.5 s windows, phase 9's guards (``grpc 12b:``); (d) a
    request to ``grpc_hold`` held 3 s over gRPC while ``simple`` answers
    over gRPC the whole time, each under 0.5 s (``grpc 12d:``); (c) inside
    phase 4, after 11a, the 8 streams of 32 tokens again over
@@ -175,7 +177,7 @@ result line:
    under 0.5 s (``grpc 13a:``); (b) the harness with ``-i grpc
    --stream-mode`` over none and TPU shm beside 12b's unary rows, and
    unary inline over TLS (``--ssl-grpc-root-certifications-file``), each
-   ResNet-50 ``-b 1`` c=8, three 2 s windows, phase 9's guards (``grpc
+   ResNet-50 ``-b 1`` c=8, three 0.5 s windows, phase 9's guards (``grpc
    13b:``); then the TLS server is killed under a request held on the
    stream, which must fail with a retryable status inside 10 s; (c)
    inside phase 4, after 12c, genai-perf ``--service-kind triton
@@ -246,15 +248,39 @@ result line:
    UNAVAILABLE with ``mesh requires N devices, host has 1``, the server
    ready, 503 on infer, per-device duty for ``cuda:0`` only (``tp
    15e:``).
+16. the pod and the fleet tier, after phase 4's weights are freed: the
+   tiny pod and the 7B at tp=2 over two processes on the card, a member
+   SIGKILLed under its streams, and ``--fleet 2`` (``pod 16a:`` ...
+   ``fleet 16d:``).
+17. the router tier, before phase 4's weights are freed: two
+   ``InProcessServer`` replicas with the native gRPC front-end on the
+   card, each an ``llm_engine`` on phase 4's weights (shared) with a pool
+   of 512 blocks and the built-ins, behind ``python -m
+   client_tpu_torch.router --serve`` processes: (a) phase 4's 8 streams
+   of 32 tokens over ``ModelStreamInfer`` through the router, taken by
+   both replicas, each equal to phase 4's or parting at a near-tie (11a's
+   rule), K1 exactly 32 x both replicas' decode steps; (b) the same
+   streams straight to replica A, the proxy tax recorded; (c) replica B
+   stopped under ``simple`` from 4 client threads: no client failure, B
+   benched in ``/v2/router/status``, then 8 streams all on A; (d) a
+   second router with ``--max-inflight 4``: 8 default-priority streams
+   and 2 at priority 1 at once, a default one shed in-band with
+   RESOURCE_EXHAUSTED and its retry hint, none at priority 1, every
+   admitted stream equal to phase 4's; ``simple`` past the limit gets 429
+   with ``Retry-After`` over HTTP and ``retry-after`` in its gRPC
+   trailers (``router 17a:`` ... ``router 17d:``).
 
-The last two lines are the card's name and power limit and the result
-object; the line before them lists every kernel with its numbers.
+Every phase prints ``phase <label>: <s> s`` as it ends, and every
+spawned server its start-up. The last two lines are the card's name and
+power limit and the result object; the line before them lists every
+kernel with its numbers.
 """
 
 import asyncio
 import contextlib
 import dataclasses
 import faulthandler
+import functools
 import gc
 import http.client
 import json
@@ -287,6 +313,28 @@ from client_tpu_torch.models import paged_attention as pa  # noqa: E402
 DEVICE = torch.device("cuda")
 
 
+@contextlib.contextmanager
+def timed(label):
+    """Prints ``phase <label>: <s> s`` as the block ends, failing or not:
+    every phase reports its seconds against the script's time limit."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def timed_phase(label):
+    """The phase function decorated runs under :func:`timed`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with timed(label):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
 def ragged_layout(gen, contexts, bs, table_width, num_blocks):
     """Page tables giving each sequence its context in distinct random
     blocks (block 0 stays the trash block); a context of 0 makes a
@@ -307,15 +355,24 @@ def ragged_layout(gen, contexts, bs, table_width, num_blocks):
 # ---------------------------------------------------------------------------
 
 
+@timed_phase("1 (build)")
 def build() -> None:
     """Build both kernels; print each instance's registers and spills (from
     ptxas) and its dynamic shared memory and resident blocks an SM at the
-    default partition (from the runtime)."""
+    default partition (from the runtime). The gRPC front-end (``g++``,
+    phases 12-13 and 17) builds beside them."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from client_tpu_torch import frontend_build
 
     t0 = time.perf_counter()
-    paths = kernels.build_all()
-    print(f"build: {len(paths)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:
+        frontend = pool.submit(frontend_build.build)
+        paths = kernels.build_all()
+        frontend.result()
+    print(f"build: {len(paths)} source(s) and the gRPC front-end in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     describe = {"paged_attention.cu": "rpa_describe", "paged_attention_mq.cu": "rpa_mq_describe"}
     for source, log in kernels.build_logs.items():
         instances = {}
@@ -570,6 +627,7 @@ def _tiny_streams(speculation=None, tp=1):
     return stats
 
 
+@timed_phase("3")
 def check_tiny_engine() -> None:
     """The tiny fp32 Llama through the engine (prefill, suffix prefill,
     K1 decode at head_dim 16) against the dense oracle on the card."""
@@ -580,6 +638,7 @@ def check_tiny_engine() -> None:
           f"{stats['prefix_cache_hits']} prefix blocks shared", flush=True)
 
 
+@timed_phase("3b")
 def check_tiny_engine_speculation() -> None:
     """The tiny fp32 Llama with speculation on (self-draft K = 1, 2, 4;
     n-gram K = 4): K2 verifies at head_dim 16, and the streams still
@@ -882,6 +941,7 @@ SERVE_TOKENS = 32
 SPEC_SERVE_TOKENS = 128
 
 
+@timed_phase("4 (with 9d, 11a, 12c, 13c, 14a)")
 def serve_7b() -> tuple:
     """Phase 4: serve 8 concurrent streams at Llama-7B widths over HTTP.
     Returns (result, the served weights, the 8 token streams)."""
@@ -957,6 +1017,7 @@ def serve_7b() -> tuple:
     return result, params, [r["tokens"] for r in records]
 
 
+@timed_phase("5")
 def serve_7b_speculative(params, plain_streams) -> dict:
     """Phase 5: the same 8 prompts from a second model on phase 4's
     weights with n-gram speculation (K = 4): the verify steps run K2.
@@ -1161,6 +1222,7 @@ def _concurrently(port, threads, open_way, work):
     return results, latencies, wall
 
 
+@timed_phase("6a")
 def kserve_tiny() -> None:
     """Phase 6a: the built-ins and a tiny fp32 ``text_encoder`` on the
     card, one ``ServerCore``: AddSub exact, the identities bit for bit
@@ -1324,6 +1386,7 @@ def profile_execution(model, config, rows: int = 16, length: int = 512) -> dict:
     return result
 
 
+@timed_phase("6b (with 9c)")
 def kserve_bert_large() -> dict:
     """Phase 6b: ``text_encoder`` at BERT-large's widths (24 layers, bf16,
     random weights from seed 0) behind the KServe v2 route: 128 binary
@@ -1518,6 +1581,7 @@ def check_shm_routes(client) -> None:
         tpushm.destroy_shared_memory_region(tpu_handle)
 
 
+@timed_phase("7a")
 def classifier_tiny() -> None:
     """Phase 7a: a tiny fp32 classifier (stage_sizes (2, 1, 1, 1), 16
     filters, 64 x 64 images, every norm perturbed) and ``identity_fp32`` on
@@ -1715,6 +1779,7 @@ def serve_routes(port, model, routes, clients, requests, make_inputs, outputs, i
     return results
 
 
+@timed_phase("7b (with 8b, 9a-9b, 10c, 14c)")
 def classifier_resnet50() -> dict:
     """Phase 7b: ``image_classifier`` at ResNet-50's widths (224 x 224,
     1000 classes, stage_sizes (3, 4, 6, 3), 64 filters, bf16; random
@@ -1823,6 +1888,7 @@ def _parameter_count(params) -> int:
     return count
 
 
+@timed_phase("7c")
 def data_plane() -> dict:
     """Phase 7c: ``identity_fp32`` at 4 MiB a request, 4 closed-loop
     clients, 64 requests, once inline (binary both ways), once through
@@ -1863,6 +1929,43 @@ DATA_PLANE_PROC_CLIENTS = 4
 DATA_PLANE_PROC_SIZES = (256 * 2**10, 4 * 2**20)
 
 
+class _Spilled:
+    """A numpy array a client process's arguments carry as a file: a
+    spawned process is handed its arguments through a pipe only once it
+    has imported this script, so large ones would make each start wait
+    for the one before it."""
+
+    def __init__(self, path):
+        self.path = path
+
+
+def _spill(value, directory):
+    """``value`` with each numpy array in it saved under ``directory``."""
+    import numpy as np
+
+    if isinstance(value, np.ndarray):
+        path = os.path.join(directory, f"{uuid.uuid4().hex}.npy")
+        np.save(path, value)
+        return _Spilled(path)
+    if isinstance(value, dict):
+        return {k: _spill(v, directory) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_spill(v, directory) for v in value)
+    return value
+
+
+def _unspill(value):
+    import numpy as np
+
+    if isinstance(value, _Spilled):
+        return np.load(value.path)
+    if isinstance(value, dict):
+        return {k: _unspill(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_unspill(v) for v in value)
+    return value
+
+
 def _client_main(task, args, barrier, results):
     """A spawned client process: runs ``CLIENT_TASKS[task]`` and puts
     (worker, result, error) on ``results``, once a task or once a route.
@@ -1872,6 +1975,7 @@ def _client_main(task, args, barrier, results):
 
     worker = args.get("worker", 0)
     try:
+        args = _unspill(args)
         for result in CLIENT_TASKS[task](barrier=barrier, **args):
             results.put((worker, result, None))
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails
@@ -2397,7 +2501,9 @@ def run_client_processes(task, arglist, on_round, rounds=1):
     ctx = multiprocessing.get_context("spawn")
     barrier = ctx.Barrier(len(arglist) + 1)
     results = ctx.Queue()
-    procs = [ctx.Process(target=_client_main, args=(task, args, barrier, results), daemon=True)
+    spilled = tempfile.TemporaryDirectory()
+    procs = [ctx.Process(target=_client_main, daemon=True,
+                         args=(task, _spill(args, spilled.name), barrier, results))
              for args in arglist]
     for proc in procs:
         proc.start()
@@ -2428,10 +2534,12 @@ def run_client_processes(task, arglist, on_round, rounds=1):
                 proc.terminate()
                 proc.join(10)
         results.close()
+        spilled.cleanup()
     if any(proc.exitcode != 0 for proc in procs):
         raise AssertionError(f"client exit codes {[p.exitcode for p in procs]}")
 
 
+@timed_phase("8a")
 def client_correctness() -> None:
     """Phase 8a: the built-ins and a tiny fp32 classifier on the card,
     driven by the port's sync and aio clients from one client process:
@@ -2540,6 +2648,7 @@ def _summarize(got, wall, before, after, requests):
 IMAGE_PROC_ROUTES = ("none", "system", "tpu", "ring")
 
 
+@timed_phase("8b")
 def image_procs(port, images, check, in_process) -> dict:
     """Phase 8b: phase 7b's 128 one-image requests from 8 client
     processes (16 each, closed loop) over inline binary, system shm, TPU
@@ -2571,6 +2680,7 @@ def image_procs(port, images, check, in_process) -> dict:
     return results
 
 
+@timed_phase("8c")
 def data_plane_procs() -> dict:
     """Phase 8c: ``identity_fp32`` from 4 client processes (16 requests
     each, closed loop) at 256 KiB (the reference's ring crossover row,
@@ -2608,8 +2718,10 @@ def data_plane_procs() -> dict:
 # ---------------------------------------------------------------------------
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# short windows: three of 2 s, stable within 50 %
-HARNESS_WINDOWS = ["--measurement-interval", "2000", "--max-trials", "3",
+# short windows: three of 0.5 s, stable within 50 % (2 s before the
+# script had to make room for phase 17 inside its time limit)
+HARNESS_WINDOW_MS = 500
+HARNESS_WINDOWS = ["--measurement-interval", str(HARNESS_WINDOW_MS), "--max-trials", "3",
                    "--stability-percentage", "50"]
 
 
@@ -2713,8 +2825,8 @@ def local_twin(port, model, batch, concurrency) -> dict:
                             batched=config["max_batch_size"] > 0)
         loader.generate_synthetic()
         manager = ConcurrencyManager(local, model, loader)
-        profiler = InferenceProfiler(manager, measurement_interval_s=2.0, stability_pct=50.0,
-                                     max_trials=3)
+        profiler = InferenceProfiler(manager, measurement_interval_s=HARNESS_WINDOW_MS / 1e3,
+                                     stability_pct=50.0, max_trials=3)
         (experiment,) = await profiler.profile_concurrency_range(concurrency, concurrency)
         return experiment
 
@@ -2731,6 +2843,7 @@ def local_twin(port, model, batch, concurrency) -> dict:
             "server_compute_infer_us": s.server_compute_infer_us}
 
 
+@timed_phase("9a-9b")
 def perf_image(port) -> dict:
     """Phases 9a-9b on phase 7b's ResNet-50 server. 9a, the north-star
     row: ``-b 4 --concurrency-range 8`` over ``--shared-memory none``,
@@ -2765,11 +2878,11 @@ def perf_image(port) -> dict:
               "achieved_per_s": opened["infer_per_s"],
               "achieved_share": opened["infer_per_s"] / target}
     print("perf 9b: " + json.dumps(result) + f" [{card()}]", flush=True)
-    wall = time.perf_counter() - t0
-    print(f"perf 9a-9b: {wall:.1f} s", flush=True)
-    return {"rows": rows, "north_star_ratio": north_star, "open": result, "wall_s": wall}
+    return {"rows": rows, "north_star_ratio": north_star, "open": result,
+            "wall_s": time.perf_counter() - t0}
 
 
+@timed_phase("9c")
 def perf_bert(port, seqs) -> dict:
     """Phase 9c on phase 6b's BERT-large server: BASELINE.json's sweep,
     ``--concurrency-range 4:16:12`` over an ``--input-data`` file of
@@ -2788,6 +2901,7 @@ def perf_bert(port, seqs) -> dict:
     return result
 
 
+@timed_phase("9d")
 def genai_perf_7b(port, engine, n_layers) -> dict:
     """Phase 9d on phase 4's Llama-7B server: genai-perf over the OpenAI
     route, 8 concurrent streams, 16 prompts of 250 ± 50 synthetic words
@@ -2807,7 +2921,7 @@ def genai_perf_7b(port, engine, n_layers) -> dict:
             "--endpoint-type", "openai-chat", "--streaming", "--tokenizer", "synthetic",
             "--concurrency", "8", "--num-prompts", "16",
             "--synthetic-input-tokens-mean", "250", "--synthetic-input-tokens-stddev", "50",
-            "--output-tokens-mean", str(SERVE_TOKENS), "--measurement-interval", "4000",
+            "--output-tokens-mean", str(SERVE_TOKENS), "--measurement-interval", "2000",
             "--stability-percentage", "50", "--max-trials", "3", "--artifact-dir", tmp,
             "--json-summary"])
         launches = pa.paged_attention_cuda.launches
@@ -2935,6 +3049,7 @@ def llm_metrics_guards(port, scraped, before, steps, tokens_counted) -> dict:
     return result
 
 
+@timed_phase("10c")
 def image_metrics(port) -> dict:
     """Phase 10c: 9a's TPU-shm run again with ``--collect-metrics``
     (scrapes every 0.5 s: the flag is in seconds in both packages) and
@@ -2984,8 +3099,9 @@ IDLE_LEAVES = ("threading.py:wait", "queue.py:get", "selectors.py:select",
                "threading.py:_wait_for_tstate_lock")
 
 
-def _profile_child(conn) -> None:
-    """The server process of phase 10d (``multiprocessing`` spawn)."""
+def _profile_child(conn, started) -> None:
+    """The server process of phase 10d (``multiprocessing`` spawn);
+    ``started`` is the parent's ``time.monotonic()`` at its spawn."""
     faulthandler.enable()
     try:
         import numpy as np
@@ -3001,6 +3117,8 @@ def _profile_child(conn) -> None:
         model.warmup()
         images = np.random.default_rng(0).normal(size=[4, size, size, 3]).astype(np.float32)
         with http_server(model) as port:
+            print(f"profile 10d: the server process up in {time.monotonic() - started:.1f} s",
+                  flush=True)
             conn.send(("ok", thread_profile(port, images)))
     except BaseException as e:  # noqa: BLE001 - reported to, and raised by, the parent
         conn.send(("error", f"{type(e).__name__}: {e}"))
@@ -3008,6 +3126,7 @@ def _profile_child(conn) -> None:
         conn.close()
 
 
+@timed_phase("10d")
 def server_thread_profile() -> dict:
     """Phase 10d in a server process of its own: phase 7b's ResNet-50
     (the same seed-0 weights) behind ``http_server`` in a spawned process
@@ -3019,7 +3138,7 @@ def server_thread_profile() -> dict:
 
     context = multiprocessing.get_context("spawn")
     parent, child = context.Pipe(duplex=False)
-    proc = context.Process(target=_profile_child, args=(child,))
+    proc = context.Process(target=_profile_child, args=(child, time.monotonic()))
     proc.start()
     child.close()
     try:
@@ -3057,7 +3176,8 @@ def thread_profile(port, images) -> dict:
         proc = subprocess.Popen(
             [sys.executable, "-m", "client_tpu_torch.perf", "-m", "image_classifier",
              "-u", f"127.0.0.1:{port}", "-b", "1", "--concurrency-range", "8",
-             "--shared-memory", "tpu", "--profile-server", *HARNESS_WINDOWS,
+             "--shared-memory", "tpu", "--profile-server", "--measurement-interval",
+             "2000", "--max-trials", "3", "--stability-percentage", "50",
              "--json-summary"],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
@@ -3158,6 +3278,7 @@ def thread_profile(port, images) -> dict:
     return result
 
 
+@timed_phase("10a")
 def builtins_on_card() -> dict:
     """Phase 10a: the built-ins on the card through the port's HTTP
     client: ``add_sub_chain`` exact at batch 1 and from 8 concurrent
@@ -3251,6 +3372,7 @@ def builtins_on_card() -> dict:
     return result
 
 
+@timed_phase("10b")
 def llm_decode_7b(params) -> dict:
     """Phase 10b: ``llm_decode`` at Llama-7B widths on phase 4's weights,
     through the OpenAI route's default model (no ``model`` in the body),
@@ -3358,6 +3480,7 @@ def _same_or_tie(params, config, prompt, want, got) -> dict:
     return {"index": k, "gap_share": gap / scale}
 
 
+@timed_phase("11a")
 def lifecycle_7b(port, model, config, plain_streams) -> dict:
     """Phase 11a on phase 4's server: the 8 streams again; after their
     first tokens ``llm_engine`` is unloaded. While the unload drains, a
@@ -3521,6 +3644,7 @@ def _metric_sum(port, name, match) -> float:
     return counter_total(_scrape(port).get(name), match)
 
 
+@timed_phase("11b")
 def compat_11b(port, image) -> dict:
     """11b: one image through KServe binary, TFS ``:predict`` and
     TorchServe ``/predictions``; the harness's tfserving, torchserve and
@@ -3572,6 +3696,7 @@ def compat_11b(port, image) -> dict:
     return result
 
 
+@timed_phase("11c")
 def admission_11c(port) -> dict:
     """11c: the harness at c=32 on ``resnet50_sched`` (2 priority levels,
     a queue of 16 with the "continue" action, one ``card`` resource)."""
@@ -3609,6 +3734,7 @@ def admission_11c(port) -> dict:
     return result
 
 
+@timed_phase("11d")
 def rolling_11d(port, image, plain) -> dict:
     """11d: ``--rolling-restart 1`` on ``resnet50`` at c=8 for 6 s: every
     cycle reloads the directory model on the card; one cycle by hand
@@ -3667,6 +3793,7 @@ def rolling_11d(port, image, plain) -> dict:
     return result
 
 
+@timed_phase("11e")
 def drain_11e(proc, port, log) -> dict:
     """11e: SIGTERM under a c=8 harness load on ``resnet50``. One request
     to ``drain_hold`` that sleeps 4 s on the server holds the drain open:
@@ -3744,49 +3871,29 @@ def drain_11e(proc, port, log) -> dict:
     return result
 
 
-def lifecycle_server() -> dict:
-    """Phases 11b-11e on ``python -m client_tpu_torch.server
-    --no-builtin-models --model-repository <dir> --drain-timeout 20``,
-    spawned with the card, whose directory holds ``resnet50`` (ResNet-50's
-    widths, 224 x 224, 1000 classes, bf16, seed-0 weights),
-    ``resnet50_sched`` (the same with two priority levels, a queue of 16
-    with the "continue" timeout action and one ``card`` rate-limiter
-    resource) and the 11e ``drain_hold`` identity. The harness runs in
-    subprocesses that cannot see the card."""
+@timed_phase("11b-11e")
+def lifecycle_11(proc, port, log, reader) -> dict:
+    """Phases 11b-11e on the spawned ResNet-50 server (:func:`resnet_server`),
+    whose directory holds ``resnet50`` (ResNet-50's widths, 224 x 224,
+    1000 classes, bf16, seed-0 weights), ``resnet50_sched`` (the same with
+    two priority levels, a queue of 16 with the "continue" timeout action
+    and one ``card`` rate-limiter resource) and the 11e ``drain_hold``
+    identity; it drains for up to 20 s. 11e ends the server. The harness
+    runs in subprocesses that cannot see the card."""
     import numpy as np
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, text in (("resnet50", RESNET_MODEL_PY.format(extra="")),
-                           ("resnet50_sched", RESNET_MODEL_PY.format(extra=SCHED_DECLARATIONS)),
-                           ("drain_hold", HOLD_MODEL_PY)):
-            os.makedirs(os.path.join(tmp, name))
-            with open(os.path.join(tmp, name, "model.py"), "w") as f:
-                f.write(text)
-        proc, started, log, reader = spawn_server(
-            "--no-builtin-models", "--model-repository", tmp, "--drain-timeout", "20")
-        try:
-            port = started["http_port"]
-            if _http(port, "/v2/health/ready")[0] != 200:
-                raise AssertionError("the spawned server is not ready")
-            start_s = time.perf_counter() - t0
-            image = np.random.default_rng(0).normal(size=[1, 224, 224, 3]).astype(np.float32)
-            compat = compat_11b(port, image)
-            result = {"server_start_s": start_s, "compat_11b": compat,
-                      "admission_11c": admission_11c(port),
-                      "rolling_11d": rolling_11d(port, image, compat["rows"]["kserve"])}
-            result["drain_11e"] = drain_11e(proc, port, log)
-            reader.join(30)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    result["wall_s"] = time.perf_counter() - t0
-    print(f"lifecycle 11b-11e: {result['wall_s']:.1f} s (the server up in "
-          f"{result['server_start_s']:.1f} s)", flush=True)
+    if _http(port, "/v2/health/ready")[0] != 200:
+        raise AssertionError("the spawned server is not ready")
+    image = np.random.default_rng(0).normal(size=[1, 224, 224, 3]).astype(np.float32)
+    compat = compat_11b(port, image)
+    result = {"compat_11b": compat, "admission_11c": admission_11c(port),
+              "rolling_11d": rolling_11d(port, image, compat["rows"]["kserve"])}
+    result["drain_11e"] = drain_11e(proc, port, log)
+    reader.join(30)
     return result
 
 
+@timed_phase("11f")
 def embedded_11f() -> dict:
     """11f: ``client_tpu_torch.server.embedded.start()`` in this process,
     on the card: one ``simple`` request through its binary wire (status,
@@ -3828,11 +3935,12 @@ def embedded_11f() -> dict:
 # ---------------------------------------------------------------------------
 
 
-async def _grpc_streams(grpc_port, id_lists, max_tokens, cancel_ids):
+async def _grpc_streams(grpc_port, id_lists, max_tokens, cancel_ids=None):
     """The streams of ``id_lists`` at once over ``ModelStreamInfer``
-    through the port's aio client, and one more stream on ``cancel_ids``
-    that the client cancels after its second token. Returns (records,
-    the cancelled stream's tokens, wall seconds)."""
+    through the port's aio client, and, given ``cancel_ids``, one more
+    stream on them that the client cancels after its second token.
+    Returns (records, the cancelled stream's tokens or None, wall
+    seconds)."""
     import numpy as np
 
     import client_tpu_torch.grpc.aio as grpc_aio
@@ -3864,13 +3972,16 @@ async def _grpc_streams(grpc_port, id_lists, max_tokens, cancel_ids):
         return record
 
     t0 = time.perf_counter()
-    *records, cut = await asyncio.gather(
-        *(one(ids, max_tokens) for ids in id_lists), one(cancel_ids, 256, cancel_after=2))
+    cancelled = [] if cancel_ids is None else [one(cancel_ids, 256, cancel_after=2)]
+    records = await asyncio.gather(*(one(ids, max_tokens) for ids in id_lists), *cancelled)
     wall = time.perf_counter() - t0
     await client.close()
-    return records, cut["tokens"], wall
+    if cancel_ids is None:
+        return records, None, wall
+    return records[:-1], records[-1]["tokens"], wall
 
 
+@timed_phase("12c")
 def grpc_7b(port, model, config, plain_streams) -> dict:
     """Phase 12c on phase 4's server, after 11a: the native gRPC
     front-end on the same ``ServerCore`` and loop, the 8 streams of 32
@@ -3923,6 +4034,7 @@ def grpc_7b(port, model, config, plain_streams) -> dict:
     return result
 
 
+@timed_phase("12d")
 def grpc_hold_12d(grpc_port) -> dict:
     """12d: one request to ``grpc_hold`` held 3 s on the server over gRPC;
     meanwhile ``simple`` over gRPC the whole time, each answer under
@@ -3966,65 +4078,78 @@ def grpc_hold_12d(grpc_port) -> dict:
     return result
 
 
-def grpc_server() -> dict:
-    """Phases 12a, 12b and 12d on ``python -m client_tpu_torch.server
-    --grpc-port 0 --model-repository <dir>``, spawned with the card: the
+@timed_phase("12 (with 13a-13b)")
+def grpc_12(started, tls_server) -> dict:
+    """Phases 12a, 12b and 12d (and 13a-13b) on the spawned ResNet-50
+    server (:func:`resnet_server`) with the native gRPC front-end: the
     built-ins, ``resnet50`` (ResNet-50's widths, 224 x 224, bf16, seed-0
     weights) and the ``grpc_hold`` identity. 12a runs in a client process,
     12b's harness in subprocesses that cannot see the card."""
     import numpy as np
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    if started["grpc_frontend"] != "native":
+        raise AssertionError(f"the gRPC front-end: {started}")
+    http_port, grpc_port = started["http_port"], started["grpc_port"]
+    image = np.random.default_rng(12).normal(size=[1, 224, 224, 3]).astype(np.float32)
+    result = {}
+
+    def on_round(go):
+        (checks,), seconds = go()
+        result["grpc_12a"] = checks
+
+    with timed("12a"):
+        run_client_processes("grpc_correctness", [{
+            "url": f"127.0.0.1:{grpc_port}", "http_url": f"127.0.0.1:{http_port}",
+            "image": image}], on_round)
+    print("grpc 12a: " + json.dumps(result["grpc_12a"]) + f" [{card()}]", flush=True)
+    runs = {}
+    with timed("12b"):
+        for route in ("none", "tpu"):
+            for protocol in ("grpc", "http"):
+                url = f"127.0.0.1:{grpc_port if protocol == 'grpc' else http_port}"
+                run = perf_run(http_port, "resnet50", [
+                    "-i", protocol, "-b", "1", "--concurrency-range", "8",
+                    "--shared-memory", route], url=url)
+                runs[f"{protocol}_{route}"] = {k: run[k] for k in (
+                    "infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
+                    "server_compute_infer_us", "rows_per_execution", "completed")}
+                print(f"grpc 12b: -i {protocol} --shared-memory {route}: "
+                      + json.dumps(runs[f"{protocol}_{route}"]) + f" [{card()}]",
+                      flush=True)
+    result["grpc_12b"] = runs
+    result["grpc_12d"] = grpc_hold_12d(grpc_port)
+    result["grpc_13"] = grpc_13(tls_server, http_port, grpc_port, image, runs)
+    return result
+
+
+@timed_phase("11-13 (one spawned ResNet-50 server)")
+def resnet_server() -> dict:
+    """Phases 12-13, then 11b-11e, on one ``python -m
+    client_tpu_torch.server --model-repository <dir> --grpc-port 0
+    --drain-timeout 20`` spawned with the card (one start-up and one
+    ResNet-50 load for both; 11e's drain ends it, so 11 comes last). 13's
+    TLS server over the same directory starts beside it."""
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as certs:
         for name, text in (("resnet50", RESNET_MODEL_PY.format(extra="")),
-                           ("grpc_hold", HOLD_MODEL_PY)):
+                           ("resnet50_sched", RESNET_MODEL_PY.format(extra=SCHED_DECLARATIONS)),
+                           ("drain_hold", HOLD_MODEL_PY), ("grpc_hold", HOLD_MODEL_PY)):
             os.makedirs(os.path.join(tmp, name))
             with open(os.path.join(tmp, name, "model.py"), "w") as f:
                 f.write(text)
-        proc, started, log, _ = spawn_server("--model-repository", tmp, "--grpc-port", "0")
+        cert, key = tls_pair(certs)
+        tls = launch_server("--model-repository", tmp, "--grpc-port", "0",
+                            "--grpc-tls-cert", cert, "--grpc-tls-key", key)
+        proc = tls[0]
         try:
-            if started["grpc_frontend"] != "native":
-                raise AssertionError(f"the gRPC front-end: {started}")
-            http_port, grpc_port = started["http_port"], started["grpc_port"]
-            start_s = time.perf_counter() - t0
-            image = np.random.default_rng(12).normal(size=[1, 224, 224, 3]).astype(np.float32)
-            result = {"server_start_s": start_s}
-
-            def on_round(go):
-                (checks,), seconds = go()
-                result["grpc_12a"] = checks
-
-            run_client_processes("grpc_correctness", [{
-                "url": f"127.0.0.1:{grpc_port}", "http_url": f"127.0.0.1:{http_port}",
-                "image": image}], on_round)
-            print("grpc 12a: " + json.dumps(result["grpc_12a"]) + f" [{card()}]", flush=True)
-            runs = {}
-            for route in ("none", "tpu"):
-                for protocol in ("grpc", "http"):
-                    url = f"127.0.0.1:{grpc_port if protocol == 'grpc' else http_port}"
-                    run = perf_run(http_port, "resnet50", [
-                        "-i", protocol, "-b", "1", "--concurrency-range", "8",
-                        "--shared-memory", route], url=url)
-                    runs[f"{protocol}_{route}"] = {k: run[k] for k in (
-                        "infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
-                        "server_compute_infer_us", "rows_per_execution", "completed")}
-                    print(f"grpc 12b: -i {protocol} --shared-memory {route}: "
-                          + json.dumps(runs[f"{protocol}_{route}"]) + f" [{card()}]",
-                          flush=True)
-            result["grpc_12b"] = runs
-            result["grpc_12d"] = grpc_hold_12d(grpc_port)
-            result["grpc_13"] = grpc_13(tmp, http_port, grpc_port, image, runs)
+            proc, started, log, reader = spawn_server(
+                "--model-repository", tmp, "--grpc-port", "0", "--drain-timeout", "20")
+            result = {"grpc": grpc_12(started, (tls, cert))}
+            result["lifecycle"] = lifecycle_11(proc, started["http_port"], log, reader)
         finally:
-            if proc.poll() is None:
-                proc.terminate()
-                try:
-                    proc.wait(60)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
-    result["wall_s"] = time.perf_counter() - t0
-    print(f"grpc 12a-12d: {result['wall_s']:.1f} s (the server up in "
-          f"{result['server_start_s']:.1f} s)", flush=True)
+            for server in {proc, tls[0]}:
+                if server.poll() is None:
+                    server.kill()
+                    server.wait()
     return result
 
 
@@ -4045,20 +4170,35 @@ def tls_pair(directory) -> tuple:
     return cert, key
 
 
-def spawn_server(*flags) -> tuple:
-    """``python -m client_tpu_torch.server`` with the card and ``flags``;
-    returns (process, its ``server_started`` record, its log lines, the
-    thread that goes on appending to them), read from the structured log
-    on stderr, where the server announces itself. A server that exits
-    before it starts fails the run with its log."""
+def launch_server(*flags) -> tuple:
+    """Start ``python -m client_tpu_torch.server`` with the card and
+    ``flags``, without waiting: :func:`await_server` takes what this
+    returns, so a server's start-up can overlap other phases."""
     proc = subprocess.Popen([sys.executable, "-m", "client_tpu_torch.server", "--http-port",
                              "0", "--host", "127.0.0.1", *flags], cwd=ROOT,
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, flags, time.perf_counter()
+
+
+def spawn_server(*flags) -> tuple:
+    """:func:`launch_server`, then :func:`await_server`."""
+    return await_server(launch_server(*flags))
+
+
+def await_server(launched) -> tuple:
+    """A launched server once it serves: (process, its ``server_started``
+    record, its log lines, the thread that goes on appending to them),
+    read from the structured log on stderr, where the server announces
+    itself. A server that exits before it starts fails the run with its
+    log."""
+    proc, flags, t0 = launched
     log = []
     for line in proc.stderr:
         log.append(line)
         if '"server_started"' in line:
             started = json.loads(line)
+            print(f"server {' '.join(flags)}: up in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
             reader = threading.Thread(target=lambda: log.extend(proc.stderr), daemon=True)
             reader.start()
             return proc, started, log, reader
@@ -4067,9 +4207,11 @@ def spawn_server(*flags) -> tuple:
                          f"{''.join(log)[-2000:]}")
 
 
-def grpc_13(repository, http_port, grpc_port, image, unary) -> dict:
+@timed_phase("13a-13b")
+def grpc_13(tls_server, http_port, grpc_port, image, unary) -> dict:
     """Phases 13a-13b beside phase 12 on its server, and on a second one
-    spawned over ``repository`` with ``--grpc-tls-cert/key``; then the TLS
+    (``tls_server``: (launched server, its root certificate)) spawned
+    over phase 12's repository with ``--grpc-tls-cert/key``; then the TLS
     server is killed under a request held on a multiplexed stream."""
     import numpy as np
 
@@ -4079,84 +4221,81 @@ def grpc_13(repository, http_port, grpc_port, image, unary) -> dict:
 
     t0 = time.perf_counter()
     result = {}
-    with tempfile.TemporaryDirectory() as certs:
-        cert, key = tls_pair(certs)
-        proc, started, _, _ = spawn_server("--model-repository", repository, "--grpc-port",
-                                           "0", "--grpc-tls-cert", cert, "--grpc-tls-key", key)
-        try:
-            tls_http, tls_grpc = started["http_port"], started["grpc_port"]
-            result["tls_server_start_s"] = time.perf_counter() - t0
-            plain_url, tls_url = f"127.0.0.1:{grpc_port}", f"127.0.0.1:{tls_grpc}"
-            try:  # the TLS port refuses plaintext
-                with grpcclient.InferenceServerClient(tls_url) as client:
-                    client.is_server_live(client_timeout=5)
-                raise AssertionError("the TLS port answered a plaintext client")
-            except InferenceServerException:
-                pass
+    launched, cert = tls_server
+    proc, started, _, _ = await_server(launched)
+    try:
+        tls_http, tls_grpc = started["http_port"], started["grpc_port"]
+        result["tls_server_start_s"] = time.perf_counter() - t0
+        plain_url, tls_url = f"127.0.0.1:{grpc_port}", f"127.0.0.1:{tls_grpc}"
+        try:  # the TLS port refuses plaintext
+            with grpcclient.InferenceServerClient(tls_url) as client:
+                client.is_server_live(client_timeout=5)
+            raise AssertionError("the TLS port answered a plaintext client")
+        except InferenceServerException:
+            pass
 
-            def on_round(go):
-                (checks,), seconds = go()
-                result["grpc_13a"] = checks
+        def on_round(go):
+            (checks,), seconds = go()
+            result["grpc_13a"] = checks
 
-            run_client_processes("grpc_mux", [{"plain_url": plain_url, "tls_url": tls_url,
-                                               "roots": cert, "image": image}], on_round)
-            print("grpc 13a: " + json.dumps(result["grpc_13a"]) + f" [{card()}]", flush=True)
-            rows = {}
-            keys = ("infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
-                    "server_compute_infer_us", "rows_per_execution", "completed")
-            for route in ("none", "tpu"):
-                run = perf_run(http_port, "resnet50", [
-                    "-i", "grpc", "--stream-mode", "-b", "1", "--concurrency-range", "8",
-                    "--shared-memory", route], url=plain_url)
-                rows[f"stream_mode_{route}"] = {k: run[k] for k in keys}
-                print(f"grpc 13b: -i grpc --stream-mode --shared-memory {route}: "
-                      + json.dumps(rows[f"stream_mode_{route}"]) + f" (12b unary: "
-                      + json.dumps(unary[f"grpc_{route}"]) + f") [{card()}]", flush=True)
-            run = perf_run(tls_http, "resnet50", [
-                "-i", "grpc", "-b", "1", "--concurrency-range", "8", "--shared-memory", "none",
-                "--ssl-grpc-root-certifications-file", cert], url=tls_url)
-            rows["tls_none"] = {k: run[k] for k in keys}
-            print("grpc 13b: -i grpc over TLS --shared-memory none: "
-                  + json.dumps(rows["tls_none"]) + " (12b plaintext unary: "
-                  + json.dumps(unary["grpc_none"]) + f") [{card()}]", flush=True)
-            result["grpc_13b"] = rows
+        run_client_processes("grpc_mux", [{"plain_url": plain_url, "tls_url": tls_url,
+                                           "roots": cert, "image": image}], on_round)
+        print("grpc 13a: " + json.dumps(result["grpc_13a"]) + f" [{card()}]", flush=True)
+        rows = {}
+        keys = ("infer_per_s", "p50_ms", "p99_ms", "server_queue_us",
+                "server_compute_infer_us", "rows_per_execution", "completed")
+        for route in ("none", "tpu"):
+            run = perf_run(http_port, "resnet50", [
+                "-i", "grpc", "--stream-mode", "-b", "1", "--concurrency-range", "8",
+                "--shared-memory", route], url=plain_url)
+            rows[f"stream_mode_{route}"] = {k: run[k] for k in keys}
+            print(f"grpc 13b: -i grpc --stream-mode --shared-memory {route}: "
+                  + json.dumps(rows[f"stream_mode_{route}"]) + f" (12b unary: "
+                  + json.dumps(unary[f"grpc_{route}"]) + f") [{card()}]", flush=True)
+        run = perf_run(tls_http, "resnet50", [
+            "-i", "grpc", "-b", "1", "--concurrency-range", "8", "--shared-memory", "none",
+            "--ssl-grpc-root-certifications-file", cert], url=tls_url)
+        rows["tls_none"] = {k: run[k] for k in keys}
+        print("grpc 13b: -i grpc over TLS --shared-memory none: "
+              + json.dumps(rows["tls_none"]) + " (12b plaintext unary: "
+              + json.dumps(unary["grpc_none"]) + f") [{card()}]", flush=True)
+        result["grpc_13b"] = rows
 
-            # a server killed under the stream: the held request fails,
-            # retryably, and nothing hangs
-            outcome = {}
-            client = grpcclient.InferenceServerClient(tls_url, stream_mode=True, ssl=True,
-                                                      root_certificates=cert)
-            ones = grpcclient.InferInput("INPUT0", [4], "FP32").set_data_from_numpy(
-                np.ones([4], np.float32))
-            client.infer("grpc_hold", [ones])
+        # a server killed under the stream: the held request fails,
+        # retryably, and nothing hangs
+        outcome = {}
+        client = grpcclient.InferenceServerClient(tls_url, stream_mode=True, ssl=True,
+                                                  root_certificates=cert)
+        ones = grpcclient.InferInput("INPUT0", [4], "FP32").set_data_from_numpy(
+            np.ones([4], np.float32))
+        client.infer("grpc_hold", [ones])
 
-            def held():
-                t = time.perf_counter()
-                try:
-                    client.infer("grpc_hold", [ones], parameters={"hold_s": 5.0})
-                except InferenceServerException as e:
-                    outcome["error"] = e
-                outcome["s"] = time.perf_counter() - t
+        def held():
+            t = time.perf_counter()
+            try:
+                client.infer("grpc_hold", [ones], parameters={"hold_s": 5.0})
+            except InferenceServerException as e:
+                outcome["error"] = e
+            outcome["s"] = time.perf_counter() - t
 
-            thread = threading.Thread(target=held)
-            thread.start()
-            time.sleep(0.5)
+        thread = threading.Thread(target=held)
+        thread.start()
+        time.sleep(0.5)
+        proc.kill()
+        proc.wait(30)
+        thread.join(20)
+        client.close()
+        error = outcome.get("error")
+        if thread.is_alive() or error is None or not exception_is_retryable(error):
+            raise AssertionError(f"a server killed under the stream: {outcome}")
+        result["killed_under_stream"] = {"status": error.status(), "s": outcome["s"]}
+    finally:
+        if proc.poll() is None:
             proc.kill()
-            proc.wait(30)
-            thread.join(20)
-            client.close()
-            error = outcome.get("error")
-            if thread.is_alive() or error is None or not exception_is_retryable(error):
-                raise AssertionError(f"a server killed under the stream: {outcome}")
-            result["killed_under_stream"] = {"status": error.status(), "s": outcome["s"]}
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            proc.wait()
     result["wall_s"] = time.perf_counter() - t0
-    print(f"grpc 13a-13b: {result['wall_s']:.1f} s (the TLS server up in "
-          f"{result['tls_server_start_s']:.1f} s; killed under the stream: "
-          f"{json.dumps(result['killed_under_stream'])})", flush=True)
+    print(f"grpc 13a-13b: killed under the stream: "
+          f"{json.dumps(result['killed_under_stream'])}", flush=True)
     return result
 
 
@@ -4207,6 +4346,7 @@ def _summary(out) -> dict:
                 if line.startswith("{") and "ttft_avg_ms" in line)
 
 
+@timed_phase("13c")
 def genai_grpc_13c(port, model, config, over_http) -> dict:
     """Phase 13c on phase 4's server, after 12c: the native gRPC front-end
     on its ``ServerCore``, genai-perf ``--service-kind triton
@@ -4229,7 +4369,7 @@ def genai_grpc_13c(port, model, config, over_http) -> dict:
             pa.paged_attention_cuda.launches = 0
             out = _harness("client_tpu_torch.genai_perf", _kserve_args(
                 f"127.0.0.1:{frontend.port}", SERVE_TOKENS, tmp) + [
-                "--measurement-interval", "4000", "--stability-percentage", "50",
+                "--measurement-interval", "2000", "--stability-percentage", "50",
                 "--max-trials", "3"])
             _wait_idle(engine)
             launches = pa.paged_attention_cuda.launches
@@ -4257,6 +4397,7 @@ SPECULATION_13D = {"mode": "draft", "k": 4}
 DRAFT_LAYERS_13D = 1
 
 
+@timed_phase("13d")
 def genai_grpc_13d(params, config) -> dict:
     """Phase 13d: genai-perf over KServe gRPC with ``--speculation on``,
     13c's traffic, against an engine on phase 4's weights whose draft is
@@ -4322,7 +4463,7 @@ def _genai_13d_run(genai_main, grpc_port, engine, config) -> dict:
             with contextlib.redirect_stdout(out):
                 code = genai_main.main(_kserve_args(
                     f"127.0.0.1:{grpc_port}", SERVE_TOKENS, tmp) + [
-                    "--speculation", "on", "--measurement-interval", "6000",
+                    "--speculation", "on", "--measurement-interval", "4000",
                     "--stability-percentage", "50", "--max-trials", "2"])
             _wait_idle(engine)
             k2_launches = pa.paged_attention_cuda_mq.launches
@@ -4642,6 +4783,7 @@ def _recovery_round(port, grpc_port, model, config, plain_streams, fault) -> dic
                 describe=doc)
 
 
+@timed_phase("14a")
 def recovery_7b(port, model, config, plain_streams) -> dict:
     """Phase 14a on phase 4's server and 7B engine, after 13c: two rounds
     of :func:`_recovery_round` — a genuine CUDA OOM inside a decode step,
@@ -4753,9 +4895,22 @@ STICKY_ROUTES = (("GET", "/v2/health/live"), ("GET", "/v2/health/ready"), ("GET"
                  ("GET", "/v2/models/llm_engine/config"), ("GET", "/v2/models/stats"))
 
 
-def sticky_14b() -> dict:
+def launch_sticky():
+    """14b's server, launched so that its start-up overlaps phases 11-13:
+    (its model directory, the trigger path, the launched server)."""
+    tmp = tempfile.TemporaryDirectory()
+    trigger = os.path.join(tmp.name, "fire")
+    os.makedirs(os.path.join(tmp.name, "llm_engine"))
+    with open(os.path.join(tmp.name, "llm_engine", "model.py"), "w") as f:
+        f.write(STICKY_MODEL_PY.format(trigger=trigger))
+    return tmp, trigger, launch_server("--model-repository", tmp.name, "--drain-timeout", "20")
+
+
+@timed_phase("14b")
+def sticky_14b(sticky) -> dict:
     """Phase 14b: ``python -m client_tpu_torch.server --model-repository``
-    spawned with the card serves the built-ins and ``llm_engine`` at 7B
+    spawned with the card (``sticky``, from :func:`launch_sticky`) serves
+    the built-ins and ``llm_engine`` at 7B
     widths with 2 layers, whose decode callable raises a device-side
     assert once a trigger file appears. With 4 streams in flight the
     trigger fires: every stream fails with the OpenAI error inside 10 s of
@@ -4769,14 +4924,11 @@ def sticky_14b() -> dict:
     import numpy as np
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        trigger = os.path.join(tmp, "fire")
-        os.makedirs(os.path.join(tmp, "llm_engine"))
-        with open(os.path.join(tmp, "llm_engine", "model.py"), "w") as f:
-            f.write(STICKY_MODEL_PY.format(trigger=trigger))
-        proc, started, log, reader = spawn_server("--model-repository", tmp,
-                                                  "--drain-timeout", "20")
+    tmp, trigger, launched = sticky
+    with tmp:
+        proc = launched[0]
         try:
+            proc, started, log, reader = await_server(launched)
             port = started["http_port"]
             if _http(port, "/v2/health/ready")[0] != 200:
                 raise AssertionError("the spawned server is not ready")
@@ -4859,6 +5011,7 @@ def sticky_14b() -> dict:
     return result
 
 
+@timed_phase("14c")
 def chaos_14c(port, model, images, check) -> dict:
     """Phase 14c beside 7b: ``InProcessServer`` on the card serving the
     built-ins and 7b's ResNet-50 with ``ChaosPolicy(error_rate=0.3)``, and
@@ -4869,7 +5022,7 @@ def chaos_14c(port, model, images, check) -> dict:
     requests that reached the model; without a policy every process's run
     fails with 503. Then the harness at ``-b 1`` c=8 with
     ``--max-error-rate 0.5`` on the error server and on 7b's server with
-    no chaos, one 2 s window each."""
+    no chaos, one 1 s window each."""
     from client_tpu_torch.resilience import ChaosPolicy
     from client_tpu_torch.testing import InProcessServer
 
@@ -4938,7 +5091,7 @@ def chaos_14c(port, model, images, check) -> dict:
                               "retries_per_request": faults / (CHAOS_SIMPLE + CHAOS_IMAGES),
                               "wall_s": run["wall_s"]}
         harness_args = ["-m", "image_classifier", "-b", "1", "--concurrency-range", "8",
-                        "--measurement-interval", "2000", "--max-trials", "1",
+                        "--measurement-interval", "1000", "--max-trials", "1",
                         "--max-error-rate", "0.5", "--json-summary"]
         t_harness = time.perf_counter()
         server = servers["errors"]
@@ -5015,6 +5168,7 @@ def _drive_device_fns(engine, n_layers, tp):
     return out, sum(launches), verify_launches
 
 
+@timed_phase("15a")
 def tp_tiny_15a() -> dict:
     """Phase 15a: the tiny fp32 Llama through ``LlmEngineModel`` at tp 1,
     2 and 4 on ``[cuda:0] * tp``: every device function within 1e-5 of tp
@@ -5061,6 +5215,7 @@ def tp_tiny_15a() -> dict:
     return result
 
 
+@timed_phase("15b")
 def tp_7b_15b(params, plain_streams, served) -> dict:
     """Phase 15b: ``LlmEngineModel(tp=2, devices=[cuda:0, cuda:0])`` on
     phase 4's weights serves phase 4's 8 prompts x 32 tokens over HTTP;
@@ -5128,6 +5283,7 @@ def tp_7b_15b(params, plain_streams, served) -> dict:
     return result
 
 
+@timed_phase("15c")
 def text_encoder_tp_15c() -> dict:
     """Phase 15c: ``text_encoder_tp`` at BERT-large's widths, fp32, dp2 x
     tp2 on ``[cuda:0] * 4``: 16 ``/infer`` requests of lengths 16-512
@@ -5182,6 +5338,7 @@ def text_encoder_tp_15c() -> dict:
     return result
 
 
+@timed_phase("15d")
 def llama_ring_15d(params) -> dict:
     """Phase 15d: ``llama_ring`` at Llama-7B's widths, bf16, sp=2 on
     ``[cuda:0] * 2`` over phase 4's weights: prompts of 1,024 and 4,096
@@ -5248,6 +5405,7 @@ def llama_ring_15d(params) -> dict:
     return result
 
 
+@timed_phase("15e")
 def default_resolution_15e() -> dict:
     """Phase 15e: the zoo on the one-card host: ``text_encoder_tp`` and
     ``llama_ring`` UNAVAILABLE with the reference's reasons, as is an
@@ -5294,14 +5452,12 @@ def default_resolution_15e() -> dict:
     return result
 
 
+@timed_phase("15")
 def sharded_15(params, plain_streams, served) -> dict:
     """Phase 15 (a-e), after phase 5 on phase 4's weights."""
-    t0 = time.perf_counter()
-    result = {"15a": tp_tiny_15a(), "15b": tp_7b_15b(params, plain_streams, served),
-              "15c": text_encoder_tp_15c(), "15d": llama_ring_15d(params),
-              "15e": default_resolution_15e()}
-    print(f"tp 15: {time.perf_counter() - t0:.1f} s", flush=True)
-    return result
+    return {"15a": tp_tiny_15a(), "15b": tp_7b_15b(params, plain_streams, served),
+            "15c": text_encoder_tp_15c(), "15d": llama_ring_15d(params),
+            "15e": default_resolution_15e()}
 
 
 # ---------------------------------------------------------------------------
@@ -5474,6 +5630,7 @@ def gloo_on_cuda(probe) -> dict:
         tmp.cleanup()
 
 
+@timed_phase("16a")
 def pod_tiny_16a() -> dict:
     """16a: the tiny fp32 Llama (phase 15a's config and seed-0 weights) in
     a pod of two processes on the card with n-gram speculation: eight
@@ -5577,6 +5734,7 @@ def _parted(config, against, records) -> list:
     return out
 
 
+@timed_phase("16b-16c")
 def pod_7b_16bc(tp_streams, started) -> dict:
     """16b: the 7B's widths, bf16, seed-0 weights (phase 4's), tp=2 over
     two processes on the card: phase 4's 8 streams of 32 tokens through
@@ -5658,6 +5816,7 @@ def pod_7b_16bc(tp_streams, started) -> dict:
     return {"16b": result_b, "16c": result_c}
 
 
+@timed_phase("16d")
 def fleet_16d(device="cuda", model_py=None) -> dict:
     """16d: ``python -m client_tpu_torch.perf --fleet 2`` over ResNet-50 on
     the card (each replica loads phase 11's model directory), c=8,
@@ -5714,11 +5873,11 @@ def fleet_16d(device="cuda", model_py=None) -> dict:
     return result
 
 
+@timed_phase("16")
 def pod_16(tp_streams) -> dict:
     """Phase 16 (a-d), after phase 4's weights are freed. The gloo probe
     and the 7B pod start while 16a runs (16a checks answers only); 16b's
     streams begin once 16a is done."""
-    t0 = time.perf_counter()
     probe = start_gloo_probe()
     big = start_pod({"CLIENT_TPU_POD_WIDTH": "llama-7b"})
     try:
@@ -5730,8 +5889,409 @@ def pod_16(tp_streams) -> dict:
             launcher.stop(timeout_s=10)
             tmp.cleanup()
         raise
-    result = {"16a": tiny, **pod_7b_16bc(tp_streams, big), "16d": fleet_16d()}
-    print(f"pod 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"16a": tiny, **pod_7b_16bc(tp_streams, big), "16d": fleet_16d()}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the router tier in front of two 7B replicas
+# ---------------------------------------------------------------------------
+
+# each replica's pool: 512 blocks of 16 tokens (8.4 MB a block at the 7B's
+# widths, 4.3 GB a pool); a stream of phase 4's needs at most 24 blocks
+ROUTER_POOL_BLOCKS = 512
+# the second router's admission limit (17d)
+ROUTER_SHED_LIMIT = 4
+ROUTER_SHED_RETRY_S = 0.25  # the router's default retry-after hint
+
+
+def _router_replica(params, config):
+    """An ``InProcessServer`` with the native gRPC front-end on the card:
+    the built-ins (``simple`` among them) and an ``llm_engine`` on
+    ``params`` (shared, not copied) with a pool of its own. Returns
+    (server, model)."""
+    from client_tpu_torch.llm.engine import EngineConfig
+    from client_tpu_torch.llm.serving import LlmEngineModel
+    from client_tpu_torch.testing import InProcessServer
+
+    model = LlmEngineModel(config=config, params=params, device=DEVICE,
+                           engine_config=EngineConfig(
+                               block_size=16, num_blocks=ROUTER_POOL_BLOCKS, max_active=8,
+                               max_queue=64, max_seq_len=config.max_seq_len))
+    server = InProcessServer(device=DEVICE, grpc="native")
+    server.core.repository.add_model(model)
+    return server.start(), model
+
+
+def spawn_router(directory, name, replica_files, *flags):
+    """``python -m client_tpu_torch.router --serve`` over the replicas'
+    ports files, in a process that cannot see the card (the router never
+    asks for it). It starts at once and waits for the files, so its start
+    overlaps the replicas'. Returns (process, its ports file, its log,
+    the time it was started)."""
+    ports_file = os.path.join(directory, f"{name}.json")
+    log = open(os.path.join(directory, f"{name}.log"), "w+")
+    files = [arg for path in replica_files for arg in ("--replica-ports-file", path)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "client_tpu_torch.router", "--serve", *files, "--ports-file",
+         ports_file, "--probe-interval", "0.1", "--backend-wait", "300", *flags],
+        cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=subprocess.DEVNULL,
+        stderr=log)
+    return proc, ports_file, log, time.perf_counter()
+
+
+def await_router(proc, ports_file, log, t0) -> dict:
+    """The router's ports once it serves, with its start-up seconds."""
+    from client_tpu_torch.perf.fleet_runner import read_ports_file
+
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline:
+        ports = read_ports_file(ports_file)
+        if ports is not None:
+            return dict(ports, start_s=time.perf_counter() - t0)
+        if proc.poll() is not None:
+            log.seek(0)
+            raise AssertionError(f"the router exited {proc.returncode}: {log.read()[-2000:]}")
+        time.sleep(0.05)
+    raise AssertionError("the router published no ports in 300 s")
+
+
+def _router_status(http_port) -> dict:
+    status, _, body = _http(http_port, "/v2/router/status")
+    if status != 200:
+        raise AssertionError(f"/v2/router/status answered {status}")
+    return json.loads(body)
+
+
+def _held_to_phase4(params, config, prompts, plain_streams, records, indices=None) -> list:
+    """Each stream of ``records`` delivers ``SERVE_TOKENS`` tokens equal to
+    phase 4's for its prompt, or parting at a dense near-tie (11a's
+    rule); returns the near-ties."""
+    ties = []
+    for i, record in zip(indices or range(len(records)), records):
+        if len(record["tokens"]) != SERVE_TOKENS:
+            raise AssertionError(f"a routed stream delivered {len(record['tokens'])} tokens")
+        parted = _same_or_tie(params, config, prompts[i], plain_streams[i], record["tokens"])
+        if parted:
+            ties.append(parted)
+    return ties
+
+
+def _streams_on(replicas, grpc_port, ids):
+    """Phase 4's streams over ``ModelStreamInfer`` to ``grpc_port``, K1's
+    counter zeroed just before and read once every engine is idle.
+    Returns (records, wall, K1 launches, decode steps and streams booked
+    a replica)."""
+    steps0 = [model.engine.steps for _, model in replicas]
+    before = [_stats(server.http_port, "llm_engine") for server, _ in replicas]
+    # -- the path: K1's counter zeroed just before, read once idle --------
+    pa.paged_attention_cuda.launches = 0
+    records, _, wall = asyncio.run(_grpc_streams(grpc_port, ids, SERVE_TOKENS))
+    for _, model in replicas:
+        _wait_idle(model.engine, timeout_s=60)
+    launches = pa.paged_attention_cuda.launches
+    # ----------------------------------------------------------------------
+    steps = [model.engine.steps - s0 for (_, model), s0 in zip(replicas, steps0)]
+    booked = [_booked(b, _stats(server.http_port, "llm_engine"))
+              for (server, _), b in zip(replicas, before)]
+    return records, wall, launches, steps, booked
+
+
+def _simple_inputs(module):
+    import numpy as np
+
+    a = np.arange(16, dtype=np.int32)[None]
+    return [module.InferInput("INPUT0", [1, 16], "INT32").set_data_from_numpy(a),
+            module.InferInput("INPUT1", [1, 16], "INT32").set_data_from_numpy(a)]
+
+
+def router_kill_17c(router, replicas) -> dict:
+    """17c: 4 client threads send ``simple`` through the router while
+    replica B stops; no client sees a failure, the router benches B."""
+    import numpy as np
+
+    import client_tpu_torch.grpc as grpcclient
+
+    url = f"127.0.0.1:{router['grpc_port']}"
+    stop = threading.Event()
+    answers, failures = [0] * 4, []
+    want = 2 * np.arange(16, dtype=np.int32)[None]
+
+    def client(i):
+        with grpcclient.InferenceServerClient(url) as c:
+            inputs = _simple_inputs(grpcclient)
+            while not stop.is_set():
+                try:
+                    result = c.infer("simple", inputs)
+                    if not np.array_equal(result.as_numpy("OUTPUT0"), want):
+                        failures.append("simple answered wrong")
+                    answers[i] += 1
+                except Exception as e:  # noqa: BLE001 - every failure is counted
+                    failures.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for thread in threads:
+        thread.start()
+    time.sleep(1.0)
+    before_stop = sum(answers)
+    t0 = time.perf_counter()
+    server_b, model_b = replicas[1]
+    server_b.stop()
+    stop_s = time.perf_counter() - t0
+    time.sleep(1.5)
+    stop.set()
+    for thread in threads:
+        thread.join(30)
+    states = {e["url"]: e["state"] for e in _router_status(router["http_port"])["pool"]["endpoints"]}
+    b_url = f"127.0.0.1:{server_b.grpc_port}"
+    result = {"answers": sum(answers), "answers_before_stop": before_stop,
+              "client_failures": len(failures), "replica_b_stop_s": stop_s,
+              "states": states}
+    if failures or sum(answers) <= before_stop:
+        raise AssertionError(f"17c: {result}; {failures[:3]}")
+    if states.get(b_url) == "up":
+        raise AssertionError(f"17c: the router did not bench the stopped replica: {states}")
+    return result
+
+
+async def _shed_burst(grpc_port, ids, defaults, protected) -> list:
+    """``defaults`` + ``protected`` 7B streams at once, one a stream, the
+    last ``protected`` at priority 1. Returns a record each: its tokens,
+    or the in-band error."""
+    import numpy as np
+
+    import client_tpu_torch.grpc.aio as grpc_aio
+
+    client = grpc_aio.InferenceServerClient(f"127.0.0.1:{grpc_port}")
+
+    async def one(prompt_ids, priority):
+        x = grpc_aio.InferInput("INPUT_IDS", [len(prompt_ids)], "INT32")
+        x.set_data_from_numpy(np.array(prompt_ids, dtype=np.int32))
+
+        async def requests():
+            yield {"model_name": "llm_engine", "inputs": [x], "priority": priority,
+                   "parameters": {"max_tokens": SERVE_TOKENS}}
+
+        record = {"priority": priority, "tokens": [], "error": None}
+        async for result, error in client.stream_infer(requests()):
+            if error is not None:
+                record["error"] = error
+                break
+            out = result.as_numpy("OUTPUT_IDS")
+            if out is not None and out.size:
+                record["tokens"].extend(int(t) for t in out.reshape(-1))
+            final = result.get_response().parameters.get("triton_final_response")
+            if final is not None and final.bool_param:
+                break
+        return record
+
+    records = await asyncio.gather(*(one(ids[i % len(ids)], 0) for i in range(defaults)),
+                                   *(one(ids[i % len(ids)], 1) for i in range(protected)))
+    await client.close()
+    return records
+
+
+async def _unary_sheds(router) -> dict:
+    """With the shedding router's slots held by ``repeat_int32`` streams
+    whose first frame comes after 3 s: an HTTP ``/infer`` of ``simple``
+    and a gRPC unary ``simple`` past the limit, each refused with its
+    retry hint."""
+    import numpy as np
+
+    import client_tpu_torch.grpc.aio as grpc_aio
+    from client_tpu_torch.utils import InferenceServerException
+
+    client = grpc_aio.InferenceServerClient(f"127.0.0.1:{router['grpc_port']}")
+
+    async def hold():
+        x = grpc_aio.InferInput("IN", [1], "INT32").set_data_from_numpy(
+            np.array([5], dtype=np.int32))
+
+        async def requests():
+            yield {"model_name": "repeat_int32", "inputs": [x], "priority": 1,
+                   "parameters": {"delay_us": 3_000_000}}
+
+        async for result, error in client.stream_infer(requests()):
+            if error is not None:
+                raise AssertionError(f"17d: a holding stream failed: {error}")
+            return int(result.as_numpy("OUT")[0])
+
+    holds = [asyncio.ensure_future(hold()) for _ in range(ROUTER_SHED_LIMIT)]
+    loop = asyncio.get_running_loop()
+    for _ in range(200):
+        status = await loop.run_in_executor(None, _router_status, router["http_port"])
+        if status["inflight"] >= ROUTER_SHED_LIMIT:
+            break
+        await asyncio.sleep(0.01)
+    body = json.dumps({"inputs": [
+        {"name": name, "shape": [1, 16], "datatype": "INT32", "data": list(range(16))}
+        for name in ("INPUT0", "INPUT1")]})
+    conn = http.client.HTTPConnection("127.0.0.1", router["http_port"], timeout=30)
+    try:
+        await loop.run_in_executor(None, lambda: conn.request(
+            "POST", "/v2/models/simple/infer", body=body,
+            headers={"Content-Type": "application/json"}))
+        response = await loop.run_in_executor(None, conn.getresponse)
+        http_shed = {"status": response.status,
+                     "retry_after": response.getheader("Retry-After"),
+                     "error": json.loads(response.read()).get("error")}
+    finally:
+        conn.close()
+    try:
+        await client.infer("simple", _simple_inputs(grpc_aio))
+        grpc_shed = {"status": "OK"}
+    except InferenceServerException as e:
+        grpc_shed = {"status": e.status(), "retry_after_s": getattr(e, "retry_after_s", None),
+                     "message": e.message()}
+    held = await asyncio.gather(*holds)
+    await client.close()
+    if held != [5] * ROUTER_SHED_LIMIT:
+        raise AssertionError(f"17d: the holding streams answered {held}")
+    return {"http": http_shed, "grpc": grpc_shed}
+
+
+def router_shed_17d(shed_router, replicas, params, config, prompts, plain_streams, ids) -> dict:
+    """17d on the second router (``--max-inflight 4``, replica A behind
+    it): 8 default-priority streams and 2 at priority 1 at once; a
+    default one is shed in-band with RESOURCE_EXHAUSTED and its retry
+    hint, no priority-1 one is, every admitted stream equals phase 4's;
+    then ``simple`` over HTTP and gRPC unary past the limit: 429 with
+    ``Retry-After`` and RESOURCE_EXHAUSTED with ``retry-after`` in its
+    trailers."""
+    from client_tpu_torch.grpc._mux import _derive_status
+
+    records = asyncio.run(_shed_burst(shed_router["grpc_port"], ids, 8, 2))
+    _wait_idle(replicas[0][1].engine, timeout_s=60)
+    shed = [r for r in records if r["error"] is not None]
+    for record in shed:
+        # the in-band frame carries a message only; a stream-mode client
+        # derives its status from it
+        message = record["error"].message()
+        if _derive_status(message) != "StatusCode.RESOURCE_EXHAUSTED" or \
+                f"retry after {ROUTER_SHED_RETRY_S:g}s" not in message:
+            raise AssertionError(f"17d: a stream failed otherwise: {message}")
+    if not any(r["priority"] == 0 for r in shed):
+        raise AssertionError("17d: no default-priority stream was shed")
+    if any(r["priority"] == 1 for r in shed):
+        raise AssertionError("17d: a priority-1 stream was shed")
+    admitted = [(i, r) for i, r in enumerate(records) if r["error"] is None]
+    ties = _held_to_phase4(params, config, [prompts[i % 8] for i in range(10)],
+                           [plain_streams[i % 8] for i in range(10)],
+                           [r for _, r in admitted], [i for i, _ in admitted])
+    unary = asyncio.run(_unary_sheds(shed_router))
+    if unary["http"]["status"] != 429 or \
+            unary["http"]["retry_after"] != f"{ROUTER_SHED_RETRY_S:g}":
+        raise AssertionError(f"17d: HTTP past the limit: {unary['http']}")
+    if unary["grpc"]["status"] != "StatusCode.RESOURCE_EXHAUSTED" or \
+            unary["grpc"]["retry_after_s"] != ROUTER_SHED_RETRY_S:
+        raise AssertionError(f"17d: gRPC unary past the limit: {unary['grpc']}")
+    return {"shed_default": sum(r["priority"] == 0 for r in shed),
+            "admitted_default": sum(r["priority"] == 0 for _, r in admitted),
+            "admitted_priority_1": sum(r["priority"] == 1 for _, r in admitted),
+            "shed_message": shed[0]["error"].message(), "near_ties": ties, **unary}
+
+
+@timed_phase("17 (router)")
+def router_17(params, plain_streams) -> dict:
+    """Phase 17: the router tier in front of two replicas, each an
+    ``InProcessServer`` with the native gRPC front-end serving an
+    ``llm_engine`` on phase 4's weights (pools of their own) and the
+    built-ins; the routers are ``python -m client_tpu_torch.router
+    --serve`` processes. (a) phase 4's 8 streams through the router, over
+    both replicas, equal to phase 4's (or parting at 11a's near-tie),
+    K1 exactly 32 x both replicas' decode steps; (b) the same streams
+    straight to replica A (the proxy tax, recorded); (c) replica B
+    stopped under ``simple`` from 4 client threads: no client failure,
+    B benched, then 8 streams all on A; (d) shedding on a second router
+    (``--max-inflight 4``)."""
+    from client_tpu_torch.genai_perf.tokenizer import SyntheticTokenizer
+    from client_tpu_torch.perf.fleet_runner import write_ports_file
+
+    config = llama.LlamaConfig()
+    prompts = _prompts()
+    ids = [SyntheticTokenizer(config.vocab_size).encode(p) for p in prompts]
+    result = {}
+    replicas, routers = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f"replica_{name}.json") for name in ("a", "b")]
+        t0 = time.perf_counter()
+        # the routers import while the replicas load
+        routers.append(spawn_router(tmp, "router", files))
+        routers.append(spawn_router(tmp, "router_shed", files[:1], "--max-inflight",
+                                    str(ROUTER_SHED_LIMIT)))
+        try:
+            for path in files:
+                server, model = _router_replica(params, config)
+                replicas.append((server, model))
+                write_ports_file(path, {"http_port": server.http_port,
+                                        "grpc_port": server.grpc_port})
+            replicas_s = time.perf_counter() - t0
+            router, shed_router = (await_router(*started) for started in routers)
+            print(f"router 17: two replicas up in {replicas_s:.1f} s, the routers in "
+                  f"{router['start_s']:.1f} / {shed_router['start_s']:.1f} s "
+                  f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
+            result["start_s"] = {"replicas": replicas_s, "router": router["start_s"],
+                                 "router_shed": shed_router["start_s"]}
+
+            # -- 17a: through the router ----------------------------------
+            records, wall, launches, steps, booked = _streams_on(
+                replicas, router["grpc_port"], ids)
+            if launches != config.n_layers * sum(steps):
+                raise AssertionError(f"17a: K1 launched {launches} times for {steps} decode "
+                                     f"steps x {config.n_layers} layers")
+            if sum(booked) != 8 or min(booked) < 1:
+                raise AssertionError(f"17a: streams a replica {booked}")
+            routed = latency(records, wall)
+            routed.update(decode_steps=steps, k1_launches=launches, streams_a_replica=booked,
+                          near_ties=_held_to_phase4(params, config, prompts, plain_streams,
+                                                    records))
+            print("router 17a: " + json.dumps(routed) + f" [{card()}]", flush=True)
+            result["17a"] = routed
+
+            # -- 17b: the same streams straight to replica A ----------------
+            records, wall, _, _, _ = _streams_on(replicas, replicas[0][0].grpc_port, ids)
+            direct = latency(records, wall)
+            direct["near_ties"] = _held_to_phase4(params, config, prompts, plain_streams,
+                                                  records)
+            tax = {k: routed[k] - direct[k] for k in ("ttft_ms_mean", "itl_ms_mean",
+                                                      "itl_ms_p50")}
+            print("router 17b: " + json.dumps({"direct": direct, "router_minus_direct": tax})
+                  + f" [{card()}]", flush=True)
+            result["17b"] = {"direct": direct, "router_minus_direct": tax}
+
+            # -- 17c: replica B stopped under load ----------------------------
+            killed = router_kill_17c(router, replicas)
+            replicas[1][1].engine = None  # B's pool goes with it
+            records, wall, launches, steps, booked = _streams_on(
+                replicas[:1], router["grpc_port"], ids)
+            if booked != [8] or launches != config.n_layers * steps[0]:
+                raise AssertionError(f"17c: after the stop, A booked {booked} streams, K1 "
+                                     f"{launches} for {steps} decode steps")
+            killed.update(after=latency(records, wall), k1_launches=launches,
+                          decode_steps=steps[0],
+                          near_ties=_held_to_phase4(params, config, prompts, plain_streams,
+                                                    records))
+            print("router 17c: " + json.dumps(killed) + f" [{card()}]", flush=True)
+            result["17c"] = killed
+
+            # -- 17d: shedding ---------------------------------------------------
+            shed = router_shed_17d(shed_router, replicas, params, config, prompts,
+                                   plain_streams, ids)
+            print("router 17d: " + json.dumps(shed) + f" [{card()}]", flush=True)
+            result["17d"] = shed
+        finally:
+            for proc, _, log, _ in routers:
+                proc.terminate()
+                try:
+                    proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+            for server, model in replicas:
+                server.stop()
+                model.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
@@ -5741,11 +6301,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card()}", flush=True)
     build()
-    fp32_err = max(check_fp32(), check_edges())
-    k1 = measure_kernel()
-    check_verify_fp32()
-    check_edges(rows=5)
-    k2 = measure_kernel(rows=bench.VERIFY_ROWS)
+    with timed("2 (K1)"):
+        fp32_err = max(check_fp32(), check_edges())
+        k1 = measure_kernel()
+    with timed("2b (K2)"):
+        check_verify_fp32()
+        check_edges(rows=5)
+        k2 = measure_kernel(rows=bench.VERIFY_ROWS)
     check_tiny_engine()
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
@@ -5753,6 +6315,7 @@ def main() -> int:
     kserve_spec = genai_grpc_13d(params, llama.LlamaConfig())
     llm_decode_7b(params)
     sharded = sharded_15(params, plain_streams, served)
+    routed = router_17(params, plain_streams)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5766,10 +6329,15 @@ def main() -> int:
     data_plane_procs()
     server_thread_profile()
     builtins_on_card()
-    lifecycle_server()
-    embedded_11f()
-    grpc_server()
-    sticky_14b()
+    sticky = launch_sticky()  # its start-up overlaps phases 11-13
+    try:
+        resnet_server()
+        embedded_11f()
+        sticky_14b(sticky)
+    finally:
+        if sticky[2][0].poll() is None:
+            sticky[2][0].kill()
+            sticky[2][0].wait()
     line = {
         "kernels": [
             {
@@ -5797,6 +6365,9 @@ def main() -> int:
                 "pod_16a_launches": {m: c["k1"] for m, c in pods["16a"]["launches"].items()},
                 "pod_16b_launches": {m: c["k1"] for m, c in pods["16b"]["launches"].items()},
                 "pod_16c_launches": {m: c["k1"] for m, c in pods["16c"]["launches"].items()},
+                # both replicas of one process behind the router
+                "router_17a_launches": routed["17a"]["k1_launches"],
+                "router_17c_launches": routed["17c"]["k1_launches"],
             },
             {
                 "name": "paged_attention_decode_mq",

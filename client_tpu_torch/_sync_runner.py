@@ -37,8 +37,13 @@ class EventLoopRunner:
         return self._loop
 
     def submit(self, coro: Coroutine) -> concurrent.futures.Future:
-        """Schedule ``coro`` on the loop; returns a concurrent Future."""
-        return asyncio.run_coroutine_threadsafe(coro, self._loop)
+        """Schedule ``coro`` on the loop; returns a concurrent Future.
+        Raises RuntimeError once the runner closed, closing ``coro``."""
+        try:
+            return asyncio.run_coroutine_threadsafe(coro, self._loop)
+        except RuntimeError:
+            coro.close()
+            raise
 
     def run(self, coro: Coroutine, timeout: Optional[float] = None) -> Any:
         """Run ``coro`` to completion and return its result (blocking)."""

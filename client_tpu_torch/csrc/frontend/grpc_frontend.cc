@@ -12,7 +12,16 @@
 // calls into Python, so no thread but the caller's ever needs the GIL.
 // Python encodes each response message and hands it back with
 // ctpu_grpc_complete (ModelInfer, ModelStreamInfer) or
-// ctpu_grpc_complete_rpc (every other method).
+// ctpu_grpc_complete_rpc (every other method), or with
+// ctpu_grpc_complete_with_metadata when the trailers carry more than the
+// status (a shedding router's `retry-after`).
+//
+// Every ModelStreamInfer stream gets a key of its own, carried by each of
+// its request events, so a caller can treat the stream as one (a router
+// pins it to one backend). Once the client can send no more requests on
+// such a stream (it half-closed, reset the stream, dropped the connection,
+// or its deadline passed) one stream-end event names the key; requests
+// already delivered stay open until their final completion.
 //
 // Compressed request messages (grpc-encoding gzip / deflate) go up still
 // compressed, flagged, and the bridge inflates them, so the build needs no
@@ -24,9 +33,9 @@
 // GIL around every call, so nothing relies on it.
 //
 // Event record, little-endian: u8 kind, u8 compression (0 identity,
-// 1 gzip, 2 deflate), u64 handle, u16 method length, u16 traceparent
-// length, u64 message length, then the method, the traceparent and the
-// message bytes.
+// 1 gzip, 2 deflate), u64 handle, u64 stream key (0 outside
+// ModelStreamInfer), u16 method length, u16 traceparent length, u64
+// message length, then the method, the traceparent and the message bytes.
 
 #include <atomic>
 #include <chrono>
@@ -63,6 +72,12 @@ constexpr uint8_t kEventInfer = 0;        // a ModelInfer request
 constexpr uint8_t kEventStreamInfer = 1;  // one request of a ModelStreamInfer
 constexpr uint8_t kEventRpc = 2;          // any other method
 constexpr uint8_t kEventCancel = 3;       // a delivered handle was cancelled
+constexpr uint8_t kEventStreamEnd = 4;    // no more requests on a stream key
+
+// What the pump's queue holds.
+constexpr uint8_t kQueueDeliver = 0;    // a handle to deliver
+constexpr uint8_t kQueueCancel = 1;     // a delivered handle's cancel
+constexpr uint8_t kQueueStreamEnd = 2;  // a stream key's end
 
 std::string PercentEncode(const std::string& in) {
   static const char* hex = "0123456789ABCDEF";
@@ -135,6 +150,7 @@ struct Pending {
   uint32_t stream_id = 0;
   uint8_t kind = kEventInfer;
   uint8_t compression = 0;
+  uint64_t stream_key = 0;
   bool delivered = false;
   bool cancelled = false;
   std::string method;
@@ -151,6 +167,8 @@ struct GrpcStream {
   std::string msg_buf;       // accumulating inbound gRPC frames
   bool headers_sent = false;
   bool end_stream_seen = false;
+  uint64_t key = 0;          // ModelStreamInfer only: the stream's key
+  bool end_reported = false; // its stream-end event is queued
   int pending = 0;           // dispatched, not yet final requests
   bool has_deadline = false;
   Clock::time_point deadline;
@@ -173,7 +191,7 @@ struct Frontend {
 
   std::mutex q_mu;
   std::condition_variable q_cv;
-  std::deque<std::pair<bool, uint64_t>> ready;  // (is a cancel, handle)
+  std::deque<std::pair<uint8_t, uint64_t>> ready;  // (kQueue*, handle or key)
   bool q_stopped = false;
 };
 
@@ -184,26 +202,41 @@ std::map<uint64_t, Frontend*> g_frontends;
 uint64_t g_next_frontend_id = 1;
 std::map<uint64_t, std::unique_ptr<Pending>> g_pending;
 uint64_t g_next_handle = 1;
+std::atomic<uint64_t> g_next_stream_key{1};
 
-void Enqueue(Frontend* fe, bool cancel, uint64_t handle) {
+void Enqueue(Frontend* fe, uint8_t what, uint64_t id) {
   {
     std::lock_guard<std::mutex> lk(fe->q_mu);
-    fe->ready.emplace_back(cancel, handle);
+    fe->ready.emplace_back(what, id);
   }
   fe->q_cv.notify_one();
 }
 
+// The key of a ModelStreamInfer stream whose end is not yet reported, now
+// marked reported; 0 otherwise. fe->mu held.
+uint64_t TakeEnd(GrpcStream* gs) {
+  if (gs->key == 0 || gs->end_reported) return 0;
+  gs->end_reported = true;
+  return gs->key;
+}
+
+void ReportEnd(Frontend* fe, uint64_t key) {
+  if (key != 0) Enqueue(fe, kQueueStreamEnd, key);
+}
+
 void SendErrorTrailers(h2srv::ServerConnection* conn, uint32_t stream_id,
                        bool headers_sent, int status,
-                       const std::string& message) {
+                       const std::string& message,
+                       const std::vector<hpack::Header>& extra = {}) {
+  auto trailers = Trailers(status, message);
+  trailers.insert(trailers.end(), extra.begin(), extra.end());
   if (!headers_sent) {
     // trailers-only response
     auto headers = ResponseHeaders();
-    auto trailers = Trailers(status, message);
     headers.insert(headers.end(), trailers.begin(), trailers.end());
     conn->SendHeaders(stream_id, headers, true);
   } else {
-    conn->SendTrailers(stream_id, Trailers(status, message));
+    conn->SendTrailers(stream_id, trailers);
   }
 }
 
@@ -211,14 +244,17 @@ void SendErrorTrailers(h2srv::ServerConnection* conn, uint32_t stream_id,
 void FailStream(Frontend* fe, h2srv::ServerConnection* conn,
                 uint32_t stream_id, int status, const std::string& message) {
   bool headers_sent;
+  uint64_t ended;
   {
     std::lock_guard<std::mutex> lk(fe->mu);
     auto it = fe->streams.find({conn, stream_id});
     if (it == fe->streams.end()) return;
     headers_sent = it->second.headers_sent;
+    ended = TakeEnd(&it->second);
     fe->streams.erase(it);
   }
   SendErrorTrailers(conn, stream_id, headers_sent, status, message);
+  ReportEnd(fe, ended);
 }
 
 // Splits whole gRPC messages off `buf`: (compressed flag, body) pairs. On
@@ -251,7 +287,10 @@ std::vector<std::pair<bool, std::string>> ExtractMessages(
   return out;
 }
 
-// Registers one whole request message and queues it for the pump.
+// Registers one whole request message and queues it for the pump. The
+// caller counted it in its stream's `pending` under the same lock that saw
+// its bytes, so a completion racing this call cannot close the stream
+// before the message is registered.
 void Dispatch(Frontend* fe, h2srv::ServerConnection* conn, uint32_t stream_id,
               std::pair<bool, std::string> message) {
   auto pending = std::make_unique<Pending>();
@@ -271,15 +310,15 @@ void Dispatch(Frontend* fe, h2srv::ServerConnection* conn, uint32_t stream_id,
       const GrpcStream& gs = sit->second;
       pending->conn = cit->second;
       pending->kind = gs.kind;
+      pending->stream_key = gs.key;
       pending->method = gs.method;
       pending->traceparent = gs.traceparent;
       if (message.first) pending->compression = gs.encoding == "gzip" ? 1 : 2;
-      sit->second.pending++;
     }
     handle = g_next_handle++;
     g_pending.emplace(handle, std::move(pending));
   }
-  Enqueue(fe, false, handle);
+  Enqueue(fe, kQueueDeliver, handle);
 }
 
 // Cancels the pending requests of one stream (or of every stream of
@@ -309,7 +348,7 @@ void CancelPending(Frontend* fe, h2srv::ServerConnection* conn,
       ++it;
     }
   }
-  for (uint64_t h : cancels) Enqueue(fe, true, h);
+  for (uint64_t h : cancels) Enqueue(fe, kQueueCancel, h);
 }
 
 // -- connection callbacks ----------------------------------------------------
@@ -343,6 +382,7 @@ void OnHeaders(Frontend* fe, h2srv::ServerConnection* conn,
   }
   gs.end_stream_seen = end_stream;
   if (known && !end_stream) {
+    if (gs.kind == kEventStreamInfer) gs.key = g_next_stream_key++;
     std::lock_guard<std::mutex> lk(fe->mu);
     fe->streams[{conn, stream_id}] = std::move(gs);
     return;
@@ -370,6 +410,7 @@ void OnData(Frontend* fe, h2srv::ServerConnection* conn, uint32_t stream_id,
   std::string bad_reason = "malformed gRPC message framing";
   bool close_ok = false;  // an empty or fully answered stream half-closed
   bool headers_sent = false;
+  uint64_t ended = 0;
   {
     std::lock_guard<std::mutex> lk(fe->mu);
     auto it = fe->streams.find({conn, stream_id});
@@ -389,36 +430,50 @@ void OnData(Frontend* fe, h2srv::ServerConnection* conn, uint32_t stream_id,
       messages = ExtractMessages(&gs.msg_buf, gs.encoding, &bad, &bad_reason);
       if (!bad && (messages.size() != 1 || !gs.msg_buf.empty())) bad = true;
     }
+    if (!bad) gs.pending += static_cast<int>(messages.size());
+    if (bad || end_stream) ended = TakeEnd(&gs);
     if (bad || close_ok) fe->streams.erase(it);
   }
   if (bad) {
     SendErrorTrailers(conn, stream_id, false, kGrpcInternal, bad_reason);
+    ReportEnd(fe, ended);
     return;
   }
   if (close_ok) {
     if (!headers_sent) conn->SendHeaders(stream_id, ResponseHeaders(), false);
     conn->SendTrailers(stream_id, Trailers(kGrpcOk, ""));
+    ReportEnd(fe, ended);
     return;
   }
   for (auto& m : messages) Dispatch(fe, conn, stream_id, std::move(m));
+  ReportEnd(fe, ended);  // after the stream's last requests
 }
 
 void OnReset(Frontend* fe, h2srv::ServerConnection* conn, uint32_t stream_id,
              uint32_t error_code) {
   (void)error_code;
+  uint64_t ended = 0;
   {
     std::lock_guard<std::mutex> lk(fe->mu);
-    fe->streams.erase({conn, stream_id});
+    auto it = fe->streams.find({conn, stream_id});
+    if (it != fe->streams.end()) {
+      ended = TakeEnd(&it->second);
+      fe->streams.erase(it);
+    }
   }
   CancelPending(fe, conn, stream_id);
+  ReportEnd(fe, ended);
 }
 
 void OnClose(Frontend* fe, h2srv::ServerConnection* conn) {
+  std::vector<uint64_t> ended;
   {
     std::lock_guard<std::mutex> lk(fe->mu);
     fe->conns.erase(conn);
     for (auto it = fe->streams.begin(); it != fe->streams.end();) {
       if (it->first.first == conn) {
+        uint64_t key = TakeEnd(&it->second);
+        if (key != 0) ended.push_back(key);
         it = fe->streams.erase(it);
       } else {
         ++it;
@@ -426,6 +481,7 @@ void OnClose(Frontend* fe, h2srv::ServerConnection* conn) {
     }
   }
   CancelPending(fe, conn, -1);
+  for (uint64_t key : ended) ReportEnd(fe, key);
 }
 
 void OnAccept(Frontend* fe, std::shared_ptr<h2srv::ServerConnection> conn) {
@@ -470,11 +526,13 @@ void AppendU16(std::string* out, uint16_t v) {
 }
 
 void AppendEvent(std::string* out, uint8_t kind, uint8_t compression,
-                 uint64_t handle, const std::string& method,
-                 const std::string& traceparent, const std::string& message) {
+                 uint64_t handle, uint64_t stream_key,
+                 const std::string& method, const std::string& traceparent,
+                 const std::string& message) {
   out->push_back(static_cast<char>(kind));
   out->push_back(static_cast<char>(compression));
   AppendU64(out, handle);
+  AppendU64(out, stream_key);
   AppendU16(out, static_cast<uint16_t>(method.size()));
   AppendU16(out, static_cast<uint16_t>(traceparent.size()));
   AppendU64(out, message.size());
@@ -494,9 +552,10 @@ Frontend* LookupFrontend(uint64_t id) {
 // another status a trailers-only (or trailers) error. Stream: the framed
 // body goes out, and the stream closes with OK trailers once the client
 // half-closed and no request is pending; a non-zero status fails the
-// whole stream.
+// whole stream. `extra` trailers follow grpc-status and grpc-message.
 int Complete(uint64_t handle, const char* body, uint64_t len, int status,
-             const char* message, bool final_flag, bool rpc) {
+             const char* message, bool final_flag, bool rpc,
+             const std::vector<hpack::Header>& extra = {}) {
   static const std::vector<hpack::Header>& kOkHeaders =
       *new std::vector<hpack::Header>(ResponseHeaders());
   static const std::vector<hpack::Header>& kOkTrailers =
@@ -528,6 +587,7 @@ int Complete(uint64_t handle, const char* body, uint64_t len, int status,
   std::string msg = message != nullptr ? message : "";
   bool headers_sent;
   bool close_stream;
+  uint64_t ended = 0;
   {
     std::lock_guard<std::mutex> lk(fe->mu);
     auto it = fe->streams.find({conn.get(), stream_id});
@@ -538,10 +598,14 @@ int Complete(uint64_t handle, const char* body, uint64_t len, int status,
     gs.headers_sent = true;
     close_stream = status != kGrpcOk || !streaming ||
                    (gs.end_stream_seen && gs.pending == 0);
-    if (close_stream) fe->streams.erase(it);
+    if (close_stream) {
+      ended = TakeEnd(&gs);
+      fe->streams.erase(it);
+    }
   }
+  ReportEnd(fe, ended);
   if (status != kGrpcOk) {
-    SendErrorTrailers(conn.get(), stream_id, headers_sent, status, msg);
+    SendErrorTrailers(conn.get(), stream_id, headers_sent, status, msg, extra);
     return 0;
   }
   std::string framed;
@@ -550,8 +614,18 @@ int Complete(uint64_t handle, const char* body, uint64_t len, int status,
     framed = FrameMessage(body, static_cast<size_t>(len));
     data = &framed;
   }
+  std::vector<hpack::Header> trailers;
+  const std::vector<hpack::Header>* closing = nullptr;
+  if (close_stream) {
+    closing = &kOkTrailers;
+    if (!extra.empty()) {
+      trailers = kOkTrailers;
+      trailers.insert(trailers.end(), extra.begin(), extra.end());
+      closing = &trailers;
+    }
+  }
   conn->SendResponse(stream_id, headers_sent ? nullptr : &kOkHeaders, data,
-                     close_stream ? &kOkTrailers : nullptr);
+                     closing);
   return 0;
 }
 
@@ -662,7 +736,7 @@ int ctpu_grpc_wait_events(uint64_t id, int max_n, int timeout_ms,
   Clock::time_point until =
       Clock::now() + std::chrono::milliseconds(timeout_ms);
   if (next_deadline < until) until = next_deadline;
-  std::vector<std::pair<bool, uint64_t>> taken;
+  std::vector<std::pair<uint8_t, uint64_t>> taken;
   {
     std::unique_lock<std::mutex> lk(fe->q_mu);
     fe->q_cv.wait_until(lk, until,
@@ -678,8 +752,13 @@ int ctpu_grpc_wait_events(uint64_t id, int max_n, int timeout_ms,
   int count = 0;
   for (const auto& entry : taken) {
     const uint64_t handle = entry.second;
-    if (entry.first) {
-      AppendEvent(&buf, kEventCancel, 0, handle, "", "", "");
+    if (entry.first == kQueueCancel) {
+      AppendEvent(&buf, kEventCancel, 0, handle, 0, "", "", "");
+      ++count;
+      continue;
+    }
+    if (entry.first == kQueueStreamEnd) {
+      AppendEvent(&buf, kEventStreamEnd, 0, 0, entry.second, "", "", "");
       ++count;
       continue;
     }
@@ -688,6 +767,7 @@ int ctpu_grpc_wait_events(uint64_t id, int max_n, int timeout_ms,
     std::string traceparent;
     uint8_t kind;
     uint8_t compression;
+    uint64_t stream_key;
     {
       std::lock_guard<std::mutex> g(g_mu);
       auto it = g_pending.find(handle);
@@ -696,11 +776,13 @@ int ctpu_grpc_wait_events(uint64_t id, int max_n, int timeout_ms,
       p->delivered = true;
       kind = p->kind;
       compression = p->compression;
+      stream_key = p->stream_key;
       message.swap(p->message);
       method = p->method;
       traceparent = p->traceparent;
     }
-    AppendEvent(&buf, kind, compression, handle, method, traceparent, message);
+    AppendEvent(&buf, kind, compression, handle, stream_key, method, traceparent,
+                message);
     ++count;
   }
   if (count > 0) {
@@ -729,6 +811,32 @@ int ctpu_grpc_complete_rpc(uint64_t handle, const char* body, uint64_t len,
                            int status, const char* message) {
   return ctpu::frontend::Complete(handle, body, len, status, message, true,
                                   true);
+}
+
+// ctpu_grpc_complete with its final flag set, and trailing metadata beside
+// grpc-status: `metadata` holds `metadata_len` bytes of NUL-terminated
+// lower-case name and value strings in turn. The extra trailers go out
+// when the completion closes the call.
+int ctpu_grpc_complete_with_metadata(uint64_t handle, const char* body,
+                                     uint64_t len, int status,
+                                     const char* message,
+                                     const char* metadata,
+                                     uint64_t metadata_len) {
+  std::vector<ctpu::hpack::Header> extra;
+  const char* end = metadata + metadata_len;
+  for (const char* p = metadata; metadata != nullptr && p < end;) {
+    const char* name_end = static_cast<const char*>(memchr(p, '\0', end - p));
+    if (name_end == nullptr) return -1;
+    const char* value = name_end + 1;
+    const char* value_end =
+        value < end ? static_cast<const char*>(memchr(value, '\0', end - value))
+                    : nullptr;
+    if (value_end == nullptr) return -1;
+    extra.push_back({std::string(p, name_end), std::string(value, value_end)});
+    p = value_end + 1;
+  }
+  return ctpu::frontend::Complete(handle, body, len, status, message, true,
+                                  false, extra);
 }
 
 }  // extern "C"

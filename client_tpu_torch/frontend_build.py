@@ -95,5 +95,8 @@ def load() -> ctypes.CDLL:
             lib.ctpu_grpc_complete.restype = i32
             lib.ctpu_grpc_complete_rpc.argtypes = [u64, ptr, u64, i32, ptr]
             lib.ctpu_grpc_complete_rpc.restype = i32
+            lib.ctpu_grpc_complete_with_metadata.argtypes = [
+                u64, ptr, u64, i32, ptr, ptr, u64]
+            lib.ctpu_grpc_complete_with_metadata.restype = i32
             _library = lib
         return _library

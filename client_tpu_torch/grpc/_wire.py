@@ -740,3 +740,26 @@ def split_stream_frame(data) -> Tuple[str, Any]:
     if pos != end:
         raise WireError("truncated stream frame")
     return error_message, response
+
+
+def response_is_final(data) -> bool:
+    """Whether serialized ModelInferResponse bytes carry the
+    ``triton_final_response`` parameter set (a decoupled stream's last
+    frame): one top-level walk over the parameters map (field 4)."""
+    pos = 0
+    end = len(data)
+    final = False
+    while pos < end:
+        tag, pos = read_varint(data, pos)
+        field, wiretype = tag >> 3, tag & 0x7
+        if field == 4 and wiretype == 2:
+            n, pos = read_varint(data, pos)
+            key, value = _decode_map_entry(data, pos, pos + n)
+            if key == "triton_final_response":
+                final = bool(value)
+            pos += n
+        else:
+            pos = _skip_wire_value(data, pos, wiretype)
+    if pos != end:
+        raise WireError("truncated message")
+    return final

@@ -20,8 +20,11 @@ replicas:
   through drain -> restart round-robin (one at a time, never two).
 * ``python -m client_tpu_torch.perf.fleet_runner --serve`` — one replica
   as a subprocess (its own GIL and CPU budget, so aggregate throughput
-  can scale past one interpreter). Prints a JSON line with the bound
-  ports, serves until SIGTERM, drains on the way out.
+  can scale past one interpreter), serving HTTP and, as the reference's
+  does, gRPC on the native front-end (``--grpc-port``, 0 for any free
+  port). Prints a JSON line with the bound ports, serves until SIGTERM,
+  drains on the way out; ``python -m client_tpu_torch.router
+  --replica-ports-file`` reads the same file.
 * :class:`DeviceBoundModel` — a host-free stand-in for an
   accelerator-bound model: each batched execution *waits* (the device
   would be computing; the host is idle), so one replica's capacity is
@@ -663,12 +666,17 @@ def _serve_one(args) -> int:
     fleet = FleetRunner(
         1,
         host=args.host,
+        grpc="native",
         builtin_models=not args.no_builtin_models,
         drain_timeout_s=args.drain_timeout,
         model_factories=factories,
         device=args.device,
     )
-    fleet.replicas.append(fleet._new_server(http_port=args.http_port).start())
+    fleet.replicas.append(
+        fleet._new_server(
+            http_port=args.http_port, grpc_port=args.grpc_port
+        ).start()
+    )
     server = fleet.replicas[0]
     ports = {"http_port": server.http_port, "grpc_port": server.grpc_port}
     if args.ports_file:
@@ -691,6 +699,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--serve", action="store_true", required=True)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=0)
+    parser.add_argument("--grpc-port", type=int, default=0)
     parser.add_argument("--drain-timeout", type=float, default=5.0)
     parser.add_argument(
         "--ports-file",

@@ -220,6 +220,46 @@ async def _read_request(reader: asyncio.StreamReader):
     return method, path, query, version, headers, body
 
 
+async def write_response(writer: asyncio.StreamWriter, response: Response) -> None:
+    headers = dict(response.headers)
+    headers["Content-Length"] = str(len(response.body))
+    writer.write(_head(response.status, headers) + response.body)
+    await writer.drain()
+
+
+async def serve_connection(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
+                           respond) -> None:
+    """Serve one HTTP/1.1 connection, kept alive until the client closes it
+    or asks to: each request goes to ``await respond(method, path, query
+    string, headers, body)``, whose :class:`Response` is written back (None:
+    the handler wrote its own); a request that cannot be parsed is answered
+    and ends the connection, which is closed on the way out."""
+    try:
+        while True:
+            try:
+                parsed = await _read_request(reader)
+            except HttpError as e:
+                response = json_response({"error": str(e)}, status=e.status)
+                response.headers["Connection"] = "close"
+                await write_response(writer, response)
+                return
+            if parsed is None:
+                return
+            method, path, query, version, headers, body = parsed
+            response = await respond(method, path, query, headers, body)
+            if response is not None:
+                await write_response(writer, response)
+            connection = headers.get("connection", "").lower()
+            if connection == "close" or (
+                version == "HTTP/1.0" and connection != "keep-alive"
+            ):
+                return
+    except ConnectionError:
+        pass  # the client went away
+    finally:
+        writer.close()
+
+
 class HttpServer:
     """The port's HTTP front-end over a :class:`ServerCore`."""
 
@@ -300,43 +340,18 @@ class HttpServer:
     async def _serve_connection(self, reader: asyncio.StreamReader,
                                 writer: asyncio.StreamWriter) -> None:
         self._writers.add(writer)
+
+        async def respond(method, path, query, headers, body):
+            request = Request(method, path, headers, body, {}, writer,
+                              query=dict(parse_qsl(query)))
+            if self.chaos is not None and self.chaos.applies_to(path):
+                return await self._dispatch_chaos(request)
+            return await self._dispatch(request)
+
         try:
-            while True:
-                try:
-                    parsed = await _read_request(reader)
-                except HttpError as e:
-                    response = json_response({"error": str(e)}, status=e.status)
-                    response.headers["Connection"] = "close"
-                    await self._write(writer, response)
-                    return
-                if parsed is None:
-                    return
-                method, path, query, version, headers, body = parsed
-                request = Request(method, path, headers, body, {}, writer,
-                                  query=dict(parse_qsl(query)))
-                if self.chaos is not None and self.chaos.applies_to(path):
-                    response = await self._dispatch_chaos(request)
-                else:
-                    response = await self._dispatch(request)
-                if response is not None:
-                    await self._write(writer, response)
-                connection = headers.get("connection", "").lower()
-                if connection == "close" or (
-                    version == "HTTP/1.0" and connection != "keep-alive"
-                ):
-                    return
-        except ConnectionError:
-            pass  # the client went away
+            await serve_connection(reader, writer, respond)
         finally:
             self._writers.discard(writer)
-            writer.close()
-
-    @staticmethod
-    async def _write(writer: asyncio.StreamWriter, response: Response) -> None:
-        headers = dict(response.headers)
-        headers["Content-Length"] = str(len(response.body))
-        writer.write(_head(response.status, headers) + response.body)
-        await writer.drain()
 
     async def _dispatch_chaos(self, request: Request) -> Optional[Response]:
         """:meth:`_dispatch` under the chaos plan (the reference's chaos

@@ -48,7 +48,8 @@ EVENT_INFER = 0
 EVENT_STREAM_INFER = 1
 EVENT_RPC = 2
 EVENT_CANCEL = 3
-_EVENT_HEAD = struct.Struct("<BBQHHQ")
+EVENT_STREAM_END = 4  # no more requests on a ModelStreamInfer stream key
+_EVENT_HEAD = struct.Struct("<BBQQHHQ")
 GRPC_CANCELLED = 1
 
 
@@ -62,14 +63,14 @@ def native_available() -> bool:
     return True
 
 
-def parse_events(buf: bytes) -> List[Tuple[int, int, str, str, bytes, int]]:
-    """Unpack one ``ctpu_grpc_wait_events`` buffer: (kind, handle, method,
-    traceparent, message, compression) per event."""
+def parse_events(buf: bytes) -> List[Tuple[int, int, int, str, str, bytes, int]]:
+    """Unpack one ``ctpu_grpc_wait_events`` buffer: (kind, handle, stream
+    key, method, traceparent, message, compression) per event."""
     events = []
     pos = 0
     view = memoryview(buf)
     while pos < len(buf):
-        kind, compression, handle, n_method, n_trace, n_message = \
+        kind, compression, handle, stream_key, n_method, n_trace, n_message = \
             _EVENT_HEAD.unpack_from(buf, pos)
         pos += _EVENT_HEAD.size
         method = bytes(view[pos:pos + n_method]).decode()
@@ -78,8 +79,45 @@ def parse_events(buf: bytes) -> List[Tuple[int, int, str, str, bytes, int]]:
         pos += n_trace
         message = view[pos:pos + n_message]
         pos += n_message
-        events.append((kind, handle, method, trace, message, compression))
+        events.append((kind, handle, stream_key, method, trace, message, compression))
     return events
+
+
+def inflate(message, compression: int) -> bytes:
+    """A request message as the front-end handed it up, inflated when its
+    event flags it gzip (1) or deflate (2)."""
+    data = bytes(message)
+    if not compression:
+        return data
+    try:
+        return zlib.decompress(data, 15 + 32)  # gzip or zlib header
+    except zlib.error:
+        kind = "gzip" if compression == 1 else "deflate"
+        raise InferenceServerException(
+            f"corrupt {kind}-compressed gRPC message") from None
+
+
+def pump_events(lib, fid: int, batch: int, dispatch) -> None:
+    """Drain front-end ``fid``'s event queue until it stops, handing each
+    batch of parsed events to ``dispatch`` (on this thread; a failing
+    batch is printed and the pump goes on)."""
+    out = ctypes.c_void_p()
+    out_len = ctypes.c_uint64()
+    while True:
+        n = lib.ctpu_grpc_wait_events(fid, batch, 200, ctypes.byref(out),
+                                      ctypes.byref(out_len))
+        if n < 0:
+            return  # stopped
+        if n == 0:
+            continue
+        try:
+            buf = ctypes.string_at(out.value, out_len.value)
+        finally:
+            lib.ctpu_grpc_free(out)
+        try:
+            dispatch(parse_events(buf))
+        except Exception:  # noqa: BLE001 - the pump must survive
+            traceback.print_exc()
 
 
 class _ModelWorker:
@@ -165,11 +203,16 @@ class NativeGrpcFrontend:
                           f"{err.value.decode('utf-8', 'replace')}")
         self._id = fid
         self.port = self._lib.ctpu_grpc_port(fid)
-        self._pump = threading.Thread(target=self._pump_loop, name="ctpu-grpc-pump",
-                                      daemon=True)
+        self._pump = threading.Thread(
+            target=pump_events, args=(self._lib, fid, self._batch, self._dispatch),
+            name="ctpu-grpc-pump", daemon=True)
         self._pump.start()
 
     def stop(self) -> None:
+        """Close the port and every connection (on the loop thread). A
+        stream request still running is cancelled, not abandoned: its
+        client sees the connection close (UNAVAILABLE, retryable) and its
+        task ends while the loop still runs."""
         if self._id is None:
             return
         fid, self._id = self._id, None
@@ -177,41 +220,25 @@ class NativeGrpcFrontend:
         if self._pump is not None:
             self._pump.join(timeout=10)
             self._pump = None
+        for task in list(self._tasks.values()):
+            task.cancel()
         for worker in list(self._workers.values()):
             worker.stop()
         self._workers.clear()
 
     # -- the pump ----------------------------------------------------------------
 
-    def _pump_loop(self) -> None:
-        fid = self._id
-        out = ctypes.c_void_p()
-        out_len = ctypes.c_uint64()
-        while True:
-            n = self._lib.ctpu_grpc_wait_events(fid, self._batch, 200,
-                                                ctypes.byref(out), ctypes.byref(out_len))
-            if n < 0:
-                return  # stopped
-            if n == 0:
-                continue
-            try:
-                buf = ctypes.string_at(out.value, out_len.value)
-            finally:
-                self._lib.ctpu_grpc_free(out)
-            try:
-                self._dispatch(parse_events(buf))
-            except Exception:  # noqa: BLE001 - the pump must survive
-                traceback.print_exc()
-
     def _dispatch(self, events) -> None:
         by_model: Dict[str, List[Tuple[int, CoreRequest]]] = {}
         prof = self._core.profiling
-        for kind, handle, method, trace, message, compression in events:
+        for kind, handle, _key, method, trace, message, compression in events:
             if kind == EVENT_CANCEL:
                 self._cancel(handle)
                 continue
+            if kind == EVENT_STREAM_END:
+                continue  # each stream request is complete on its own
             try:
-                data = self._inflate(message, compression)
+                data = inflate(message, compression)
             except InferenceServerException as e:
                 self._complete_error(handle, e.message(), codec.GRPC_INTERNAL)
                 continue
@@ -240,18 +267,6 @@ class NativeGrpcFrontend:
             if worker is None:
                 worker = self._workers[name] = _ModelWorker(self, name)
             worker.submit(items)
-
-    @staticmethod
-    def _inflate(message, compression: int) -> bytes:
-        data = bytes(message)
-        if not compression:
-            return data
-        try:
-            return zlib.decompress(data, 15 + 32)  # gzip or zlib header
-        except zlib.error:
-            kind = "gzip" if compression == 1 else "deflate"
-            raise InferenceServerException(
-                f"corrupt {kind}-compressed gRPC message") from None
 
     def _decode(self, data: bytes, traceparent: str,
                 decoder: Optional[codec.FastInferCodec] = None) -> CoreRequest:
@@ -360,6 +375,8 @@ class NativeGrpcFrontend:
     # -- streams: the event loop ----------------------------------------------------------
 
     def _submit_stream(self, handle: int, data: bytes, traceparent: str) -> None:
+        if self._id is None:
+            return  # posted before the stop: the handle went with the connection
         prof = self._core.profiling
         try:
             if prof.take():

@@ -407,7 +407,14 @@ def test_fleet_runner_serve_subprocess(tmp_path):
             ports = fleet_runner.read_ports_file(str(ports_file))
             time.sleep(0.05)
         assert ports is not None, proc.stderr.read() if proc.poll() is not None else ""
-        assert ports["grpc_port"] is None
+        # the reference's replica serves gRPC too: its ports file names a
+        # port that answers ServerReady (the router's --replica-ports-file
+        # refuses a replica without one)
+        assert isinstance(ports["grpc_port"], int) and ports["grpc_port"] > 0
+        import client_tpu_torch.grpc as port_grpc
+
+        with port_grpc.InferenceServerClient(f"127.0.0.1:{ports['grpc_port']}") as client:
+            assert client.is_server_ready()
         assert _infer([f"127.0.0.1:{ports['http_port']}"]) == [[1, 1, 1, 1]]
     finally:
         proc.terminate()

@@ -424,14 +424,16 @@ def test_lints_find_nothing_in_the_port():
                                        "logging.py", "server.py", "profiling.py", "trace.py"}
     # the reference's clock lint pins its multiplexer too (TARGET_FILES),
     # and covers the engine, its recovery, the resilience layer, the
-    # sharded executor and the pod (TARGET_DIRS llm/, resilience/,
-    # parallel/ and pod/)
+    # sharded executor, the pod and the router (TARGET_DIRS llm/,
+    # resilience/, parallel/, pod/ and router/)
     engine_and_resilience = sorted((ROOT / "client_tpu_torch" / "llm").glob("*.py")) + sorted(
         (ROOT / "client_tpu_torch" / "resilience").glob("*.py")) + sorted(
         (ROOT / "client_tpu_torch" / "parallel").glob("*.py")) + sorted(
-        (ROOT / "client_tpu_torch" / "pod").glob("*.py"))
+        (ROOT / "client_tpu_torch" / "pod").glob("*.py")) + sorted(
+        (ROOT / "client_tpu_torch" / "router").glob("*.py"))
     assert {f.name for f in engine_and_resilience} >= {"recovery.py", "chaos.py", "engine.py",
-                                                       "executor.py", "worker.py", "bus.py"}
+                                                       "executor.py", "worker.py", "bus.py",
+                                                       "core.py", "backends.py"}
     for path in files + engine_and_resilience + [
             ROOT / "client_tpu_torch" / "perf" / "metrics_collector.py",
             ROOT / "client_tpu_torch" / "grpc" / "_mux.py"]:
