@@ -269,6 +269,20 @@ result line:
    admitted stream equal to phase 4's; ``simple`` past the limit gets 429
    with ``Retry-After`` over HTTP and ``retry-after`` in its gRPC
    trailers (``router 17a:`` ... ``router 17d:``).
+18. training, after phase 4's weights are freed and before phase 16
+   (it reaches neither kernel): (a) three tiny fp32 ``make_train_step``
+   steps on the card equal to the same steps on the CPU (losses within
+   1e-5, parameters within 1e-4; the first step's gradients beside),
+   unsharded and at dp2 x sp2 x tp2 over ``[cuda:0] * 8``; (b)
+   ``graft_entry.dryrun_multichip(8)`` over eight entries of the card,
+   2 x 2 x 2 and 1 x 2 x 4, losses within 1e-3; (c) train steps at
+   Llama-7B's widths (bf16, tokens ``[1, 512]``, the largest of 32, 24
+   and 16 layers whose reckoned peak stays under 72 GiB): ms a step
+   (median of 3 after a warm one), each loss (finite, the last below the
+   first), tokens/s, matrix-product TFLOP/s against the bf16 dense peak,
+   the forward and backward and the update timed apart, peak memory
+   beside its reckoning
+   (``train 18a:`` ... ``train 18c:``).
 
 Every phase prints ``phase <label>: <s> s`` as it ends, and every
 spawned server its start-up. The last two lines are the card's name and
@@ -4460,10 +4474,13 @@ def _genai_13d_run(genai_main, grpc_port, engine, config) -> dict:
             # -- the path of 13d: both counters zeroed just before, read once idle --
             pa.paged_attention_cuda.launches = 0
             pa.paged_attention_cuda_mq.launches = 0
+            # a 32-token stream of this drafting engine takes 7.7-8.9 s
+            # (ITL 220-263 ms, NVIDIA H100): two 4 s windows ended before
+            # any stream did and exported no request, so 8 s each
             with contextlib.redirect_stdout(out):
                 code = genai_main.main(_kserve_args(
                     f"127.0.0.1:{grpc_port}", SERVE_TOKENS, tmp) + [
-                    "--speculation", "on", "--measurement-interval", "4000",
+                    "--speculation", "on", "--measurement-interval", "8000",
                     "--stability-percentage", "50", "--max-trials", "2"])
             _wait_idle(engine)
             k2_launches = pa.paged_attention_cuda_mq.launches
@@ -6295,6 +6312,212 @@ def router_17(params, plain_streams) -> dict:
     return result
 
 
+TRAIN_STEPS = 3
+TRAIN_PLAN = {"dp": 2, "sp": 2, "tp": 2}
+TRAIN_TOKENS = 512
+TRAIN_LAYERS = (32, 24, 16)  # the largest whose reckoned peak fits runs
+TRAIN_PEAK_GIB = 72.0
+TRAIN_ACT_BYTES = 0.18e9  # saved activations a 7B layer at [1, 512] (PERF.md)
+H100_BF16_TFLOPS = 989.0  # dense, NVIDIA's data sheet (SXM)
+
+
+def _train_run(start, tokens, config, axes, device):
+    """The first step's gradients, then ``TRAIN_STEPS`` train steps on one
+    batch from a copy of ``start`` on ``device`` (under ``axes`` over
+    ``[device] * 8``): (gradients, parameters, losses)."""
+    from client_tpu_torch.parallel import sharding
+
+    plan = None
+    if axes is not None:
+        spec = sharding.MeshSpec.parse({"axes": axes})
+        plan = sharding.resolve(spec, [device] * spec.device_count)
+    tokens = tokens.to(device)
+    watched = [leaf.to(device, copy=True).requires_grad_() for leaf in llama._leaves(start)]
+    grads = torch.autograd.grad(
+        llama.loss_fn(llama._rebuild(start, iter(watched)), tokens, config, plan), watched)
+    params = llama._rebuild(start, (leaf.to(device, copy=True) for leaf in llama._leaves(start)))
+    train_step, optimizer = llama.make_train_step(config, plan)
+    opt_state = optimizer.init(params)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, loss = train_step(params, opt_state, tokens)
+        losses.append(float(loss))
+    return [g.cpu() for g in grads], [p.cpu() for p in llama._leaves(params)], losses
+
+
+def train_tiny_18a() -> dict:
+    """Phase 18a: three tiny fp32 train steps on the card equal to the
+    same steps on the CPU (losses within 1e-5, parameters within 1e-4),
+    unsharded and at dp2 x sp2 x tp2 over ``[cuda:0] * 8``; the first
+    step's gradients are compared too, since Adam divides by ``sqrt(v) +
+    1e-8`` and so magnifies a gradient near 1e-8."""
+    import numpy as np
+
+    config = llama.LlamaConfig.tiny(dtype=torch.float32)
+    start = llama.init_params(torch.Generator().manual_seed(18), config, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(0, config.vocab_size, [4, 16]))
+    result = {}
+    for name, axes in (("unsharded", None), ("dp2xsp2xtp2", TRAIN_PLAN)):
+        want_grads, want, want_losses = _train_run(start, tokens, config, axes, torch.device("cpu"))
+        grads, got, losses = _train_run(start, tokens, config, axes, DEVICE)
+        row = {"losses": losses, "cpu_losses": want_losses,
+               "loss_err": max(abs(a - b) for a, b in zip(losses, want_losses)),
+               "grad_err": max(float((a - b).abs().max()) for a, b in zip(grads, want_grads)),
+               "param_err": max(float((a - b).abs().max()) for a, b in zip(got, want))}
+        if row["param_err"] > 1e-4:
+            # the entry that parts, with both sides' first-step gradients
+            k = max(range(len(got)), key=lambda i: float((got[i] - want[i]).abs().max()))
+            at = int((got[k] - want[k]).abs().argmax())
+            row["worst"] = {"leaf": k, "index": at, "cuda": float(got[k].flatten()[at]),
+                            "cpu": float(want[k].flatten()[at]),
+                            "grad_cuda": float(grads[k].flatten()[at]),
+                            "grad_cpu": float(want_grads[k].flatten()[at])}
+        print(f"train 18a ({name}): " + json.dumps(row), flush=True)
+        if row["loss_err"] > 1e-5 or row["param_err"] > 1e-4:
+            raise AssertionError(f"18a ({name}): the card's train steps part from the CPU's: "
+                                 f"{row}")
+        result[name] = row
+    return result
+
+
+def train_dryrun_18b() -> dict:
+    """Phase 18b: ``graft_entry.dryrun_multichip(8)`` (the twin of
+    ``__graft_entry__.py``) over eight entries of the one card: 2 x 2 x 2
+    and 1 x 2 x 4, one bf16 tiny train step each, their losses within
+    1e-3 (the twin raises if not)."""
+    from client_tpu_torch import graft_entry
+
+    losses = graft_entry.dryrun_multichip(8, devices=[DEVICE] * 8)
+    if [mesh for mesh, _ in losses] != [(2, 2, 2), (1, 2, 4)] or not all(
+            math.isfinite(loss) for _, loss in losses):
+        raise AssertionError(f"18b: dryrun_multichip gave {losses}")
+    result = {"losses": {"x".join(map(str, mesh)): loss for mesh, loss in losses}}
+    print("train 18b: " + json.dumps(result), flush=True)
+    return result
+
+
+def train_reckoning(config, layers: int, allocated: int) -> dict:
+    """The reckoned peak (GiB) of a bf16 train step at ``layers`` layers of
+    ``config``'s widths on ``[1, TRAIN_TOKENS]``: 8 B a parameter (weight,
+    gradient, the two AdamW moments), the optimizer's temporaries (two of
+    the largest tensor: it steps one tensor at a time), the saved
+    activations, the fp32 logits three times over (logits, log-softmax,
+    their gradient), plus what the card already holds."""
+    d, f, v = config.d_model, config.d_ff, config.vocab_size
+    per_layer = 2 * d * d + 2 * d * config.n_kv_heads * config.head_dim + 3 * d * f + 2 * d
+    params = layers * per_layer + 2 * v * d + d
+    parts = {"params": params, "state_gib": 8 * params / 2**30,
+             "temporaries_gib": 2 * 2 * v * d / 2**30,
+             "activations_gib": layers * TRAIN_ACT_BYTES / 2**30,
+             "logits_gib": 3 * 4 * TRAIN_TOKENS * v / 2**30,
+             "allocated_gib": allocated / 2**30}
+    parts["peak_gib"] = sum(value for key, value in parts.items() if key.endswith("_gib"))
+    return parts
+
+
+def train_flops(config, layers: int, tokens: int) -> dict:
+    """Matrix-product FLOPs of one train step (backward twice the
+    forward): the bf16 weight products and the fp32 attention products
+    (``reference_attention`` forms the full square of scores)."""
+    d, f, v = config.d_model, config.d_ff, config.vocab_size
+    kv = config.n_kv_heads * config.head_dim
+    weights = 2 * tokens * (layers * (2 * d * d + 2 * d * kv + 3 * d * f) + d * v)
+    attention = layers * 4 * tokens * tokens * d
+    return {"bf16": 3 * weights, "fp32_attention": 3 * attention}
+
+
+def train_7b_18c() -> dict:
+    """Phase 18c: timed train steps at Llama-7B's widths (d 4096, 32
+    heads, ffn 11008, vocab 32000, bf16) on tokens ``[1, 512]`` with as
+    many layers of 32, 24, 16 as the reckoned peak allows under
+    ``TRAIN_PEAK_GIB``: one warm step, then ``TRAIN_STEPS`` timed by CUDA
+    events (median), the loss of each (finite, the last below the first:
+    one batch is being learnt), tokens/s, matrix-product TFLOP/s against
+    the card's bf16 dense peak, the peak memory beside its reckoning, and
+    one more step's forward and backward and its AdamW update timed
+    apart."""
+    import numpy as np
+
+    base = llama.LlamaConfig()
+    allocated = torch.cuda.memory_allocated()
+    reckonings = {n: train_reckoning(base, n, allocated) for n in TRAIN_LAYERS}
+    layers = next((n for n in TRAIN_LAYERS if reckonings[n]["peak_gib"] <= TRAIN_PEAK_GIB),
+                  None)
+    print("train 18c reckoning: " + json.dumps(
+        {n: round(r["peak_gib"], 2) for n, r in reckonings.items()})
+          + f"; {layers} layers run", flush=True)
+    if layers is None:
+        raise AssertionError(f"18c: no layer count fits {TRAIN_PEAK_GIB} GiB: {reckonings}")
+    config = dataclasses.replace(base, n_layers=layers)
+    params = llama.init_params(torch.Generator(device=DEVICE).manual_seed(0), config, DEVICE)
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(
+        0, config.vocab_size, [1, TRAIN_TOKENS])).to(DEVICE)
+    train_step, optimizer = llama.make_train_step(config, None)
+    opt_state = optimizer.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, loss = train_step(params, opt_state, tokens)
+    losses = [float(loss)]
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    event_ms, host_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        begin.record()
+        params, opt_state, loss = train_step(params, opt_state, tokens)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(begin.elapsed_time(end))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    ms = sorted(event_ms)[len(event_ms) // 2]
+    # the step's two halves timed apart: the forward and backward, then
+    # the optimizer's update on those gradients
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    watched = [leaf.detach().requires_grad_() for leaf in llama._leaves(params)]
+    grads = torch.autograd.grad(
+        llama.loss_fn(llama._rebuild(params, iter(watched)), tokens, config), watched)
+    marks[1].record()
+    opt_state = optimizer.update(params, grads, opt_state)
+    marks[2].record()
+    torch.cuda.synchronize()
+    forward_backward_ms, optimizer_ms = (marks[i].elapsed_time(marks[i + 1]) for i in (0, 1))
+    del watched, grads
+    flops = train_flops(config, layers, TRAIN_TOKENS)
+    tflops = sum(flops.values()) / (ms * 1e-3) / 1e12
+    result = {"layers": layers, "tokens": TRAIN_TOKENS, "ms_a_step": ms, "event_ms": event_ms,
+              "host_ms": host_ms, "warm_ms": warm_ms, "forward_backward_ms": forward_backward_ms,
+              "optimizer_ms": optimizer_ms, "losses": losses,
+              "tokens_per_s": TRAIN_TOKENS / (ms * 1e-3), "matmul_flops": flops,
+              "matmul_tflops": tflops, "share_of_bf16_peak": tflops / H100_BF16_TFLOPS,
+              "peak_gib": peak / 2**30, "reckoned_peak_gib": reckonings[layers]["peak_gib"],
+              "reckoning": reckonings[layers]}
+    print("train 18c: " + json.dumps(result) + f" [{card()}]", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"18c: losses {losses} are not finite and falling")
+    del params, opt_state, train_step, optimizer, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+@timed_phase("18 (train)")
+def train_18() -> dict:
+    """Phase 18: the training half on the card, after phase 4's weights
+    are freed. It reaches neither kernel: the reference's training path
+    has no Pallas kernel (dense or ring attention only)."""
+    print(f"train 18: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card "
+          f"at the start", flush=True)
+    result = {"18a": train_tiny_18a(), "18b": train_dryrun_18b(), "18c": train_7b_18c()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     faulthandler.enable()  # a fault in native code prints every thread's stack
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6319,6 +6542,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    train_18()
     pods = pod_16(sharded["15b"]["streams"])
     kserve_tiny()
     kserve_bert_large()

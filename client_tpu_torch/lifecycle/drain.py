@@ -32,9 +32,9 @@ from client_tpu_torch.scheduling import SchedulingError
 SERVING = "serving"
 DRAINING = "draining"
 STOPPED = "stopped"
-# Not a DrainController state: the reference overlays it on the
-# tpu_server_state gauge while an engine reloads itself (its recovery
-# layer, not ported yet) — the lifecycle itself stays SERVING.
+# Not a DrainController state: ServerCore overlays it on the
+# tpu_server_state gauge while an engine reloads itself (the recovery
+# layer, llm/recovery.py) — the lifecycle itself stays SERVING.
 RECOVERING = "recovering"
 
 # tpu_server_state gauge encoding (monotone along the lifecycle;

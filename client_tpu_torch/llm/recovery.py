@@ -1,8 +1,8 @@
 """Engine auto-recovery: bounded-retry background reload after a fatal.
 
 An own copy of ``client_tpu/llm/recovery.py``, tier 1 of the
-self-healing stack (the pod supervisor and fleet replacement above it are
-not ported yet). An engine-fatal device failure marks the engine
+self-healing stack (the pod supervisor, ``pod/supervisor.py``, and the
+fleet runner's replacement of a replica sit above it). An engine-fatal device failure marks the engine
 closed-until-reload — clean retryable errors, but someone has to call
 ``warmup()``. :class:`EngineRecovery` closes that loop: it hangs off
 :attr:`LlmEngine.on_fatal`, and when the engine quarantines itself the

@@ -1,6 +1,6 @@
 """Decoder-only transformer (Llama-family architecture) in PyTorch.
 
-The port of ``client_tpu/models/llama.py``'s serving half: the dense
+The port of ``client_tpu/models/llama.py``: the dense
 KV-cache oracle (``prefill_with_cache`` / ``decode_step`` / ``generate``)
 and the paged-pool functions the continuous-batching engine drives
 (``prefill_into_pages``, ``decode_step_paged``, ``decode_step_paged_attn``,
@@ -28,8 +28,14 @@ and reads its KV-head slice of the pool, multiplies by its rows of
 residual; the MLP runs on its columns of ``w_gate``/``w_up`` and rows of
 ``w_down``, all-reduced likewise. The embedding is sharded by vocabulary
 rows, the LM head by columns, whose outputs are all-gathered. The dense
-:func:`forward` splits the sequence over a plan's ``sp`` shards and runs
-attention as ring attention (``parallel/ring_attention.py``).
+:func:`forward` runs under a full ``dp x sp x tp`` plan: batch blocks
+over dp, the same tp shards, and sequence blocks over sp with attention
+as ring attention (``parallel/ring_attention.py``).
+
+The training half: :func:`loss_fn` (mean next-token NLL) and
+:func:`make_train_step` (autograd through the shard loop and the
+collectives, then optax's AdamW, :class:`AdamW`), unsharded or under a
+plan in one process.
 
 JAX updated the page pool through buffer donation (``llm/serving.py``
 warmup); here every page write is an in-place ``index_put_`` on the pool
@@ -40,14 +46,14 @@ hides it from attention.
 """
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from client_tpu_torch.parallel import SP_AXIS, TP_AXIS, collectives, sharding
-from client_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
+from client_tpu_torch.parallel import DP_AXIS, SP_AXIS, TP_AXIS, collectives, sharding
+from client_tpu_torch.parallel.ring_attention import _local_ring_attention, reference_attention
 from client_tpu_torch.utils import numpy_to_tensor, resolve_device
 
 NEG_INF = -1e30
@@ -442,56 +448,204 @@ def _on(tensor, devices) -> List[torch.Tensor]:
     return [tensor.to(d) for d in devices]
 
 
+def _block(tensor, row: int, rows: int, col: int, cols: int):
+    """Block ``(row, col)`` of a ``[B, L]`` tensor cut into ``rows`` x
+    ``cols`` blocks along its first dims; a first dim of 1 broadcasts."""
+    if tensor.shape[0] > 1:
+        tensor = tensor.chunk(rows, dim=0)[row]
+    return tensor.chunk(cols, dim=1)[col]
+
+
 def forward(params, tokens, config: LlamaConfig, mesh=None, positions=None):
     """Full-sequence forward (prefill): ``tokens [B, L]`` -> fp32 logits
-    ``[B, L, V]``, without a KV cache.
+    ``[B, L, V]``, without a KV cache; differentiable, for
+    :func:`loss_fn`.
 
-    Under a plan (``mesh``) with ``sp > 1`` the sequence is split over
-    the sp shards and attention runs as :func:`ring_attention`; every
-    other axis of the plan must have size 1. ``tokens`` may then be the
-    sp blocks ``[B, L/sp]`` on their devices, and the logits come back as
-    blocks; ``params`` is one dict, or one per sp shard on its device."""
-    sp = mesh.axis_size(SP_AXIS) if mesh is not None else 1
-    if mesh is not None and mesh.spec.device_count != sp:
-        raise ValueError(f"forward shards the sequence only; the plan has "
-                         f"axes {mesh.spec.axis_sizes}")
+    Under a plan (``mesh``) in one process, batch blocks go over ``dp``,
+    heads, the MLP hidden and the vocabulary over ``tp`` (``param_specs``)
+    and sequence blocks over ``sp``, the reference's ``P(dp, tp, sp,
+    None)``: the device at coordinates ``(dp=a, sp=s, tp=t)`` holds token
+    block ``(a, s)`` and tp shard ``t`` of the weights. Each tp group
+    all-reduces its partials, each (dp, tp) shard's sp group runs ring
+    attention, and each tp group all-gathers its vocabulary columns.
+    ``params`` is one dict, cut here by :func:`shard_params` on the
+    autograd graph, or the per-device trees in the plan's device order.
+    ``tokens`` may also be one block per plan device on that device; the
+    logits then come back as such a list. A plan that spans processes (a
+    pod) is refused: its collectives are not differentiable."""
+    if mesh is not None and mesh.spans_processes or collectives.group_of(params) is not None:
+        raise ValueError("forward runs a plan in one process only: the collectives "
+                         "between a pod's processes are not differentiable")
     blocks = list(tokens) if isinstance(tokens, (list, tuple)) else None
-    devices = ([b.device for b in blocks] if blocks is not None else
-               [tokens.device] if sp == 1 else
-               [mesh.devices[i] for i in mesh.groups(SP_AXIS)[0]])
-    if blocks is not None and len(blocks) != sp:
-        raise ValueError(f"{len(blocks)} token blocks for sp={sp}")
+    plan = mesh or sharding.MeshPlan(sharding.MeshSpec.parse({"axes": {DP_AXIS: 1}}),
+                                     ((blocks or [tokens])[0].device,))
+    devices = list(plan.devices)
+    n = len(devices)
+    dp, sp = plan.axis_size(DP_AXIS), plan.axis_size(SP_AXIS)
+    coords = [(c.get(DP_AXIS, 0), c.get(SP_AXIS, 0)) for c in map(plan.coords, range(n))]
+    if isinstance(params, list):
+        shards = params
+    else:
+        shards = [params] if mesh is None else shard_params(params, config, plan)
+    if len(shards) != n:
+        raise ValueError(f"{len(shards)} parameter shards for a plan of {n} devices")
     if blocks is None:
-        if tokens.shape[1] % sp:
-            raise ValueError(f"length {tokens.shape[1]} does not split over sp={sp}")
-        blocks = [t.to(d) for t, d in zip(tokens.chunk(sp, dim=1), devices)]
+        if tokens.shape[0] % dp or tokens.shape[1] % sp:
+            raise ValueError(f"tokens {tuple(tokens.shape)} do not split over dp={dp}, sp={sp}")
+        blocks = [_block(tokens, a, dp, s, sp).to(d) for (a, s), d in zip(coords, devices)]
+    elif len(blocks) != n:
+        raise ValueError(f"{len(blocks)} token blocks for a plan of {n} devices")
     b, lb = blocks[0].shape
     if positions is None:
-        positions = torch.arange(lb * sp, device=devices[0])[None, :].expand(b, -1)
-    pos_blocks = [p.to(d) for p, d in zip(positions.chunk(sp, dim=-1), devices)]
-    replicas = params if isinstance(params, list) else [params] * sp
-    x = [replica["embed"][block.long()].to(config.dtype)
-         for replica, block in zip(replicas, blocks)]
-    n_rep = config.n_heads // config.n_kv_heads
+        positions = torch.arange(lb * sp, device=devices[0])[None, :].expand(b * dp, -1)
+    pos_blocks = [_block(positions, a, dp, s, sp).to(d) for (a, s), d in zip(coords, devices)]
+    tp_groups, sp_groups = plan.groups(TP_AXIS), plan.groups(SP_AXIS)
 
-    def attend(index, qkv):
+    def per_group(groups, fn, parts):
+        """``fn`` over each group's parts, the results put back in device order."""
+        out = [None] * n
+        for group in groups:
+            for j, result in zip(group, fn([parts[j] for j in group], group)):
+                out[j] = result
+        return out
+
+    x = per_group(tp_groups, lambda tables, group: collectives.vocab_parallel_embedding(
+        tables, blocks[group[0]]), [shard["embed"] for shard in shards])
+    x = [xi.to(config.dtype) for xi in x]
+
+    def attend_group(qkv, group):
+        n_rep = qkv[0][0].shape[2] // qkv[0][1].shape[2]
         qh = [q.transpose(1, 2) for q, _, _ in qkv]
         kh = [_repeat_kv(k, n_rep).transpose(1, 2) for _, k, _ in qkv]
         vh = [_repeat_kv(v, n_rep).transpose(1, 2) for _, _, v in qkv]
-        if sp == 1:
+        if len(group) == 1:
             outs = [reference_attention(qh[0], kh[0], vh[0], causal=True)]
         else:
-            outs = ring_attention(qh, kh, vh, mesh, causal=True)
+            outs = _local_ring_attention(qh, kh, vh, causal=True,
+                                         scale=1.0 / (qh[0].shape[-1] ** 0.5))
         return [out.transpose(1, 2) for out in outs]
 
-    def residual(x, partials):  # the sp shards hold different rows
-        return [xi + p for xi, p in zip(x, partials)]
+    def residual(x, partials):
+        reduced = per_group(tp_groups, lambda parts, group: collectives.all_reduce(
+            parts, [devices[j] for j in group]), partials)
+        return [xi + r for xi, r in zip(x, reduced)]
 
-    x = _layers(replicas, x, pos_blocks, config, attend, residual)
-    logits = [_logits(replica, xi, config) for replica, xi in zip(replicas, x)]
+    x = _layers(shards, x, pos_blocks, config,
+                lambda index, qkv: per_group(sp_groups, attend_group, qkv), residual)
+    logits = per_group(tp_groups, lambda parts, group: collectives.all_gather(
+        parts, [devices[j] for j in group], dim=-1),
+        [_logits(shard, xi, config) for shard, xi in zip(shards, x)])
     if isinstance(tokens, (list, tuple)):
         return logits
-    return torch.cat([part.to(tokens.device) for part in logits], dim=1)
+    # one device of each (dp, sp) block, in grid order
+    first = {}
+    for j, key in enumerate(coords):
+        first.setdefault(key, j)
+    home = tokens.device
+    rows = [[logits[first[(a, s)]].to(home) for s in range(sp)] for a in range(dp)]
+    if dp == sp == 1:
+        return rows[0][0]
+    return torch.cat([torch.cat(row, dim=1) for row in rows], dim=0)
+
+
+def loss_fn(params, tokens, config: LlamaConfig, mesh=None):
+    """Next-token cross-entropy over ``tokens [B, L]``: :func:`forward` on
+    the whole sequence (so that L still splits over a plan's sp), the last
+    position dropped, the mean NLL over every row of the batch. Under dp
+    that is the global mean, so autograd averages the dp blocks'
+    gradients with no collective of its own."""
+    logits = forward(params, tokens, config, mesh)[:, :-1]
+    targets = tokens[:, 1:].to(logits.device).long()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for value in tree.values() for leaf in _leaves(value)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for value in tree for leaf in _leaves(value)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors taken in order from the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {key: _rebuild(value, leaves) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(value, leaves) for value in tree]
+    return next(leaves)
+
+
+@dataclasses.dataclass
+class AdamWState:
+    """The step count and the two moments, one tensor per parameter, in
+    the parameters' dtype (optax's ``ScaleByAdamState``)."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """``optax.adamw(learning_rate)`` with optax 0.2.6's defaults (b1 0.9,
+    b2 0.999, eps 1e-8, eps_root 0, weight decay 1e-4, no mask, moments in
+    the parameter dtype) as a functional pair: :meth:`init` and
+    :meth:`update`. One step is ``p - lr * (mu_hat / (sqrt(nu_hat) + eps)
+    + wd * p)`` with ``mu_hat = mu / (1 - b1^t)`` and ``nu_hat = nu / (1 -
+    b2^t)``, computed a tensor at a time, so its temporaries stay the size
+    of the largest parameter."""
+
+    learning_rate: float = 1e-3
+    b1: ClassVar[float] = 0.9
+    b2: ClassVar[float] = 0.999
+    eps: ClassVar[float] = 1e-8
+    weight_decay: ClassVar[float] = 1e-4
+
+    def init(self, params) -> AdamWState:
+        leaves = _leaves(params)
+        return AdamWState(0, [torch.zeros_like(p) for p in leaves],
+                          [torch.zeros_like(p) for p in leaves])
+
+    @torch.no_grad()
+    def update(self, params, grads: List[torch.Tensor], state: AdamWState) -> AdamWState:
+        """Apply one step to ``params``' tensors in place, given their
+        ``grads`` in :func:`_leaves` order; the moments move in place too."""
+        count = state.count + 1
+        b1, b2, lr = self.b1, self.b2, self.learning_rate
+        correction1, correction2 = 1 - b1 ** count, 1 - b2 ** count
+        for p, g, mu, nu in zip(_leaves(params), grads, state.mu, state.nu):
+            mu.mul_(b1).add_(g, alpha=1 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+            denom = (nu / correction2).sqrt_().add_(self.eps)
+            p.mul_(1 - lr * self.weight_decay).addcdiv_(mu, denom, value=-lr / correction1)
+        return AdamWState(count, state.mu, state.nu)
+
+
+def make_train_step(config: LlamaConfig, mesh, learning_rate=1e-3):
+    """``(train_step, optimizer)``: ``train_step(params, opt_state,
+    tokens) -> (params, opt_state, loss)`` runs :func:`loss_fn` under
+    ``mesh`` (None, or a plan in one process), its gradients by autograd
+    through the shard loop and the collectives, and one :class:`AdamW`
+    step; ``opt_state = optimizer.init(params)``. ``params`` is the
+    unsharded tree, as the reference's train step takes it; it and the
+    optimizer's moments are updated in place and returned, so the step
+    holds no second copy of the weights."""
+    if mesh is not None and mesh.spans_processes:
+        raise ValueError("make_train_step runs a plan in one process only: the "
+                         "collectives between a pod's processes are not differentiable")
+    optimizer = AdamW(learning_rate)
+
+    def train_step(params, opt_state: AdamWState, tokens):
+        watched = [leaf.detach().requires_grad_() for leaf in _leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(_rebuild(params, iter(watched)), tokens, config, mesh)
+            grads = torch.autograd.grad(loss, watched)
+        opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, loss.detach()
+
+    return train_step, optimizer
 
 
 def prefill_into_pages(params, tokens, page_table, pages, last_index: int,

@@ -4,8 +4,8 @@ the dependency-free Prometheus registry (``metrics``), rolling windows
 and SLO tracking (``window``, ``slo``), the flight recorder
 (``recorder``), the structured logger (``logging``), the server's trace
 manager (``server``) and the hot-path profilers (``profiling``, with a
-``torch.profiler`` capture in place of the JAX one). The fleet
-aggregation (``fleet.py``) is not ported yet.
+``torch.profiler`` capture in place of the JAX one) and the fleet
+aggregation (``fleet``).
 
 Everything is clock-injectable; ``tools/clock_lint.py`` finds no direct
 ``time.*()`` call in this package.

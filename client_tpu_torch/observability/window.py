@@ -9,8 +9,8 @@ over the same bucket grid the exposition histograms use, so a rolling
 p50/p95/p99 over the last 30 s / 5 m is one O(buckets) merge away with
 bounded memory (``subwindows × (buckets + 1)`` integers), and two
 snapshots (from different replicas or different horizons built on the
-same grid) merge associatively — the property a fleet aggregator relies on
-(the JAX package's ``observability/fleet.py``; not ported yet).
+same grid) merge associatively — the property the fleet aggregator
+(:mod:`client_tpu_torch.observability.fleet`) relies on.
 
 :class:`WindowedCounter` is the two-field (good/bad) twin the SLO
 tracker uses for rolling error-budget accounting.

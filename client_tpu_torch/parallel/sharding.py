@@ -248,10 +248,9 @@ class MeshPlan:
 
     def blocks_per_dim(self, spec: Union[str, Sequence[SpecEntry]], ndim: int) -> List[int]:
         """How many blocks each dim of a tensor splits into under ``spec``."""
-        sizes = self.spec.axis_sizes
         return [
             1 if entry is None else math.prod(
-                sizes[a] for a in (entry if isinstance(entry, tuple) else (entry,)))
+                self.axis_size(a) for a in (entry if isinstance(entry, tuple) else (entry,)))
             for entry in self._spec(spec, ndim)
         ]
 
@@ -263,9 +262,9 @@ class MeshPlan:
         declares, or a spec tuple. A dim sharded over axes ``(a, b)``
         splits into ``size(a) * size(b)`` equal blocks, ``a`` major; a
         dim that does not divide raises ``ValueError``. An undeclared
-        name replicates."""
+        name replicates, and an axis the plan does not have has size 1
+        (as :meth:`axis_size`), so a model's specs cut over any plan."""
         spec = self._spec(spec, len(shape))
-        sizes = self.spec.axis_sizes
         result = []
         for index in range(len(self.devices)):
             coords = self.coords(index)
@@ -275,7 +274,7 @@ class MeshPlan:
                     block.append(slice(None))
                     continue
                 axes = entry if isinstance(entry, tuple) else (entry,)
-                parts = math.prod(sizes[a] for a in axes)
+                parts = math.prod(self.axis_size(a) for a in axes)
                 if extent % parts:
                     raise ValueError(
                         f"dim {dim} of size {extent} does not split into "
@@ -283,7 +282,7 @@ class MeshPlan:
                     )
                 position = 0
                 for a in axes:
-                    position = position * sizes[a] + coords[a]
+                    position = position * self.axis_size(a) + coords.get(a, 0)
                 step = extent // parts
                 block.append(slice(position * step, (position + 1) * step))
             result.append(tuple(block))

@@ -9,9 +9,9 @@ Its backends speak through the port's own clients
 stdlib-asyncio REST readers) or call a
 :class:`~client_tpu_torch.server.core.ServerCore` in-process. The harness
 never touches the card: it only speaks HTTP, gRPC and shared memory.
-
-Not ported yet: multi-process runs and in-process fleets; the CLI
-refuses their flags with exit code 2.
+Multi-process runs (``--world-size``, :mod:`~client_tpu_torch.perf.distributed`)
+and fleets of replicas (``--fleet``, :mod:`~client_tpu_torch.perf.fleet_runner`)
+are served as the reference serves them.
 """
 
 from client_tpu_torch.perf.records import (  # noqa: F401

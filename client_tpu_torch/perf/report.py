@@ -1,7 +1,7 @@
 """Reporting: console summary, CSV, and profile-export JSON.
 
-The port's own copy of ``client_tpu/perf/report.py``, without the fleet
-block (``observability/fleet.py`` is not ported yet).
+The port's own copy of ``client_tpu/perf/report.py``, the fleet block
+(:func:`format_fleet`) included.
 Console/CSV mirror the reference's ReportWriter output columns
 (reference report_writer.cc); the profile export follows the shape of the
 reference's ProfileDataExporter document (experiments with per-request

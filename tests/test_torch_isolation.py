@@ -86,7 +86,8 @@ SLICE_MODULES = ("client_tpu_torch.models.resnet", "client_tpu_torch.server.shm"
                  "client_tpu_torch.perf.distributed", "client_tpu_torch.observability.fleet",
                  "client_tpu_torch.testing", "client_tpu_torch.router",
                  "client_tpu_torch.router.core", "client_tpu_torch.router.backends",
-                 "client_tpu_torch.router.server", "client_tpu_torch.router.__main__")
+                 "client_tpu_torch.router.server", "client_tpu_torch.router.__main__",
+                 "client_tpu_torch.graft_entry")
 
 
 def _port_files():

@@ -10,8 +10,8 @@
 - ``ShardedExecutor`` pads, places, gathers and trims, on a fake clock;
 - ring attention over sp 2 and 4 shards, causal and not, within 1e-5 of
   the JAX ``reference_attention`` on the same inputs;
-- the port's ``llama.forward`` with sp=2 within 1e-4 of the JAX
-  ``forward(mesh=None)``.
+- the port's ``llama.forward`` with sp=2 and with tp=2 within 1e-4 of
+  the JAX ``forward(mesh=None)``.
 
 Every mesh here is ``[cpu] * n``: the port's counterpart of the reference
 tests' virtual CPU devices.
@@ -257,6 +257,8 @@ def test_forward_with_sp_matches_jax_forward():
     blocks = llama.forward(params, list(torch.from_numpy(tokens).chunk(2, dim=1)), config,
                            mesh=plan)
     assert torch.equal(torch.cat(blocks, dim=1), ring)
+    # a tp plan: heads, the MLP hidden and the vocabulary over two shards
     tp_plan = sharding.resolve(sharding.MeshSpec.parse({"axes": {"tp": 2}}), [CPU, CPU])
-    with pytest.raises(ValueError, match="shards the sequence only"):
-        llama.forward(params, torch.from_numpy(tokens), config, mesh=tp_plan)
+    sharded = llama.forward(params, torch.from_numpy(tokens), config, mesh=tp_plan)
+    assert sharded.shape == want.shape
+    assert np.abs(sharded.numpy() - want).max() <= 1e-4
