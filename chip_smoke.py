@@ -107,11 +107,17 @@ result line:
    (0, 1] (``metrics 10c``); (d) 7b's ResNet-50 served from a spawned
    process of its own, a ``-b 1`` c=8 TPU-shm load with
    ``--profile-server`` and, under it, ``/v2/debug/profile`` for 2 s with a
-   ``torch.profiler`` Chrome trace: the stage CPU table, the
-   five stacks with the most samples, the busy samples by thread, the
-   trace's CUDA kernel events (there must be some), the flight
-   recorder's slowest requests and five-stamp trace records at
-   ``trace_rate`` 1 (``profile 10d:``).
+   ``torch.profiler`` Chrome trace (one capture, the load still on when
+   it answers): the stage CPU table, the five stacks with the most
+   samples, the busy samples by thread, the trace's CUDA kernel events
+   (there must be some), its kernel ms and the requests served in its
+   window, the flight recorder's slowest requests and five-stamp trace
+   records at ``trace_rate`` 1 (``profile 10d:``). A CUDA capture under
+   this load kills the process in about one 2 s window in eleven, inside
+   CUPTI's own worker thread, with or without a server around the model
+   and under every setting torch and Kineto expose (PERF.md;
+   ``profile_sweep.py`` reruns the control); so 10d takes one capture,
+   and the run fails when it crashes.
 11. lifecycle, admission and repository control, and the TFS and
    TorchServe front-ends: (a) inside phase 4, after 9d, the 8 streams
    again with ``llm_engine`` unloaded after their first tokens: while the
@@ -3144,10 +3150,15 @@ def _profile_child(conn, started) -> None:
 def server_thread_profile() -> dict:
     """Phase 10d in a server process of its own: phase 7b's ResNet-50
     (the same seed-0 weights) behind ``http_server`` in a spawned process
-    that holds nothing else, as a deployed server would. (In this
-    process, after phases 2-9 and their own ``torch.profiler`` sessions,
-    the route's capture crashed the process twice, NVIDIA H100 80GB HBM3,
-    700 W; see PERF.md.)"""
+    that holds nothing else, as a deployed server would, so that a crash
+    of the capture fails the phase and not the script. The crash is
+    inside CUPTI: a 2 s CUDA capture under this load killed a fresh
+    server process in about one window in eleven, always in a
+    ``libcupti`` worker thread freeing corrupt memory (SIGSEGV, SIGABRT
+    from "double free or corruption"), and so did a bare loop of
+    ResNet-50 forwards on one thread with no server (NVIDIA H100 80GB
+    HBM3, 700 W; PERF.md holds the sweep, ``profile_sweep.py`` reruns
+    the control)."""
     import multiprocessing
 
     context = multiprocessing.get_context("spawn")
@@ -3174,12 +3185,17 @@ def server_thread_profile() -> dict:
 
 def thread_profile(port, images) -> dict:
     """Phase 10d, the server's threads under load: a 9a-shaped ResNet-50
-    run (``-b 1``, c=8, TPU shm, three 2 s windows) with
+    run (``-b 1``, c=8, TPU shm, three 4 s windows) with
     ``--profile-server``; once the load is on, ``/v2/debug/profile`` for
-    2 s with a ``torch.profiler`` Chrome trace under the temp directory.
-    Prints the stage CPU table, the five stacks with the most samples,
-    each thread's share of samples not parked, and the trace's CUDA
-    kernel events, which must exist. Then ``/v2/debug/requests`` must return
+    2 s with a ``torch.profiler`` Chrome trace under the temp directory,
+    the load still on when the route answers (the trace's export takes
+    longer than its window). One capture: under this load a CUDA capture
+    kills the process in about one window in eleven, inside CUPTI (see
+    :func:`server_thread_profile`). Prints the stage CPU table, the five
+    stacks with the most samples, each thread's share of samples not
+    parked, and the trace's CUDA kernel events, which must exist, with
+    its kernel ms and the requests served while the route ran. Then
+    ``/v2/debug/requests`` must return
     slowest exemplars, and ``trace_rate`` 1 must write five-stamp
     records."""
     import numpy as np
@@ -3191,7 +3207,7 @@ def thread_profile(port, images) -> dict:
             [sys.executable, "-m", "client_tpu_torch.perf", "-m", "image_classifier",
              "-u", f"127.0.0.1:{port}", "-b", "1", "--concurrency-range", "8",
              "--shared-memory", "tpu", "--profile-server", "--measurement-interval",
-             "2000", "--max-trials", "3", "--stability-percentage", "50",
+             "4000", "--max-trials", "3", "--stability-percentage", "50",
              "--json-summary"],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
@@ -3202,8 +3218,15 @@ def thread_profile(port, images) -> dict:
                     raise AssertionError("the 10d load did not start")
                 time.sleep(0.05)
             trace_dir = os.path.join(tmp, "device_trace")
+            served = _stats(port, "image_classifier")["inference_stats"]["success"]["count"]
+            t0 = time.monotonic()
             status, headers, collapsed = _http(
                 port, f"/v2/debug/profile?duration_s=2&hz=99&jax_trace_dir={trace_dir}")
+            answered_s = time.monotonic() - t0
+            served = (_stats(port, "image_classifier")["inference_stats"]["success"]["count"]
+                      - served)
+            if proc.poll() is not None:
+                raise AssertionError("the 10d load ended before the profile route answered")
             out, err = proc.communicate(timeout=600)
         finally:
             if proc.poll() is None:
@@ -3250,7 +3273,8 @@ def thread_profile(port, images) -> dict:
         f"{name} {100 * share:.1f} % of {per_thread[name]}" for name, share in
         sorted(busy.items(), key=lambda e: -e[1])) + f" [{card()}]", flush=True)
     print(f"profile 10d: the Chrome trace holds {len(kernels)} CUDA kernel events, "
-          f"{kernel_ms:.1f} ms of kernel time in the 2 s window [{card()}]", flush=True)
+          f"{kernel_ms:.1f} ms of kernel time in the 2 s window; {served} requests served "
+          f"while the route ran, which answered in {answered_s:.2f} s [{card()}]", flush=True)
 
     # the flight recorder's slowest exemplars, and five-stamp trace records
     status, _, body = _http(port, "/v2/debug/requests?model=image_classifier&limit=5")
@@ -3286,6 +3310,7 @@ def thread_profile(port, images) -> dict:
               "top_stacks": [(count / total, ";".join(frames)) for count, frames in top],
               "busy_share_by_thread": busy,
               "kernel_events": len(kernels), "kernel_ms_in_2s": kernel_ms,
+              "requests_during_capture": served, "capture_answered_s": answered_s,
               "slowest_total_us": slowest[0]["total_us"], "trace_records": len(records)}
     print("profile 10d: " + json.dumps({k: v for k, v in result.items() if k != "top_stacks"})
           + f" [{card()}]", flush=True)

@@ -39,7 +39,9 @@ passed". This module is the instrument that splits them:
 :func:`maybe_torch_trace`
     ``torch.profiler`` capture of CPU and CUDA activity around a sampling
     window, written as a Chrome trace (the device timeline the Python
-    sampler cannot see). A capture that fails raises.
+    sampler cannot see). A capture that fails, or that recorded kernel
+    launches and no kernel, raises; a CUDA capture under load can kill
+    the process inside CUPTI (see the function).
 
 Everything is clock-injectable — ``wall_ns``/``cpu_ns``/``sleep`` — and
 ``tools/clock_lint.py`` bans direct ``time.*()`` calls here (including
@@ -51,6 +53,7 @@ import contextlib
 import functools
 import itertools
 import os
+import re
 import sys
 import threading
 import time
@@ -531,12 +534,36 @@ def prime_device_tracing() -> None:
     as registerClient" and records no kernel); once initialised, captures
     from any thread record the card's kernels. A server calls this where
     it is built, before its executor threads run a capture; once a
-    process is enough."""
+    process is enough. Where the priming runs does not bear on the crash
+    :func:`maybe_torch_trace` describes: priming on a thread of the
+    server's own changed nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.synchronize()
+
+
+_KERNEL_LAUNCH = re.compile(r"cu(da)?Launch\w*Kernel")
+
+
+def require_kernel_records(events) -> None:
+    """Raise unless a CUDA capture's ``events`` (Kineto's, each with
+    ``name()`` and ``device_type()``) that hold kernel launches on the
+    host also hold activity on the card. Under load CUPTI sometimes
+    delivers no device record for a whole window while the runtime's
+    launches are all there."""
+    from torch.autograd import DeviceType
+
+    launches = on_card = 0
+    for event in events:
+        if event.device_type() == DeviceType.CUDA:
+            on_card += 1
+        elif _KERNEL_LAUNCH.match(event.name()):
+            launches += 1
+    if launches and not on_card:
+        raise RuntimeError(f"the CUDA capture recorded {launches} kernel launches and no "
+                           "activity on the card")
 
 
 @contextlib.contextmanager
@@ -551,6 +578,26 @@ def maybe_torch_trace(log_dir: Optional[str]):
     yielded dict carries its ``path`` once the window closes).
     ``torch.profiler`` is always present, so nothing is skipped: a
     capture that fails raises.
+
+    With a card, a capture whose host side recorded kernel launches but
+    whose CUPTI records hold no activity on the card raises as well: that
+    trace would miss what it was taken for.
+
+    A known fault inside CUPTI: on an H100 serving ResNet-50 (its
+    kernels from cuDNN) under load, a CUDA capture kills the process in
+    about one 2 s window in eleven. CUPTI's own worker thread frees
+    corrupt memory inside ``libcupti`` ("double free or corruption",
+    "free(): invalid pointer", SIGSEGV) while the window is open. It does
+    so with torch 2.11's CUPTI 12.8 and CUDA 12.9's alike, with or
+    without a server around the model, and under every setting torch and
+    Kineto expose (CUDA activity alone, teardown and lazy
+    re-initialisation off, per-thread activity buffers, no external
+    correlation, other device buffer sizes, one owner thread for every
+    start and stop). A CPU-only capture never crashed. Streams without
+    cuDNN's kernels crashed in none of the few windows that recorded
+    kernels, too few to clear them; most of their windows recorded
+    launches and no kernel, which the check above refuses.
+    ``profile_sweep.py`` reruns the control; PERF.md holds the sweep.
     """
     if not log_dir:
         yield {}
@@ -565,6 +612,8 @@ def maybe_torch_trace(log_dir: Optional[str]):
     result: Dict[str, str] = {}
     with profile(activities=activities) as prof:
         yield result
+    if ProfilerActivity.CUDA in activities:
+        require_kernel_records(prof.profiler.kineto_results.events())
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{next(_TRACE_SEQ)}.json")
     prof.export_chrome_trace(path)
     result["path"] = path

@@ -23,8 +23,13 @@ text, ``?exemplars=true`` for OpenMetrics exemplars), the trace and
 logging settings (``/v2/trace/setting``, ``/v2/logging``, global and per
 model), ``/v2/debug/{requests,state,slo}``, the stage CPU toggle
 ``/v2/debug/profiling`` and the on-demand sampler ``/v2/debug/profile``
-(``jax_trace_dir`` adds a ``torch.profiler`` Chrome trace; one run at a
-time, a second gets 409).
+(``jax_trace_dir`` adds a ``torch.profiler`` Chrome trace of the whole
+process, CUDA kernels included on a card, written inside the temp
+directory and named in ``X-Device-Trace``; one run at a time, a second
+gets 409; a capture that fails, or that recorded kernel launches and no
+kernel, answers an error. On an H100 serving ResNet-50 under load a CUDA
+capture kills the server in about one 2 s window in eleven, inside
+CUPTI's worker thread: see ``observability/profiling.py``).
 
 Lifecycle and repository control are the reference's too:
 ``/v2/health/ready`` answers 503 (with ``Retry-After`` while the server
