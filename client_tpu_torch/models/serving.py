@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch.models import bert, llama, resnet
+from client_tpu_torch.observability.profiling import transfer_scope
 from client_tpu_torch.parallel import SP_AXIS, TP_AXIS, ShardedExecutor, plan_for_model, sharding
 from client_tpu_torch.server.model_repository import Model
 from client_tpu_torch.server.models import pad_batch_bucket, run_bucketed
@@ -155,15 +156,23 @@ class TextEncoderModel(Model):
             raise InferenceServerException(f"token ids must lie in [0, {vocab})")
 
     def execute(self, inputs, parameters):
-        ids, rows = self._bucketed_ids(inputs)
+        # the host's padding and the copy to the card are the execution's
+        # device_put; the read back in _encode its readback
+        with transfer_scope("device_put"):
+            ids, rows = self._bucketed_ids(inputs)
+            ids = self._placed(ids)
         return {"EMBEDDING": self._encode(ids, rows)}
 
+    def _placed(self, ids: np.ndarray):
+        """The padded ids where the forward reads them."""
+        return numpy_to_tensor(ids, self.device)
+
     @torch.inference_mode()
-    def _encode(self, ids: np.ndarray, rows: int) -> np.ndarray:
+    def _encode(self, ids: torch.Tensor, rows: int) -> np.ndarray:
         """The pooled embeddings of the first ``rows`` rows of ``ids``."""
-        _, pooled = bert.forward(self._params, numpy_to_tensor(ids, self.device),
-                                 self._config)
-        (embedding,) = tensors_to_numpy([pooled[:rows]])
+        _, pooled = bert.forward(self._params, ids, self._config)
+        with transfer_scope("readback"):
+            (embedding,) = tensors_to_numpy([pooled[:rows]])
         return embedding
 
     def _bucketed_ids(self, inputs):
@@ -256,9 +265,13 @@ class ShardedTextEncoderModel(TextEncoderModel):
         self.mesh_plan = plan
         self._executor = executor
 
+    def _placed(self, ids: np.ndarray) -> np.ndarray:
+        # the executor places the dp blocks itself (padding the rows to
+        # the dp extent)
+        return ids
+
     def _encode(self, ids: np.ndarray, rows: int) -> np.ndarray:
-        # the executor places the dp blocks (padding the rows to the dp
-        # extent), runs every shard, and gathers and trims the output
+        # the executor runs every shard, and gathers and trims the output
         return self._executor({"INPUT_IDS": ids}, rows=rows)["EMBEDDING"]
 
 

@@ -1,11 +1,26 @@
-"""Hot-path profiling: per-stage CPU accounting + on-demand wall sampler.
+"""Hot-path profiling: the per-stage ledger, per-stage CPU accounting and
+an on-demand wall sampler.
 
 The port's own copy of ``client_tpu/observability/profiling.py``, with
 :func:`maybe_torch_trace` (``torch.profiler``) in place of
 ``maybe_jax_trace``, and :func:`execution_scope` /
-:func:`transfer_scope`, which split an execution's CPU into the host's
-issue (``compute``) and the transfers the port's models mark
-(``device_put``, ``readback``).
+:func:`transfer_scope`, which split an execution into the host's issue
+(``compute``) and the transfers the port's models mark (``device_put``,
+``readback``).
+
+**The stage ledger, always on.** Every stage bracket reads the wall
+clock on entry and exit whether or not the CPU accounting is on, and the
+server books the wall ns into the model's statistics (``stage_stats`` of
+``GET /v2/models/<name>/stats``, ``{stage: {count, ns}}``). Beside the
+CPU stages it books ``handoff`` (wall only: the hop to the executor
+thread and back, which no thread's CPU spends) and, for models on a
+card, two stages on the device's own clock (:class:`DeviceClock`):
+``device``, the forward's span between two CUDA events, and
+``device_gap``, the device's idle time from one execution's forward to
+the next. While a ``torch.profiler`` capture records, each bracket also
+opens a range named after its stage (:func:`stage_range`), so the
+capture's trace shows the host's stages on the kernels' timeline; with
+no capture no range is entered.
 
 The wire path serves far fewer requests per second than the in-process
 path (BENCH r05: 0.349x), and wall-clock tracing alone cannot say *why*:
@@ -58,16 +73,23 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch._C._autograd import _profiler_enabled
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 __all__ = [
     "STAGES",
+    "DeviceClock",
     "ProfileResult",
     "StageCpuAccounting",
     "WallProfiler",
     "execution_scope",
     "maybe_torch_trace",
     "prime_device_tracing",
+    "stage_range",
     "stage_scope",
     "transfer_scope",
 ]
@@ -254,6 +276,11 @@ class StageCpuAccounting:
         of default-off is not paying this read."""
         return self._clock()
 
+    def wall_now(self) -> int:
+        """Current wall-clock ns: the stage ledger's clock, read at every
+        bracket whether or not the CPU accounting is on."""
+        return self._wall_clock_ns()
+
     def account(
         self, stage: str, cpu_ns: int, wall_ns: int = 0, count: int = 1
     ) -> None:
@@ -308,48 +335,208 @@ def stage_scope(accounting: Optional[StageCpuAccounting], stage: str):
         accounting.account(stage, accounting.cpu_now() - c0)
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
+def stage_range(name: str):
+    """A ``torch.profiler`` range named ``name`` while a capture records,
+    else a shared no-op context. The check reads torch's process-wide
+    flag (a capture of every thread, as :func:`maybe_torch_trace` takes,
+    sets no thread's own flag) and the calling thread's; it costs a
+    fraction of a microsecond, where entering a range with no capture
+    running costs about 12 µs."""
+    if _autograd_profiler._is_profiler_enabled or _profiler_enabled():
+        return record_function(name)
+    return _NO_RANGE
+
+
+class DeviceClock:
+    """One model's executions timed on the device's own clock.
+
+    Each execution takes a pair of events (``new_event()``, by default
+    ``torch.cuda.Event(enable_timing=True)``) and the model's current
+    stream (``current_stream()``). :func:`execution_scope` records the
+    first where the forward starts — when the model's ``device_put`` mark
+    closes, or at the execution's start for a model that marks none —
+    and the second when its first ``readback`` mark opens. Both are read
+    after the execution's one device-to-host read, which has waited for
+    them; an event not yet complete is never waited on, and that
+    execution books no device time. Pairs are reused, one set per model.
+    On the serial path (the dynamic batcher, one execution of the model
+    at a time) the last pair is kept, so the next execution reads the
+    device's idle time between the two forwards (``device_gap``) on the
+    same stream."""
+
+    def __init__(self, new_event: Callable[[], Any], current_stream: Callable[[], Any]):
+        self._new_event = new_event
+        self._current_stream = current_stream
+        self._lock = threading.Lock()
+        self._idle: List[Tuple[Any, Any]] = []
+        # (events, stream) of the serial path's last timed execution
+        self._last: Optional[Tuple[Tuple[Any, Any], Any]] = None
+        # whether the model marks its host-to-device copy: then the first
+        # event waits for that mark's close
+        self.marks_put = False
+
+    @classmethod
+    def cuda(cls, device) -> "DeviceClock":
+        """A clock on ``device``'s current CUDA stream."""
+        return cls(functools.partial(torch.cuda.Event, enable_timing=True),
+                   functools.partial(torch.cuda.current_stream, device))
+
+    def begin(self) -> Tuple[Tuple[Any, Any], Any]:
+        """An idle event pair (a new one when none is idle) and the stream
+        this execution runs on."""
+        with self._lock:
+            events = self._idle.pop() if self._idle else None
+        if events is None:
+            events = (self._new_event(), self._new_event())
+        return events, self._current_stream()
+
+    def release(self, events: Tuple[Any, Any]) -> None:
+        """Return a pair whose execution books no device time."""
+        with self._lock:
+            self._idle.append(events)
+
+    def finish(self, events: Tuple[Any, Any], stream, serial: bool
+               ) -> Tuple[Optional[int], Optional[int]]:
+        """(device ns, gap ns) of an execution whose both events were
+        recorded; either is None where it cannot be read."""
+        start, end = events
+        device_ns = round(start.elapsed_time(end) * 1e6) if end.query() else None
+        gap_ns = None
+        with self._lock:
+            if not serial:
+                self._idle.append(events)
+                return device_ns, None
+            last, self._last = self._last, None
+            if last is not None:
+                if device_ns is not None and last[1] == stream:
+                    gap_ns = round(last[0][1].elapsed_time(start) * 1e6)
+                self._idle.append(last[0])
+            if device_ns is None:
+                self._idle.append(events)
+            else:
+                self._last = (events, stream)
+        return device_ns, gap_ns
+
+
+class _Execution:
+    """One execution's marks, on its executor thread; what
+    :func:`execution_scope` yields, with its ledger once it ends."""
+
+    __slots__ = ("accounting", "measured", "clock", "events", "stream", "started",
+                 "ended", "wall", "cpu", "stages")
+
+    def __init__(self, accounting: StageCpuAccounting, measured: bool,
+                 clock: Optional[DeviceClock]):
+        self.accounting = accounting
+        self.measured = measured
+        self.clock = clock
+        self.events = self.stream = None
+        self.started = self.ended = False
+        # stage -> wall ns (and CPU ns when measured) of the marks inside
+        self.wall: Dict[str, int] = {}
+        self.cpu: Dict[str, int] = {"readback": 0}
+        # the execution's wall ns by stage, device time included, once it ends
+        self.stages: Dict[str, int] = {}
+
+    def record_start(self) -> None:
+        self.events[0].record(self.stream)
+        self.started = True
+
+    def record_end(self) -> None:
+        self.events[1].record(self.stream)
+        self.ended = True
+
+
 _EXECUTION = threading.local()
 
 
 @contextlib.contextmanager
-def execution_scope(accounting: StageCpuAccounting, count: int = 1):
+def execution_scope(accounting: StageCpuAccounting, count: int = 1, measured: bool = False,
+                    clock: Optional[DeviceClock] = None, serial: bool = False):
     """Bracket one model execution and its read back to the host, on its
-    executor thread. The transfers marked inside by
-    :func:`transfer_scope` book as their stages (``readback`` always,
-    ``device_put`` when a model marks its host-to-device copy), the rest
-    as ``compute``: the host's issue of the model's work. Only call
-    behind a ``take()``."""
-    _EXECUTION.accounting = accounting
-    _EXECUTION.stages = {"readback": 0}
-    c0 = accounting.cpu_now()
+    executor thread, always. Yields the execution; once the block ends
+    without raising, its ``stages`` hold the wall ns of the transfers
+    marked inside by :func:`transfer_scope` under their stages
+    (``readback`` always, ``device_put`` when a model marks its
+    host-to-device copy), the rest as ``compute`` (the host's issue of
+    the model's work), and, with a :class:`DeviceClock`, ``device`` and
+    (``serial``) ``device_gap``. When ``measured`` (behind a ``take()``)
+    the same split of the thread's CPU is booked into ``accounting``,
+    ``count`` requests' worth. While a capture records, the execution is
+    a range named ``execution`` and each mark one named after its
+    stage."""
+    execution = _Execution(accounting, measured, clock)
+    if clock is not None:
+        execution.events, execution.stream = clock.begin()
+        if not clock.marks_put:
+            execution.record_start()
+    outer = getattr(_EXECUTION, "current", None)
+    _EXECUTION.current = execution
     try:
-        yield
+        with stage_range("execution"):
+            c0 = accounting.cpu_now() if measured else 0
+            w0 = accounting.wall_now()
+            yield execution
+            wall = accounting.wall_now() - w0
+            spent = accounting.cpu_now() - c0 if measured else 0
+    except BaseException:
+        if clock is not None:
+            clock.release(execution.events)
+        raise
     finally:
-        _EXECUTION.accounting = None
-    spent = accounting.cpu_now() - c0
-    stages = _EXECUTION.stages
-    accounting.account("compute", spent - sum(stages.values()), count=count)
-    for stage, ns in stages.items():
-        accounting.account(stage, ns, count=count)
+        _EXECUTION.current = outer
+    stages = execution.stages
+    stages.update(execution.wall)
+    stages["compute"] = max(0, wall - sum(execution.wall.values()))
+    if measured:
+        cpu = execution.cpu
+        accounting.account("compute", spent - sum(cpu.values()), count=count)
+        for stage, ns in cpu.items():
+            accounting.account(stage, ns, count=count)
+    if clock is not None:
+        if execution.started and execution.ended:
+            device_ns, gap_ns = clock.finish(execution.events, execution.stream, serial)
+            if device_ns is not None:
+                stages["device"] = device_ns
+            if gap_ns is not None:
+                stages["device_gap"] = gap_ns
+        else:
+            clock.release(execution.events)
 
 
 @contextlib.contextmanager
 def transfer_scope(stage: str):
     """Mark a host-device transfer of a model execution, ``device_put``
     (host to device) or ``readback`` (device to host, which waits for the
-    device's work): inside a measured :func:`execution_scope` its CPU
-    books as ``stage`` instead of ``compute``; elsewhere it costs one
-    thread-local read."""
-    accounting = getattr(_EXECUTION, "accounting", None)
-    if accounting is None:
+    device's work): inside an :func:`execution_scope` its wall time (and,
+    measured, its CPU) books as ``stage`` instead of ``compute``, and its
+    edge times the forward on the device's clock (the first event when a
+    ``device_put`` closes, the second when the first ``readback`` opens);
+    elsewhere it costs one thread-local read."""
+    execution = getattr(_EXECUTION, "current", None)
+    if execution is None:
         yield
         return
-    c0 = accounting.cpu_now()
-    try:
-        yield
-    finally:
-        stages = _EXECUTION.stages
-        stages[stage] = stages.get(stage, 0) + accounting.cpu_now() - c0
+    accounting = execution.accounting
+    if stage == "readback" and execution.clock is not None and not execution.ended:
+        execution.record_end()
+    with stage_range(stage):
+        c0 = accounting.cpu_now() if execution.measured else 0
+        w0 = accounting.wall_now()
+        try:
+            yield
+        finally:
+            wall = execution.wall
+            wall[stage] = wall.get(stage, 0) + accounting.wall_now() - w0
+            if execution.measured:
+                cpu = execution.cpu
+                cpu[stage] = cpu.get(stage, 0) + accounting.cpu_now() - c0
+    if stage == "device_put" and execution.clock is not None:
+        execution.clock.marks_put = True
+        execution.record_start()
 
 
 # -- sampling profiler --------------------------------------------------------
@@ -537,7 +724,6 @@ def prime_device_tracing() -> None:
     process is enough. Where the priming runs does not bear on the crash
     :func:`maybe_torch_trace` describes: priming on a thread of the
     server's own changed nothing."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -566,6 +752,17 @@ def require_kernel_records(events) -> None:
                            "activity on the card")
 
 
+def _all_threads():
+    """Kineto's experimental setting that records every thread, or None
+    on a torch that lacks it."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 @contextlib.contextmanager
 def maybe_torch_trace(log_dir: Optional[str]):
     """``torch.profiler`` around a sampling window when ``log_dir`` is set.
@@ -575,7 +772,12 @@ def maybe_torch_trace(log_dir: Optional[str]):
     JAX package's query name, kept so both harnesses drive it) records
     CPU and, with a card, CUDA activity of the whole process, and writes
     it to ``log_dir`` as a Chrome trace (``trace_<pid>_<n>.json``; the
-    yielded dict carries its ``path`` once the window closes).
+    yielded dict carries its ``path`` once the window closes). The
+    capture records every thread's operators and ranges (Kineto's
+    ``profile_all_threads``; a capture otherwise sees only the thread that
+    starts it), so the serving threads' stage ranges (:func:`stage_range`)
+    lie on the kernels' timeline. A torch without that setting records
+    the calling thread alone.
     ``torch.profiler`` is always present, so nothing is skipped: a
     capture that fails raises.
 
@@ -602,7 +804,6 @@ def maybe_torch_trace(log_dir: Optional[str]):
     if not log_dir:
         yield {}
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -610,7 +811,7 @@ def maybe_torch_trace(log_dir: Optional[str]):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     result: Dict[str, str] = {}
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, experimental_config=_all_threads()) as prof:
         yield result
     if ProfilerActivity.CUDA in activities:
         require_kernel_records(prof.profiler.kineto_results.events())

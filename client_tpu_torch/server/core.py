@@ -9,9 +9,10 @@ inputs, requested outputs and parameters), hands it to
 Batchable models (``max_batch_size > 1``) run behind a per-model dynamic
 batcher: concurrent requests with the same input signature share one
 ``Model.execute``, ragged dims padded to a shared bucket where the model
-allows it. Each execution runs on the core's executor threads, and its
-torch outputs come back to the host in one device-to-host read — the
-execution's one synchronisation with the device. Statistics are kept the
+allows it. Each execution runs on an executor thread (a batcher's own
+thread for its model's batches), and its torch outputs come back to the
+host in one device-to-host read — the execution's one synchronisation
+with the device. Statistics are kept the
 way Triton's statistics extension reports them (success, fail, queue,
 compute_input, compute_infer, compute_output: cumulative count and ns;
 inference_count counts rows, execution_count executions).
@@ -53,6 +54,7 @@ same census, statistics, metrics and trace stages as the event-loop path.
 import asyncio
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Dict, List, Optional
@@ -63,9 +65,11 @@ import torch
 from client_tpu_torch.lifecycle.drain import DrainController, ServerDrainingError
 from client_tpu_torch.observability.logging import StructuredLogger
 from client_tpu_torch.observability.profiling import (
+    DeviceClock,
     StageCpuAccounting,
     execution_scope,
     prime_device_tracing,
+    stage_range,
     transfer_scope,
 )
 from client_tpu_torch.observability.recorder import FlightRecorder
@@ -194,7 +198,19 @@ class _Stats:
     """Cumulative per-model statistics (counts + ns). ``metrics`` (the
     core's :class:`ServerMetrics`) gets the same events, outside the
     lock, so the statistics extension and the Prometheus families never
-    disagree."""
+    disagree.
+
+    Beside Triton's fields, the stage ledger (``stage_stats`` of the
+    snapshot): wall ns by stage, each booking one entry, always on. Once
+    per execution of the unary paths: ``device_put``, ``compute`` and
+    ``readback`` (the execution's split, ``execution_scope``), ``package``
+    (the sum over the execution's requests) and, for a model on a card,
+    ``device`` (the forward on the device's clock); on the batched paths
+    ``batch_assembly`` (the merge and the ragged pad); on the dynamic
+    batcher ``handoff`` (to the executor thread and back) and, on a card,
+    ``device_gap`` (the device's idle time since the previous forward).
+    Once per request, in the HTTP front-end: ``frontend_decode`` and
+    ``encode``."""
 
     FIELDS = ("success", "fail", "queue", "compute_input", "compute_infer", "compute_output")
     RESPONSE_FIELDS = ("success", "fail", "cancel", "compute_infer", "compute_output",
@@ -212,6 +228,8 @@ class _Stats:
         # decoupled per-response statistics keyed by response index
         # (Triton's response_stats: key "0" aggregates first responses)
         self.response_stats: Dict[str, Dict[str, List[int]]] = {}
+        # the stage ledger: stage -> [bookings, wall ns]
+        self.stage_ns: Dict[str, List[int]] = {}
 
     def record(self, field_name: str, duration_ns: int) -> None:
         with self.lock:
@@ -249,6 +267,16 @@ class _Stats:
         """Count a device execution whose every request failed packaging."""
         with self.lock:
             self.execution_count += 1
+
+    def record_stages(self, stages: Dict[str, int]) -> None:
+        """Book one entry of each stage's wall ns into the stage ledger."""
+        with self.lock:
+            for stage, ns in stages.items():
+                entry = self.stage_ns.get(stage)
+                if entry is None:
+                    entry = self.stage_ns[stage] = [0, 0]
+                entry[0] += 1
+                entry[1] += ns
 
     def _response_entry(self, index: int) -> Dict[str, List[int]]:
         return self.response_stats.setdefault(
@@ -288,6 +316,9 @@ class _Stats:
                 "inference_stats": {
                     f: {"count": self.counts[f], "ns": self.ns[f]}
                     for f in self.FIELDS
+                },
+                "stage_stats": {
+                    stage: {"count": e[0], "ns": e[1]} for stage, e in self.stage_ns.items()
                 },
             }
             if self.response_stats:
@@ -481,6 +512,11 @@ class _ModelBatcher:
         self.model = model
         self.meta = _BatchMeta(model)
         self.policy = core._queue_policy(model)
+        # the model's executions run on one thread of their own, one at a
+        # time: what a thread holds (its CUDA stream, a torch.profiler
+        # capture, which records the thread that starts it) stays put from
+        # one execution to the next
+        self.executor = core._batch_executor()
         # queued entries: (request, future, signature, rows, arrival_ns)
         self.pending = PriorityQueue(levels=self.policy.levels)
         self.running = False
@@ -612,24 +648,32 @@ class _ModelBatcher:
         n = len(entries)
         # one take() covers the whole batch's stage brackets
         measured = prof.take()
+        # the executor thread's first and last ns: the handoff's two hops
+        hops = [0, 0]
         try:
-            if measured:
-                # queue_wait is wall time (no thread attached): CPU 0
-                prof.account("queue_wait", 0,
-                             wall_ns=sum(exec_start - e[4] for e in entries), count=n)
-                a0 = prof.cpu_now()
-                merged = self.meta.merge_inputs(requests)
-                prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
-            else:
-                merged = self.meta.merge_inputs(requests)
+            with stage_range("batch_assembly"):
+                if measured:
+                    # queue_wait is wall time (no thread attached): CPU 0
+                    prof.account("queue_wait", 0,
+                                 wall_ns=sum(exec_start - e[4] for e in entries), count=n)
+                    a0 = prof.cpu_now()
+                    merged = self.meta.merge_inputs(requests)
+                    prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
+                else:
+                    merged = self.meta.merge_inputs(requests)
             parameters = requests[0].parameters
 
             def run():
-                return core._execute_measured(model, merged, parameters, measured, n)
+                hops[0] = time.monotonic_ns()
+                try:
+                    return core._execute_measured(model, merged, parameters, measured, n,
+                                                  serial=True)
+                finally:
+                    hops[1] = time.monotonic_ns()
 
-            raw = await loop.run_in_executor(core._executor, run)
+            submitted = time.monotonic_ns()
+            raw = await loop.run_in_executor(self.executor, run)
             infer_end = time.monotonic_ns()
-            core.add_busy_ns(model, infer_end - exec_start)
             core.metrics.observe_execution(model.name, sum(e[3] for e in entries))
         except Exception as e:  # noqa: BLE001 - fail every request in the batch
             core._log_request_error("batch_execution_failed", model.name, e, path="batch")
@@ -647,14 +691,17 @@ class _ModelBatcher:
         # packaging succeeds; if every request fails packaging it is still
         # counted (the execution happened regardless).
         execution_pending = 1
+        package_ns = 0
         for request, future, _sig, rows, arrival in entries:
             try:
                 if len(entries) == 1:
                     sliced = raw
                 else:
                     sliced = {k: v[offset:offset + rows] for k, v in raw.items()}
+                out_start = time.monotonic_ns()
                 response = core._package_profiled(model, request, sliced)
                 out_end = time.monotonic_ns()
+                package_ns += out_end - out_start
                 stats.record_success(
                     rows,
                     queue_ns=exec_start - arrival,
@@ -684,14 +731,29 @@ class _ModelBatcher:
             offset += rows
         if execution_pending:
             stats.record_execution()
+        stats.record_stages({
+            "batch_assembly": submitted - exec_start,
+            "handoff": hops[0] - submitted + infer_end - hops[1],
+            "package": package_ns,
+        })
+
+
+def cuda_device_clock(model: Model) -> Optional[DeviceClock]:
+    """A :class:`DeviceClock` on the card ``model`` runs on (the first
+    of a mesh's), or None for a model elsewhere."""
+    device = getattr(model, "device", None)
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return DeviceClock.cuda(torch.device(device))
 
 
 class ServerCore:
     """The protocol-independent inference engine: model lookup, the
-    dynamic batchers, the executor that device calls run on, statistics,
+    dynamic batchers, the executors that device calls run on, statistics,
     the streaming path, lifecycle and admission (drain, rate limiter,
     repository control), and the server's observability (metrics,
-    traces, structured log, flight recorder, stage CPU accounting).
+    traces, structured log, flight recorder, the stage ledger and the
+    stage CPU accounting).
 
     ``device`` is the server's device: the one ``/metrics`` reports the
     memory of and server metadata lists (``cuda`` unless the caller
@@ -709,6 +771,8 @@ class ServerCore:
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="client-tpu-torch-exec"
         )
+        # each dynamic batcher's one-thread executor, shut down with this one
+        self._batch_executors: List[ThreadPoolExecutor] = []
         self.live = True
         # the trace extension: sampling, per-model settings, records
         self.trace_manager = TraceManager()
@@ -727,6 +791,11 @@ class ServerCore:
         self._busy_lock = threading.Lock()
         self._device_busy_ns = 0
         self._device_busy: Dict[str, int] = {}
+        # model -> its DeviceClock (None off a card), made on first use by
+        # device_clock_factory(model)
+        self.device_clock_factory = cuda_device_clock
+        self._device_clocks: "weakref.WeakKeyDictionary[Model, Optional[DeviceClock]]" = (
+            weakref.WeakKeyDictionary())
         self.metrics = ServerMetrics(self, device=device)
         # rings over registered regions, validated once per registration
         self.shm_rings = RingRegistry(self.shm, metrics=self.metrics)
@@ -754,13 +823,14 @@ class ServerCore:
                     pass
 
     def close(self) -> None:
-        """Stop model-owned machinery and the executor, unmap every
+        """Stop model-owned machinery and the executors, unmap every
         registered shared-memory region, and flush the trace records and
         the log."""
         self.live = False
         self.lifecycle.mark_stopped()
         self._shutdown_model_hooks()
-        self._executor.shutdown(wait=False, cancel_futures=True)
+        for executor in [self._executor] + self._batch_executors:
+            executor.shutdown(wait=False, cancel_futures=True)
         self.shm.unregister_all()
         self.trace_manager.close()
         self.logger.close()
@@ -918,6 +988,13 @@ class ServerCore:
             return
         self._batchers.pop(name, None)
 
+    def _batch_executor(self) -> ThreadPoolExecutor:
+        """A one-thread executor for a dynamic batcher's executions."""
+        executor = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="client-tpu-torch-batch")
+        self._batch_executors.append(executor)
+        return executor
+
     def _stats_for(self, model_name: str) -> _Stats:
         with self._stats_lock:
             if model_name not in self.stats:
@@ -1050,7 +1127,12 @@ class ServerCore:
         all, and once to each distinct card the model runs on — every
         device of its mesh (all its shards work through the execution),
         else its one device. A device a mesh repeats is credited once, so
-        a card's duty stays within (0, 1]. Models on the CPU never count."""
+        a card's duty stays within (0, 1]. Models on the CPU never count.
+
+        Unary executions book their forward's time on the device's own
+        clock (CUDA events, in :meth:`_execute_measured`; a mesh's first
+        card's span credits each of its cards); the decoupled path books
+        the host's time waiting for the model's next item."""
         labels = self._device_labels_for(model)
         if not labels:
             return
@@ -1087,31 +1169,53 @@ class ServerCore:
         with self._busy_lock:
             return dict(self._device_busy)
 
-    # -- stage CPU accounting ---------------------------------------------------
+    # -- the stage ledger and stage CPU accounting ---------------------------------
+
+    def _device_clock(self, model: Model) -> Optional[DeviceClock]:
+        clocks = self._device_clocks
+        try:
+            return clocks[model]
+        except KeyError:
+            clock = clocks[model] = self.device_clock_factory(model)
+            return clock
+
+    def record_stages(self, model_name: str, stages: Dict[str, int]) -> None:
+        """Book ``stages`` (stage -> wall ns) into the model's stage ledger."""
+        self._stats_for(model_name).record_stages(stages)
 
     def _execute_measured(self, model: Model, inputs, parameters, measured: bool,
-                          count: int = 1) -> Dict[str, np.ndarray]:
-        """Executor-side ``model.execute`` and the one device-to-host read;
-        when ``measured``, books ``compute``, ``readback`` and the
-        ``device_put`` the model marks on this thread's CPU clock."""
-        if not measured:
-            return _to_host(model.execute(inputs, parameters))
-        with execution_scope(self.profiling, count=count):
+                          count: int = 1, serial: bool = False) -> Dict[str, np.ndarray]:
+        """Executor-side ``model.execute`` and the one device-to-host read,
+        inside an :func:`execution_scope`: books the execution's
+        ``device_put``, ``compute`` and ``readback`` wall ns, and on a card
+        its ``device`` ns (also the busy counter's) and, ``serial`` (the
+        dynamic batcher), its ``device_gap``, into the model's stage
+        ledger; when ``measured``, the same split of this thread's CPU,
+        ``count`` requests' worth."""
+        with execution_scope(self.profiling, count, measured, self._device_clock(model),
+                             serial) as execution:
             raw = model.execute(inputs, parameters)
             with transfer_scope("readback"):
-                return _to_host(raw)
+                out = _to_host(raw)
+        stages = execution.stages
+        if "device" in stages:
+            self.add_busy_ns(model, stages["device"])
+        self._stats_for(model.name).record_stages(stages)
+        return out
 
     def _package_profiled(self, model: Model, request: CoreRequest,
                           raw: Dict[str, np.ndarray]) -> CoreResponse:
-        """:meth:`_package_outputs` with its CPU booked as ``package``."""
+        """:meth:`_package_outputs` with its CPU booked as ``package`` (the
+        callers book its wall time) and, under a capture, its range."""
         prof = self.profiling
-        if not prof.take():
-            return self._package_outputs(model, request, raw)
-        c0 = prof.cpu_now()
-        try:
-            return self._package_outputs(model, request, raw)
-        finally:
-            prof.account("package", prof.cpu_now() - c0)
+        with stage_range("package"):
+            if not prof.take():
+                return self._package_outputs(model, request, raw)
+            c0 = prof.cpu_now()
+            try:
+                return self._package_outputs(model, request, raw)
+            finally:
+                prof.account("package", prof.cpu_now() - c0)
 
     def statistics(self, model_name: str = "", model_version: str = "") -> Dict[str, Any]:
         """The statistics extension's document for one model or all."""
@@ -1407,7 +1511,6 @@ class ServerCore:
                 self.rate_limiter.release(rate_resources)
             if ticket is not None:
                 ticket.close()
-        self.add_busy_ns(model, t2 - t1)
         rows = self._resolve_batch(model, request)
         self.metrics.observe_execution(model.name, rows)
         stats.record_success(
@@ -1418,6 +1521,7 @@ class ServerCore:
             out_ns=t3 - t2,
             trace_id=_trace_id_of(request),
         )
+        stats.record_stages({"package": t3 - t2})
         if self.profiling.take():
             self.profiling.account("queue_wait", 0, wall_ns=t1 - t0)
         _trace_stages(request.trace, t0, t1, t2, t3)
@@ -1536,20 +1640,21 @@ class ServerCore:
         n = len(live)
         try:
             try:
-                if measured:
-                    prof.account("queue_wait", 0, wall_ns=(exec_start - arrival_ns) * n,
-                                 count=n)
-                    a0 = prof.cpu_now()
-                    merged = meta.merge_inputs(reqs)
-                    prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
-                else:
-                    merged = meta.merge_inputs(reqs)
+                with stage_range("batch_assembly"):
+                    if measured:
+                        prof.account("queue_wait", 0, wall_ns=(exec_start - arrival_ns) * n,
+                                     count=n)
+                        a0 = prof.cpu_now()
+                        merged = meta.merge_inputs(reqs)
+                        prof.account("batch_assembly", prof.cpu_now() - a0, count=n)
+                    else:
+                        merged = meta.merge_inputs(reqs)
+                assembled = time.monotonic_ns()
                 raw = self._execute_measured(model, merged, reqs[0].parameters, measured, n)
             finally:
                 if resources:
                     self.rate_limiter.release(resources)
             infer_end = time.monotonic_ns()
-            self.add_busy_ns(model, infer_end - exec_start)
             self.metrics.observe_execution(model.name, sum(rows for _idx, rows in live))
         except Exception as e:  # noqa: BLE001 - fail every request of the chunk
             self._log_request_error("batch_execution_failed", model.name, e, path="direct")
@@ -1565,12 +1670,15 @@ class ServerCore:
         offset = 0
         # the ONE execution is credited to the first request that packages
         execution_pending = 1
+        package_ns = 0
         for (idx, rows), request in zip(live, reqs):
             try:
                 sliced = raw if n == 1 else {k: v[offset:offset + rows]
                                              for k, v in raw.items()}
+                out_start = time.monotonic_ns()
                 results[idx] = self._package_profiled(model, request, sliced)
                 out_end = time.monotonic_ns()
+                package_ns += out_end - out_start
                 stats.record_success(rows, queue_ns=exec_start - arrival_ns, in_ns=0,
                                      infer_ns=infer_end - exec_start,
                                      out_ns=out_end - infer_end,
@@ -1594,6 +1702,7 @@ class ServerCore:
         self.metrics.pending_dec(model.name, n)
         if execution_pending:
             stats.record_execution()
+        stats.record_stages({"batch_assembly": assembled - exec_start, "package": package_ns})
 
     def _infer_single_sync(self, model: Model, request: CoreRequest,
                            ticket=None) -> CoreResponse:
@@ -1622,11 +1731,11 @@ class ServerCore:
         finally:
             if ticket is not None:
                 ticket.close()
-        self.add_busy_ns(model, t2 - t1)
         rows = self._resolve_batch(model, request)
         self.metrics.observe_execution(model.name, rows)
         stats.record_success(rows, queue_ns=t1 - t0, in_ns=0, infer_ns=t2 - t1,
                              out_ns=t3 - t2, trace_id=_trace_id_of(request))
+        stats.record_stages({"package": t3 - t2})
         if self.profiling.take():
             self.profiling.account("queue_wait", 0, wall_ns=t1 - t0)
         _trace_stages(request.trace, t0, t1, t2, t3)
@@ -1648,8 +1757,9 @@ class ServerCore:
         also books per-response statistics. A stream whose consumer stops
         after the final response is complete; one stopped earlier books a
         cancelled response, and one that fails a failure. Only the time
-        spent waiting for the model's next item counts as device busy:
-        the time the consumer takes is not the card's.
+        spent waiting for the model's next item counts as device busy, on
+        the host's clock (this path times no CUDA events): the time the
+        consumer takes is not the card's.
 
         A stream counts in the drain census for its whole life (an unload
         or a drain waits for it), claims a waiting-room slot at admission

@@ -56,6 +56,7 @@ import json
 import os
 import re
 import tempfile
+import time
 import zlib
 from dataclasses import dataclass, field
 from http import HTTPStatus
@@ -68,6 +69,7 @@ from client_tpu_torch.http._utils import read_chunked
 from client_tpu_torch.observability.profiling import (
     WallProfiler,
     maybe_torch_trace,
+    stage_range,
     stage_scope,
 )
 from client_tpu_torch.observability.trace import TRACEPARENT_HEADER
@@ -713,17 +715,20 @@ class HttpServer:
         # one take() covers this request's decode and encode brackets
         measured = prof.take()
         decode_cpu0 = prof.cpu_now() if measured else 0
-        try:
-            body = _inflate(request.body, request.headers.get("content-encoding", ""))
-            payload, binary = self._parse_infer_body(request, body)
-            core_request = self._build_core_request(
-                request.params["model"], request.params.get("version", ""), payload,
-                binary,
-            )
-        except InferenceServerException:
-            # refused before the core: the statistics never see it
-            core.metrics.observe_frontend_error("http")
-            raise
+        decode_start = time.monotonic_ns()
+        with stage_range("frontend_decode"):
+            try:
+                body = _inflate(request.body, request.headers.get("content-encoding", ""))
+                payload, binary = self._parse_infer_body(request, body)
+                core_request = self._build_core_request(
+                    request.params["model"], request.params.get("version", ""), payload,
+                    binary,
+                )
+            except InferenceServerException:
+                # refused before the core: the statistics never see it
+                core.metrics.observe_frontend_error("http")
+                raise
+        decode_ns = time.monotonic_ns() - decode_start
         if measured:
             prof.account("frontend_decode", prof.cpu_now() - decode_cpu0)
         # sampling, or a sampled W3C traceparent, opens a server trace
@@ -742,13 +747,19 @@ class HttpServer:
                     ticket.fail()
                 raise
             encode_cpu0 = prof.cpu_now() if measured else 0
-            if ticket is not None:
-                core_response = ticket.complete(core_response)
-            response = self._build_response(
-                payload, core_response, request.headers.get("accept-encoding", "")
-            )
+            encode_start = time.monotonic_ns()
+            with stage_range("encode"):
+                if ticket is not None:
+                    core_response = ticket.complete(core_response)
+                response = self._build_response(
+                    payload, core_response, request.headers.get("accept-encoding", "")
+                )
+            encode_ns = time.monotonic_ns() - encode_start
             if measured:
                 prof.account("encode", prof.cpu_now() - encode_cpu0)
+            # an answered request books its decode and encode, once each
+            core.record_stages(core_request.model_name,
+                               {"frontend_decode": decode_ns, "encode": encode_ns})
         except BaseException as e:
             if trace is not None:
                 trace.end(error=str(e))

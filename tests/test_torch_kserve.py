@@ -325,7 +325,8 @@ def test_metadata_config_and_stats_have_the_jax_keys(servers):
                       "model_transaction_policy"):
             assert ours[key][field] == theirs[key][field]
     snap, ref = ours["stats"]["model_stats"][0], theirs["stats"]["model_stats"][0]
-    assert snap.keys() == ref.keys()
+    # the port adds one key, its stage ledger, beside the reference's
+    assert snap.keys() - ref.keys() == {"stage_stats"} and ref.keys() <= snap.keys()
     assert snap["inference_stats"].keys() == ref["inference_stats"].keys()
     assert snap["name"] == "simple" and snap["inference_count"] >= 3
     assert snap["inference_stats"]["success"]["count"] >= 1
