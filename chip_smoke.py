@@ -18,6 +18,12 @@ result line:
 2b. the same for K2 (the speculative verify's multi-query attention, T=5
    rows per sequence at the 7B shapes), with padding rows, verify rows
    that see nothing of the last partition, and T sequential K1 launches;
+2c. K3 (the BERT encoder's fused attention) against its plain version
+   (fp32 at head dims 16, 64 and 128 over trailing, inner and all-pad key
+   masks; bf16 no further from the fp32 attention than the plain
+   version), and timed at the ``bert_large.ragged`` cell's shape (B 16,
+   H 16, hd 64, masks drawn from its lengths) beside its bound, the plain
+   version and ``F.scaled_dot_product_attention`` as a yardstick;
 3. run the tiny fp32 Llama through the engine on the card and check its
    greedy streams token for token against the dense oracle;
 3b. the same with speculative decoding on (self-draft at K = 1, 2, 4 and
@@ -393,7 +399,8 @@ def build() -> None:
         frontend.result()
     print(f"build: {len(paths)} source(s) and the gRPC front-end in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    describe = {"paged_attention.cu": "rpa_describe", "paged_attention_mq.cu": "rpa_mq_describe"}
+    describe = {"paged_attention.cu": "rpa_describe", "paged_attention_mq.cu": "rpa_mq_describe",
+                "bert_attention.cu": "bat_describe"}
     for source, log in kernels.build_logs.items():
         instances = {}
         name = None
@@ -409,13 +416,14 @@ def build() -> None:
                 instances.setdefault(name, {})["registers"] = int(regs.group(1))
         lib = kernels.load(source)
         for mangled, info in sorted(instances.items()):
-            shape = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
-            dtype, d, rows = ("fp32" if shape.group(1) == "f" else "bf16"), int(shape.group(2)), \
-                int(shape.group(3))
+            # K1 and K2 instances name (dtype, D, rows), K3's (dtype, D)
+            shape = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?", mangled)
+            dtype, d = ("fp32" if shape.group(1) == "f" else "bf16"), int(shape.group(2))
+            rows = int(shape.group(3)) if shape.group(3) else None
             smem, blocks = ctypes.c_int(), ctypes.c_int()
-            code = getattr(lib, describe[source])(0 if dtype == "fp32" else 1, d, rows,
-                                                  pa.PARTITION_SLOTS, ctypes.byref(smem),
-                                                  ctypes.byref(blocks))
+            shape_args = (d,) if rows is None else (d, rows, pa.PARTITION_SLOTS)
+            code = getattr(lib, describe[source])(0 if dtype == "fp32" else 1, *shape_args,
+                                                  ctypes.byref(smem), ctypes.byref(blocks))
             if code != 0:
                 raise AssertionError(f"{source} {dtype} D={d} rows={rows}: describe failed "
                                      f"({code})")
@@ -545,6 +553,129 @@ def measure_kernel(rows=None) -> dict:
           f"{serve['bound_ms']:.4f} ms ({serve['bound_by']}), "
           f"{serve['bound_ms'] / serve['ms']:.1%} of bound [{card()}]", flush=True)
     return times
+
+
+# K3 at the bert_large.ragged cell's shape: 16 rows an execution, BERT-large's
+# 16 heads of 64, lengths lognormal (median 128, sigma 0.8) in 16-512,
+# padded to the power-of-two bucket of the longest
+ENCODER_ROWS, ENCODER_HEADS, ENCODER_HEAD_DIM = 16, 16, 64
+ENCODER_LENGTHS = {"median": 128, "sigma": 0.8, "min": 16, "max": 512}
+ENCODER_BATCHES = 8
+
+
+def encoder_masks(seed: int, batches: int = ENCODER_BATCHES) -> list:
+    """Key masks [16, L] of ``batches`` executions drawn from the cell's
+    length distribution, each padded to its bucket."""
+    import numpy as np
+
+    from client_tpu_torch.server.models import pad_batch_bucket
+
+    rng = np.random.default_rng(seed)
+    spec = ENCODER_LENGTHS
+    masks = []
+    for _ in range(batches):
+        lengths = np.exp(np.log(spec["median"]) + spec["sigma"] * rng.standard_normal(ENCODER_ROWS))
+        lengths = np.clip(np.round(lengths), spec["min"], spec["max"]).astype(int)
+        width = min(pad_batch_bucket(int(lengths.max()), 8), spec["max"])
+        masks.append(torch.arange(width)[None, :] < torch.from_numpy(lengths)[:, None])
+    return masks
+
+
+def encoder_attention_bound(key_mask, heads: int, hd: int, elem_bytes: int = 2) -> dict:
+    """The least time K3 could take for one call: q, k, v read and ctx
+    written once (and the mask) at 3.35 TB/s against the products these
+    masks need (every query row against its row's real keys, QK^T and PV)
+    at the dense bf16 peak."""
+    b, length = key_mask.shape
+    nbytes = 4 * b * length * heads * hd * elem_bytes + b * length
+    flops = 4 * length * int(key_mask.sum()) * heads * hd
+    bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations", "bytes": nbytes, "flops": flops}
+
+
+def measure_encoder_attention() -> dict:
+    """Phase 2c: K3, the BERT encoder's fused attention. Held to its plain
+    version (fp32 within 1e-5; bf16 no further from the fp32 attention of
+    its inputs than the plain version, plus one bf16 ulp), then timed at
+    the ``bert_large.ragged`` cell's shape (B 16, H 16, hd 64, bf16) over
+    masks drawn from the cell's lengths: CUDA-event means of the kernel,
+    the plain version and, as a yardstick the port never calls,
+    ``F.scaled_dot_product_attention`` (``library_ms``), beside the bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from client_tpu_torch.models import bert
+
+    gen = torch.Generator().manual_seed(21)
+    fp32 = bert.BertConfig.tiny(dtype=torch.float32)
+    worst = 0.0
+    for hd in (16, 64, 128):
+        q, k, v = (torch.randn(4, 200, 4, hd, generator=gen).to(DEVICE) for _ in range(3))
+        key_mask = torch.ones(4, 200, dtype=torch.bool)
+        key_mask[0, 77:] = False
+        key_mask[1, 64:128] = False
+        key_mask[2] = False
+        key_mask = key_mask.to(DEVICE)
+        out = bert.encoder_attention_cuda(q, k, v, key_mask)
+        err = (out - bert.encoder_attention_plain(q, k, v, key_mask, fp32)).abs().max().item()
+        torch.cuda.synchronize()
+        if not err <= 1e-5:
+            raise AssertionError(f"K3 fp32 hd={hd}: {err} > 1e-5")
+        worst = max(worst, err)
+
+    bf16 = bert.BertConfig()
+    shape = (ENCODER_ROWS, 512, ENCODER_HEADS, ENCODER_HEAD_DIM)
+    q_all, k_all, v_all = (torch.randn(*shape, generator=gen).to(DEVICE, torch.bfloat16)
+                           for _ in range(3))
+    rows = []
+    for key_mask in encoder_masks(seed=22):
+        length = key_mask.shape[1]
+        q, k, v = (t[:, :length].contiguous() for t in (q_all, k_all, v_all))
+        key_mask = key_mask.to(DEVICE)
+        out = bert.encoder_attention_cuda(q, k, v, key_mask)
+        exact = bert.encoder_attention_plain(q.float(), k.float(), v.float(), key_mask, fp32)
+        plain = bert.encoder_attention_plain(q, k, v, key_mask, bf16)
+        kernel_err = (out.float() - exact).abs().max().item()
+        plain_err = (plain.float() - exact).abs().max().item()
+        if not kernel_err <= plain_err + BF16_ULP * exact.abs().max().item():
+            raise AssertionError(f"K3 bf16 L={length}: {kernel_err} against the plain "
+                                 f"version's {plain_err}")
+        del exact, plain
+        tiles = -(-length // 64)
+        visited = sum(bool(m[i * 64:(i + 1) * 64].any())
+                      for m in key_mask.cpu() for i in range(tiles))
+        sdpa_mask = key_mask[:, None, None, :]
+        rows.append({
+            "length": length,
+            "real_keys": int(key_mask.sum()),
+            "tile_share": visited / (tiles * ENCODER_ROWS),
+            "ms": cuda_ms(lambda: bert.encoder_attention_cuda(q, k, v, key_mask)),
+            "plain_ms": cuda_ms(lambda: bert.encoder_attention_plain(q, k, v, key_mask, bf16)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=sdpa_mask)),
+            "kernel_err": kernel_err,
+            "plain_err": plain_err,
+            **encoder_attention_bound(key_mask, ENCODER_HEADS, ENCODER_HEAD_DIM),
+        })
+    result = {key: float(np.mean([r[key] for r in rows]))
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms", "tile_share", "flops",
+                          "bytes")}
+    result.update(max_abs_err=max(r["kernel_err"] for r in rows),
+                  plain_max_abs_err=max(r["plain_err"] for r in rows),
+                  fp32_max_abs_err=worst, lengths=[r["length"] for r in rows],
+                  bound_by=sorted({r["bound_by"] for r in rows}))
+    print(f"k3 fp32 (hd 16, 64, 128; trailing, inner and all-pad masks): max_abs_err {worst:.3g} "
+          f"(limit 1e-5)", flush=True)
+    print(f"k3 bf16 bert_large.ragged shape (B {ENCODER_ROWS}, H {ENCODER_HEADS}, hd "
+          f"{ENCODER_HEAD_DIM}; {len(rows)} masks drawn from the cell's lengths, L "
+          f"{result['lengths']}, {result['tile_share']:.1%} of key tiles visited): max_abs_err "
+          f"{result['max_abs_err']:.3g} from the fp32 attention (plain version "
+          f"{result['plain_max_abs_err']:.3g}); kernel {result['ms']:.4f} ms, plain "
+          f"{result['plain_ms']:.4f} ms, sdpa (yardstick) {result['library_ms']:.4f} ms, bound "
+          f"{result['bound_ms']:.4f} ms ({', '.join(result['bound_by'])}), "
+          f"{result['bound_ms'] / result['ms']:.1%} of bound [{card()}]", flush=True)
+    return result
 
 
 def verify_layout(gen, contexts, t, bs, table_width, num_blocks, lengths=None):
@@ -1309,10 +1440,22 @@ def kserve_tiny() -> None:
     executions = after["execution_count"] - before["execution_count"]
     if requests != 16 or not executions < requests:
         raise AssertionError(f"text_encoder: {requests} requests in {executions} executions")
+    launches = k3_launches(before, after)
+    if launches != config.n_layers * executions:
+        raise AssertionError(f"text_encoder: {launches} K3 launches in {executions} executions")
     print(f"kserve tiny: simple exact, identity_fp32/bf16/bytes bit-exact (JSON and binary); "
           f"16 concurrent text_encoder requests (lengths {int(lengths.min())}-"
           f"{int(lengths.max())}) within {worst:.3g} of the CPU forward (limit 1e-5) in "
-          f"{executions} executions", flush=True)
+          f"{executions} executions, {launches} K3 launches", flush=True)
+
+
+def k3_launches(before, after) -> int:
+    """K3 launches the text encoder's statistics entry booked between two
+    readings."""
+    def count(entry):
+        return entry["kernel_launches"]["encoder_attention"]
+
+    return count(after) - count(before)
 
 
 KSERVE_REQUESTS = 128
@@ -1467,6 +1610,9 @@ def kserve_bert_large() -> dict:
     executions = after["execution_count"] - before["execution_count"]
     if requests != KSERVE_REQUESTS or executions < 1:
         raise AssertionError(f"stats: {requests} requests in {executions} executions")
+    launches = k3_launches(before, after)
+    if launches != config.n_layers * executions:
+        raise AssertionError(f"BERT-large: {launches} K3 launches in {executions} executions")
     stats = after["inference_stats"]
     result = {
         "model": f"text_encoder (d {config.d_model}, {config.n_layers} layers, "
@@ -1487,6 +1633,7 @@ def kserve_bert_large() -> dict:
                                               - before["inference_stats"]["compute_infer"]["ns"])
         / 1e6 / requests,
         "max_err_share_of_limit": worst,
+        "k3_launches": launches,
         "length_buckets": sorted({min(pad_batch_bucket(int(n), 8), 512) for n in lengths}),
         "load_s": load_s,
         "warmup_s": warmup_s,
@@ -6556,6 +6703,8 @@ def main() -> int:
         check_verify_fp32()
         check_edges(rows=5)
         k2 = measure_kernel(rows=bench.VERIFY_ROWS)
+    with timed("2c (K3)"):
+        k3 = measure_encoder_attention()
     check_tiny_engine()
     check_tiny_engine_speculation()
     served, params, plain_streams = serve_7b()
@@ -6570,7 +6719,7 @@ def main() -> int:
     train_18()
     pods = pod_16(sharded["15b"]["streams"])
     kserve_tiny()
-    kserve_bert_large()
+    bert_large = kserve_bert_large()
     classifier_tiny()
     classifier_resnet50()
     data_plane()
@@ -6638,6 +6787,20 @@ def main() -> int:
                 # 15b serves without speculation: no verify step
                 "tp_15b_launches": sharded["15b"]["k2_launches"],
                 "pod_16a_launches": {m: c["k2"] for m, c in pods["16a"]["launches"].items()},
+            },
+            {
+                "name": "encoder_attention",
+                "route": "cuda",
+                "source": "client_tpu_torch/csrc/bert_attention.cu",
+                "replaces": None,  # the JAX package leaves this attention to XLA
+                # phase 6b: 24 a BERT-large forward
+                "launches": bert_large["k3_launches"],
+                "max_abs_err": k3["max_abs_err"],
+                "ms": k3["ms"],
+                "plain_ms": k3["plain_ms"],
+                "bound_ms": k3["bound_ms"],
+                "bound_by": k3["bound_by"],
+                "library_ms": k3["library_ms"],
             },
         ]
     }

@@ -135,11 +135,26 @@ def _declare_verify(lib: ctypes.CDLL) -> None:
     lib.rpa_mq_error_string.restype = ctypes.c_char_p
 
 
+def _declare_encoder(lib: ctypes.CDLL) -> None:
+    """``csrc/bert_attention.cu``: K3, the BERT encoder's attention."""
+    lib.bat_encoder_attention.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k, v, mask, out
+        _I32, _I32, _I32, _I32, _I32,  # B, L, H, D, dtype
+        ctypes.c_float, _PTR,  # scale, stream
+    ]
+    lib.bat_encoder_attention.restype = _I32
+    lib.bat_describe.argtypes = [_I32, _I32, ctypes.POINTER(_I32), ctypes.POINTER(_I32)]
+    lib.bat_describe.restype = _I32
+    lib.bat_error_string.argtypes = [_I32]
+    lib.bat_error_string.restype = ctypes.c_char_p
+
+
 # argtypes/restype of each library's C entry points: each pointer and the
 # stream as ``c_void_p`` (a bare int would be cut to 32 bits)
 _DECLARATIONS = {
     "paged_attention.cu": _declare_decode,
     "paged_attention_mq.cu": _declare_verify,
+    "bert_attention.cu": _declare_encoder,
 }
 
 

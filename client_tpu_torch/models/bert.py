@@ -16,8 +16,11 @@ to the input dtype (no bias is applied: the reference's forward reads
 finite ``-1e9`` bias on pad keys, the probabilities cast back to the
 model dtype; GELU is the tanh approximation (``jax.nn.gelu``'s default).
 Token id ``pad_token_id`` is padding wherever it appears. The big
-products are ``torch.matmul``/``einsum``: the JAX package computes them
-outside any Pallas kernel, so this path has no kernel of its own.
+products are ``torch.matmul``: the JAX package computes them outside any
+Pallas kernel. The attention is :func:`encoder_attention_plain` on the
+CPU and, on a card, :func:`encoder_attention_cuda`, the hand-written
+fused kernel ``csrc/bert_attention.cu`` (K3), which never writes the
+``[B, H, L, L]`` scores to device memory.
 
 Tensor parallelism (``param_specs``, Megatron-style): :func:`shard_params`
 cuts the parameters over a plan's devices, and :func:`forward` takes a tp
@@ -162,6 +165,84 @@ def shard_params(params: Dict[str, Any], config: BertConfig, plan) -> List[Dict[
     return sharding.shard_tree(params, param_specs(config), plan)
 
 
+# compiled instances of K3 (``csrc/bert_attention.cu``)
+CUDA_HEAD_DIMS = (16, 64, 128)
+_CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# key tiles of 64 a row may have in K3: L <= 16384
+CUDA_MAX_LENGTH = 256 * 64
+
+
+def encoder_attention_plain(q, k, v, key_mask, config: BertConfig) -> torch.Tensor:
+    """Bidirectional attention of ``q``, ``k``, ``v`` [B, L, H, hd] over
+    the keys ``key_mask`` [B, L] (bool) marks real -> ``ctx`` [B, L, H*hd]
+    in ``config.dtype``: fp32 scores over sqrt(hd) with a finite ``-1e9``
+    bias on pad keys, an fp32 softmax, the probabilities cast to the model
+    dtype before the second product. A row whose keys are all pad gets a
+    uniform softmax."""
+    B, L, _, hd = q.shape
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    neg = torch.full((), -1e9, dtype=torch.float32, device=q.device)
+    bias = torch.where(key_mask[:, None, None, :], zero, neg)  # [B, 1, 1, L]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores / math.sqrt(hd) + bias
+    probs = torch.softmax(scores, dim=-1).to(config.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+
+
+def _check_cuda_args(q, k, v, key_mask) -> None:
+    """Raise on anything K3 does not take."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v [B, L, H, hd] alike, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, length, heads, hd = q.shape
+    if tuple(key_mask.shape) != (b, length) or key_mask.dtype != torch.bool:
+        raise ValueError(f"key_mask must be bool [{b}, {length}], got "
+                         f"{key_mask.dtype} {tuple(key_mask.shape)}")
+    if q.dtype not in _CUDA_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in CUDA_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not compiled (have {CUDA_HEAD_DIMS})")
+    if not (0 < length <= CUDA_MAX_LENGTH and 0 < b <= 65535 and 0 < heads <= 65535):
+        raise ValueError(f"B {b}, L {length}, H {heads} out of the kernel's range "
+                         f"(L <= {CUDA_MAX_LENGTH}, B and H <= 65535)")
+    tensors = (q, k, v, key_mask)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("q, k, v and key_mask must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous tensors only")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+
+
+def encoder_attention_cuda(q, k, v, key_mask) -> torch.Tensor:
+    """:func:`encoder_attention_plain`'s function by the Hopper kernel K3
+    (``csrc/bert_attention.cu``) on CUDA tensors, or raise: q, k, v
+    contiguous [B, L, H, hd] (hd in :data:`CUDA_HEAD_DIMS`, fp32 or bf16),
+    ``key_mask`` bool [B, L], all on one card. The result is in q's
+    dtype. Each launch adds one to ``encoder_attention_cuda.launches``."""
+    _check_cuda_args(q, k, v, key_mask)
+    from client_tpu_torch import kernels
+
+    lib = kernels.load("bert_attention.cu")
+    b, length, heads, hd = q.shape
+    ctx = torch.empty((b, length, heads * hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        code = lib.bat_encoder_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), ctx.data_ptr(),
+            b, length, heads, hd, _CUDA_DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(f"encoder-attention kernel launch failed: "
+                           f"{lib.bat_error_string(code).decode()} (cudaError {code})")
+    encoder_attention_cuda.launches += 1
+    return ctx
+
+
+encoder_attention_cuda.launches = 0
+
+
 def _layernorm(x, scale, eps):
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
@@ -192,11 +273,6 @@ def forward(params: Union[Dict[str, Any], List[Dict[str, Any]]],
     tok = collectives.vocab_parallel_embedding([s["tok_emb"] for s in shards], input_ids)
     h = [_layernorm(t + s["pos_emb"][:L][None, :, :], s["emb_ln_scale"], config.norm_eps)
          for t, s in zip(tok, shards)]
-    bias = []
-    for m, device in zip(mask, devices):
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        neg = torch.full((), -1e9, dtype=torch.float32, device=device)
-        bias.append(torch.where(m[:, None, None, :], zero, neg))  # [B, 1, 1, L]
 
     def residual(h, partials):
         return [hi + r for hi, r in zip(h, collectives.all_reduce(partials, devices))]
@@ -204,15 +280,14 @@ def forward(params: Union[Dict[str, Any], List[Dict[str, Any]]],
     for index in range(config.n_layers):
         layers = [shard["layers"][index] for shard in shards]
         partials = []
-        for layer, hi, attn_bias in zip(layers, h, bias):
+        for layer, hi, m in zip(layers, h, mask):
             x = _layernorm(hi, layer["ln1_scale"], config.norm_eps)
             q = (x @ layer["wq"]).reshape(B, L, H, hd)
             k = (x @ layer["wk"]).reshape(B, L, H, hd)
             v = (x @ layer["wv"]).reshape(B, L, H, hd)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-            scores = scores / math.sqrt(hd) + attn_bias
-            probs = torch.softmax(scores, dim=-1).to(config.dtype)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+            # the kernel on a card, the plain version on the CPU
+            ctx = (encoder_attention_cuda(q, k, v, m) if q.is_cuda
+                   else encoder_attention_plain(q, k, v, m, config))
             partials.append(ctx @ layer["wo"])
         h = residual(h, partials)
         h = residual(h, [

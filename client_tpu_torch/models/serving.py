@@ -112,6 +112,12 @@ class TextEncoderModel(Model):
     :func:`bert.params_from_jax` returns) must already live on
     ``device``; without them warmup draws random weights from seed 0.
     ``dtype`` overrides ``config.dtype``.
+
+    Its statistics entry carries ``kernel_launches``:
+    ``{"encoder_attention": n}``, the running count of the attention
+    kernel's launches (``bert.encoder_attention_cuda.launches``) made
+    while its forwards ran, ``n_layers`` a forward on a card (times the
+    shards), none on the CPU.
     """
 
     max_batch_size = 16
@@ -135,9 +141,13 @@ class TextEncoderModel(Model):
         self._config = config
         self.ragged_dim_cap = config.max_seq_len
         self._params = params
+        self._attention_launches = 0
         self.outputs = [
             {"name": "EMBEDDING", "datatype": "FP32", "shape": [config.d_model]}
         ]
+
+    def statistics(self):
+        return {"kernel_launches": {"encoder_attention": self._attention_launches}}
 
     def warmup(self) -> None:
         if self._params is None:
@@ -161,7 +171,10 @@ class TextEncoderModel(Model):
         with transfer_scope("device_put"):
             ids, rows = self._bucketed_ids(inputs)
             ids = self._placed(ids)
-        return {"EMBEDDING": self._encode(ids, rows)}
+        launches = bert.encoder_attention_cuda.launches
+        embedding = self._encode(ids, rows)
+        self._attention_launches += bert.encoder_attention_cuda.launches - launches
+        return {"EMBEDDING": embedding}
 
     def _placed(self, ids: np.ndarray):
         """The padded ids where the forward reads them."""

@@ -1229,6 +1229,7 @@ class ServerCore:
                     raise
                 continue
             snap = self._stats_for(name).snapshot()
+            snap.update(model.statistics())
             snap.update({"name": name, "version": model.version})
             result.append(snap)
         return {"model_stats": result}

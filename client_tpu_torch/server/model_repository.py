@@ -194,6 +194,12 @@ class Model:
         """Classification labels for an output (None if unlabeled)."""
         return None
 
+    def statistics(self) -> Dict[str, Any]:
+        """Entries the model adds to its document of the statistics
+        extension (``GET /v2/models/<name>/stats``), beside the server's
+        own. Default: none."""
+        return {}
+
     def check_inputs(self, inputs: Dict[str, np.ndarray]) -> None:
         """Refuse one request's inputs before they join a dynamic batch:
         raise :class:`InferenceServerException` for what :meth:`execute`

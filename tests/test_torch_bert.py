@@ -171,3 +171,96 @@ def test_text_encoder_dtype_and_warmup_weights():
     assert model._params["tok_emb"].dtype == torch.float32
     out = model.execute({"INPUT_IDS": np.array([3, 4, 5], np.int32)}, {})["EMBEDDING"]
     assert out.shape == (1, 64) and np.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# the attention's two routes: the plain version here, the kernel on a card
+# ---------------------------------------------------------------------------
+
+
+def _inline_attention(q, k, v, key_mask, config):
+    """The attention as ``forward`` computed it inline before it had a
+    kernel: the pad bias built once per forward, then the score chain."""
+    B, L, _, hd = q.shape
+    zero = torch.zeros((), dtype=torch.float32)
+    neg = torch.full((), -1e9, dtype=torch.float32)
+    bias = torch.where(key_mask[:, None, None, :], zero, neg)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores / np.sqrt(hd) + bias
+    probs = torch.softmax(scores, dim=-1).to(config.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_plain_is_the_inline_arithmetic_bit_for_bit(dtype):
+    config = bert.BertConfig.tiny(dtype=dtype)
+    rng = np.random.default_rng(5)
+    shape = (4, 24, config.n_heads, config.head_dim)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    key_mask = torch.ones(4, 24, dtype=torch.bool)
+    key_mask[0, 9:] = False  # trailing pads
+    key_mask[1, 5:15] = False  # pads in the middle
+    key_mask[2] = False  # all pad: the uniform softmax
+    ctx = bert.encoder_attention_plain(q, k, v, key_mask, config)
+    assert ctx.dtype == dtype and tuple(ctx.shape) == (4, 24, config.d_model)
+    assert torch.equal(ctx, _inline_attention(q, k, v, key_mask, config))
+    assert torch.isfinite(ctx).all()
+
+
+def test_a_cpu_forward_never_loads_the_kernel(weights, monkeypatch):
+    from client_tpu_torch import kernels
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU forward reached the kernel library")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    monkeypatch.setattr(kernels, "build", refuse)
+    _, params = weights
+    before = bert.encoder_attention_cuda.launches
+    ids = _ragged_ids(6, [10, 0, 31], 32, CONFIG.vocab_size)
+    _, pooled = bert.forward(params, torch.from_numpy(ids), CONFIG)
+    assert torch.isfinite(pooled).all()
+    assert bert.encoder_attention_cuda.launches == before
+
+
+def test_the_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bert.encoder_attention_cuda(q, q, q, torch.ones(1, 8, dtype=torch.bool))
+
+
+def _encoder_core(model):
+    from client_tpu_torch.server.core import ServerCore
+    from client_tpu_torch.server.model_repository import ModelRepository
+
+    repository = ModelRepository()
+    repository.add_model(model)
+    return ServerCore(repository, max_workers=1)
+
+
+def test_text_encoder_stats_carry_the_attention_kernel_launches(weights, monkeypatch):
+    _, params = weights
+    model = TextEncoderModel(config=CONFIG, params=params, device="cpu")
+    core = _encoder_core(model)
+    try:
+        model.execute({"INPUT_IDS": np.ones([2, 8], np.int32)}, {})
+        entry = core.statistics("text_encoder")["model_stats"][0]
+        # the CPU takes the plain version: no launch
+        assert entry["kernel_launches"] == {"encoder_attention": 0}
+        assert "stage_stats" in entry and entry["name"] == "text_encoder"
+
+        # a forward that launches the kernel once a layer, as a card's does
+        plain_forward = bert.forward
+
+        def launching_forward(*args, **kwargs):
+            bert.encoder_attention_cuda.launches += CONFIG.n_layers
+            return plain_forward(*args, **kwargs)
+
+        monkeypatch.setattr(bert, "forward", launching_forward)
+        for _ in range(3):
+            model.execute({"INPUT_IDS": np.ones([1, 8], np.int32)}, {})
+        entry = core.statistics("text_encoder")["model_stats"][0]
+        assert entry["kernel_launches"] == {"encoder_attention": 3 * CONFIG.n_layers}
+    finally:
+        core.close()

@@ -2,9 +2,11 @@
 K1 (decode) and K2 (the speculative verify) on random ragged layouts and
 on layouts that straddle their split-KV partitions (held to the plain
 split-and-merge version), and the tiny engine through both against the
-dense oracle. Then the KServe v2 path's models on the card: the tiny fp32
-text encoder against its CPU run, BERT-large widths batched against
-unbatched in bf16, and ``run_bucketed``'s host arrays; the image
+dense oracle. K3, the BERT encoder's fused attention, against its plain
+version over trailing, inner and all-pad key masks. Then the KServe v2
+path's models on the card: the tiny fp32 text encoder against its CPU
+run, BERT-large widths batched against unbatched in bf16 (and K3's
+launches a forward), and ``run_bucketed``'s host arrays; the image
 classifier (fp32 against its CPU run, bf16 against the card's fp32) and
 the TPU shared-memory staging of CUDA tensors (one device-to-host read).
 
@@ -279,6 +281,153 @@ def test_kernels_match_the_split_version_at_partition_edges_bf16(cuda, t, partit
     tol = 2.0 ** -7 * ref.float().abs().max().item()
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# K3: the BERT encoder's fused attention
+# ---------------------------------------------------------------------------
+
+
+def _encoder_mask(kind, b, length, rng):
+    """A [b, length] key mask (True: a real key) of one kind: ``none``
+    (no pad), ``trailing`` (each row a random length, the last row all
+    pad), ``inner`` (a random run of pads inside each row) or ``mixed``
+    (the rows cycle through those, one row all pad)."""
+    mask = np.ones((b, length), dtype=bool)
+    for row in range(b):
+        pick = kind if kind != "mixed" else ("none", "trailing", "inner", "all")[row % 4]
+        if pick == "trailing":
+            mask[row, int(rng.integers(1, length + 1)):] = False
+        elif pick == "inner":
+            start = int(rng.integers(0, length))
+            mask[row, start:int(rng.integers(start, length + 1))] = False
+        elif pick == "all":
+            mask[row] = False
+    if kind == "trailing":
+        mask[-1] = False
+    return mask
+
+
+def _encoder_case(seed, b, length, heads, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, length, heads, hd)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    return q, k, v, rng
+
+
+def _bf16_attention_errors(q, k, v, key_mask, out):
+    """Largest distance of the kernel's and of the plain version's bf16
+    result from the fp32 attention of the same bf16 inputs, and the
+    largest |value| of that attention."""
+    from client_tpu_torch.models import bert
+
+    config = bert.BertConfig.tiny(dtype=torch.bfloat16)
+    exact = bert.encoder_attention_plain(q.float(), k.float(), v.float(), key_mask,
+                                         bert.BertConfig.tiny(dtype=torch.float32))
+    plain = bert.encoder_attention_plain(q, k, v, key_mask, config)
+    return ((out.float() - exact).abs().max().item(),
+            (plain.float() - exact).abs().max().item(), exact.abs().max().item())
+
+
+@pytest.mark.parametrize("b,heads", [(1, 4), (2, 8), (16, 16)])
+@pytest.mark.parametrize("length", [8, 64, 200, 256, 512])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_kernel_matches_plain_version(cuda, dtype, hd, length, b, heads):
+    """Every mask kind: fp32 within 1e-5 of the plain version. bf16: the
+    plain version rounds the scores to bf16 (its first product's dtype)
+    before its fp32 softmax, the kernel keeps them in fp32, so each is
+    held to the fp32 attention of the same bf16 inputs and the kernel may
+    be no further from it than the plain version, plus 2^-8 of its
+    largest value (the two round the probabilities at other scales)."""
+    from client_tpu_torch.models import bert
+
+    q, k, v, rng = _encoder_case(hd * 1000 + length * 10 + b, b, length, heads, hd, dtype, cuda)
+    config = bert.BertConfig.tiny(dtype=dtype)
+    for kind in ("none", "trailing", "inner", "mixed"):
+        key_mask = torch.from_numpy(_encoder_mask(kind, b, length, rng)).to(cuda)
+        before = bert.encoder_attention_cuda.launches
+        out = bert.encoder_attention_cuda(q, k, v, key_mask)
+        torch.cuda.synchronize()
+        assert bert.encoder_attention_cuda.launches == before + 1
+        assert out.dtype == dtype and tuple(out.shape) == (b, length, heads * hd)
+        assert torch.isfinite(out).all(), kind
+        if dtype == torch.float32:
+            ref = bert.encoder_attention_plain(q, k, v, key_mask, config)
+            assert (out - ref).abs().max().item() <= TOL, kind
+        else:
+            kernel_err, plain_err, scale = _bf16_attention_errors(q, k, v, key_mask, out)
+            assert kernel_err <= plain_err + 2.0 ** -8 * scale, (kind, kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_kernel_skips_an_all_pad_tile_between_valid_ones(cuda, dtype):
+    """Keys [0, 64) and [128, 200) real in row 0, with the 64-key tile
+    between them all pad; row 1 real only in its last, partial tile; row
+    2 all pad, whose result is the mean of V over all its keys."""
+    from client_tpu_torch.models import bert
+
+    q, k, v, _ = _encoder_case(7, 3, 320, 4, 64, dtype, cuda)
+    key_mask = torch.zeros(3, 320, dtype=torch.bool, device=cuda)
+    key_mask[0, :64] = True
+    key_mask[0, 128:200] = True
+    key_mask[1, 300:] = True
+    out = bert.encoder_attention_cuda(q, k, v, key_mask)
+    mean_v = v[2].float().mean(0).reshape(-1)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        ref = bert.encoder_attention_plain(q, k, v, key_mask, bert.BertConfig.tiny(dtype=dtype))
+        assert (out - ref).abs().max().item() <= TOL
+        assert (out[2] - mean_v).abs().max().item() <= TOL
+    else:
+        kernel_err, plain_err, scale = _bf16_attention_errors(q, k, v, key_mask, out)
+        assert kernel_err <= plain_err + 2.0 ** -8 * scale
+        # the mean in fp32 (summed in another order), rounded once to bf16
+        err = (out[2].float() - mean_v).abs()
+        assert (err <= 2.0 ** -8 * mean_v.abs() + 1e-5).all()
+
+
+def test_encoder_attention_kernel_raises_on_what_it_does_not_take(cuda):
+    from client_tpu_torch.models import bert
+
+    q, k, v, _ = _encoder_case(3, 2, 64, 4, 64, torch.float32, cuda)
+    key_mask = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        bert.encoder_attention_cuda(q.half(), k.half(), v.half(), key_mask)
+    with pytest.raises(TypeError):
+        bert.encoder_attention_cuda(q, k.to(torch.bfloat16), v, key_mask)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bert.encoder_attention_cuda(q, k.cpu(), v, key_mask)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bert.encoder_attention_cuda(q, k, v, key_mask.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        bert.encoder_attention_cuda(*(t.reshape(2, 64, 8, 32) for t in (q, k, v)), key_mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        bert.encoder_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                                    key_mask)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        bert.encoder_attention_cuda(shifted, k, v, key_mask)
+    with pytest.raises(ValueError, match="key_mask"):
+        bert.encoder_attention_cuda(q, k, v, key_mask.int())
+    with pytest.raises(ValueError, match="key_mask"):
+        bert.encoder_attention_cuda(q, k, v, key_mask[:, :32])
+    with pytest.raises(ValueError, match="alike"):
+        bert.encoder_attention_cuda(q, k[:, :32], v, key_mask)
+
+
+def test_bert_large_forward_launches_the_kernel_once_a_layer(cuda):
+    from client_tpu_torch.models import bert
+
+    config = bert.BertConfig()
+    params = bert.init_params(torch.Generator(device=cuda).manual_seed(0), config, cuda)
+    ids = _random_ids(4, [64, 17], config.vocab_size)
+    before = bert.encoder_attention_cuda.launches
+    with torch.inference_mode():
+        _, pooled = bert.forward(params, torch.from_numpy(ids).to(cuda), config)
+    torch.cuda.synchronize()
+    assert torch.isfinite(pooled).all()
+    assert bert.encoder_attention_cuda.launches - before == config.n_layers
 
 
 # ---------------------------------------------------------------------------
