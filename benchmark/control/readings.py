@@ -6,8 +6,8 @@ For each seed, in one process: one run of the cell at its own size and
 load with a short window (the benchmark's own run, ``harness.main``);
 then, on the same sample of served answers, the program's numbers and the
 control's: the reference computed in fp8 (``reference/linear.py``) in the
-program's place, judged by the same comparison and limits
-(``check.compare``, ``main.verdict``). One JSON line a seed, with each
+program's place, judged by the same comparison and limits (the model
+type's ``compare``, ``main.verdict``). One JSON line a seed, with each
 side's ``correct``. The benchmark's own runs never run the control.
 """
 
@@ -22,7 +22,7 @@ BENCH = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(BENCH))
 sys.path.insert(0, str(BENCH.parent))
 
-from harness import check, main  # noqa: E402
+from harness import main  # noqa: E402
 
 
 def readings(cell, seed, seconds, device="cuda"):
@@ -31,7 +31,7 @@ def readings(cell, seed, seconds, device="cuda"):
     box = {}
 
     def after(run, weights):
-        box["control"] = check.compare(run, weights, control=True)
+        box["control"] = run.model_type.compare(run, weights, control=True)
 
     run, _, checks = main.run_cell(cell, seed, seconds, False, time.monotonic_ns(),
                                    device=device, after=after)

@@ -13,9 +13,11 @@ the seed of the requests sent in the window, each against the
 reference's answer for the request alone, unpadded; the number is the
 largest ``max |answer - reference| / max |reference|``.
 
-The control of each number (``compare(..., control=True)``) puts the
-reference, computed in fp8 (``reference/linear.py``), in the program's
-place and judges it alike; the benchmark's own runs do not compute it.
+A model type (``systems/<system>.py``) picks its comparison in its
+``compare(run, weights, control)``. The control of each number
+(``control=True``) puts the reference, computed in fp8
+(``reference/linear.py``), in the program's place and judges it alike;
+the benchmark's own runs do not compute it.
 """
 
 import base64
@@ -118,28 +120,6 @@ def answer_error(weights, sizes, sample, control: bool = False) -> float:
     else:
         answers = [a for _, a in sample]
     return _relative_errors(answers, refs)
-
-
-def compare(run, weights, control: bool = False) -> Dict[str, Any]:
-    """The numbers compared for this run's system, each beside its limit
-    from the configuration, and the sample's size; with ``control``, the
-    control's numbers on the same sample."""
-    limits = run.config["serve"]["check_limits"]
-    system = run.config["serve"]["system"]
-    checks: Dict[str, Any] = {}
-    if system == "llm_engine":
-        sample = decoder_sample(run)
-        served = sum(len(s) for _, s in sample)
-        value = served_logit_gap(weights, run.sizes, sample, control) if sample else None
-        checks["served_logit_gap"] = {"value": value,
-                                      "limit": limits["served_logit_gap"]}
-        checks["checked_tokens"] = {"value": served, "limit": limits["min_checked_tokens"]}
-    elif system == "text_encoder":
-        sample = encoder_sample(run)
-        value = answer_error(weights, run.sizes, sample, control) if sample else None
-        checks["answer_error"] = {"value": value, "limit": limits["answer_error"]}
-        checks["checked_answers"] = {"value": len(sample), "limit": limits["min_checked_answers"]}
-    return checks
 
 
 def passed(name: str, check: Dict[str, Any]) -> bool:

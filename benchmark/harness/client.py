@@ -17,7 +17,9 @@ still running are dropped, which cancels them on the server. A line
 Routes: ``openai_chat_stream`` (an SSE reader over asyncio streams that
 stamps each event as its bytes arrive, after the port's
 ``OpenAiPerfBackend``) and ``kserve_infer`` (the port's own asyncio
-client, ``client_tpu_torch.http.aio``, with binary tensors).
+client, ``client_tpu_torch.http.aio``, with binary tensors: the ids in
+and the answer out under the model type's ``INFER_TENSORS``, which the
+spec's ``tensors`` carries).
 """
 
 import asyncio
@@ -135,8 +137,9 @@ class ChatSlot:
 class InferSlot:
     """One slot of KServe ``/infer`` requests through the port's client."""
 
-    def __init__(self, client, model, sample):
+    def __init__(self, client, model, sample, tensors):
         self.client, self.model, self.sample = client, model, sample
+        self.input, self.output = tensors
 
     def drop(self):
         pass
@@ -145,12 +148,12 @@ class InferSlot:
         from client_tpu_torch.http.aio import InferInput, InferRequestedOutput
 
         ids = request["ids"][None, :]
-        tensor = InferInput("INPUT_IDS", list(ids.shape), "INT32")
+        tensor = InferInput(self.input, list(ids.shape), "INT32")
         tensor.set_data_from_numpy(ids, binary_data=True)
-        output = InferRequestedOutput("EMBEDDING", binary_data=True)
+        output = InferRequestedOutput(self.output, binary_data=True)
         record["t_send"] = time.monotonic_ns()
         result = await self.client.infer(self.model, [tensor], outputs=[output])
-        answer = result.as_numpy("EMBEDDING")
+        answer = result.as_numpy(self.output)
         record["t_first"] = time.monotonic_ns()
         record["done"] = True
         record["length"] = int(ids.shape[1])
@@ -236,7 +239,8 @@ async def _main(spec):
         def sample(slot, k):
             return in_check_sample(spec["seed"], slot, k, share)
 
-        slots = [InferSlot(client, spec["model"], sample) for _ in spec["slots"]]
+        slots = [InferSlot(client, spec["model"], sample, spec["tensors"])
+                 for _ in spec["slots"]]
     records = []
     tasks = [asyncio.create_task(_run_slot(index, slot, plan, stop, records))
              for index, slot in zip(spec["slots"], slots)]

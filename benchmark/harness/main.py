@@ -3,9 +3,11 @@
 
 The cell (``BENCHMARK.json``'s ``workloads`` entry) names a
 configuration (``configs/<config>.json``) and a traffic mix
-(``traffic/<mix>.json``); each metric the cell reports is read by
-``metrics/<metric>.py``. So a cell, a configuration, a mix or a metric is
-added as files, and this code finds them by name.
+(``traffic/<mix>.json``); the configuration's ``serve.system`` names its
+model type (``systems/<system>.py``, ``harness/systems.py``); each metric
+the cell reports is read by ``metrics/<metric>.py``. So a cell, a
+configuration, a model type, a mix or a metric is added as files, and
+this code finds them by name.
 
 A run: weights from the seed on the card; the port's model and server in
 this process; one client process (``client.py``) driving the mix's
@@ -112,6 +114,8 @@ class Run:
 
         self.sizes = systems.sizes_of(self.config)
         self.system = self.config["serve"]["system"]
+        # before any weights are drawn: an unknown system fails here
+        self.model_type = systems.load(self.system)
         self.route = self.mix["route"]
         # the window is [open_ns, end_ns); the metrics read [open_ns,
         # close_ns), which a traced run ends early (QUIET_SHARE)
@@ -145,7 +149,8 @@ def _start_client(run: Run, model: str) -> subprocess.Popen:
     and learns the server's port with its ``go``."""
     spec = {"mix": run.mix, "seed": run.seed, "host": "127.0.0.1",
             "model": model, "slots": list(range(int(run.mix["concurrency"]))),
-            "vocab_size": run.sizes["vocab_size"], "check_share": CHECK_SHARE}
+            "vocab_size": run.sizes["vocab_size"], "check_share": CHECK_SHARE,
+            "tensors": list(run.model_type.INFER_TENSORS)}
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     return subprocess.Popen([sys.executable, str(BENCH / "harness" / "client.py"), json.dumps(spec)],
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env, text=True)
@@ -170,12 +175,6 @@ class Phases:
         now = time.monotonic_ns()
         self.seconds[name] = (now - self.last) / 1e9
         self.last = now
-
-
-def _counters(run: Run, model, server) -> Dict[str, Any]:
-    if run.system == "llm_engine":
-        return dict(model.engine.stats())
-    return server.statistics()
 
 
 def _call_windows(run: Run, cuda: bool) -> List[Dict[str, Any]]:
@@ -210,21 +209,21 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t0_ns: int, device: s
     once the program is gone (the control's readings)."""
     import torch
 
-    from harness import check, devtrace, systems, weights
+    from harness import devtrace, systems
 
     cuda = device == "cuda"
     run = Run(cell, seed, seconds, trace, cuda)
+    system = run.model_type
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     phases = Phases(t0_ns)
     phases.mark("start and imports")
-    make = {"decoder": weights.decoder, "encoder": weights.encoder}[run.config["serve"]["reference"]]
-    w = make(run.sizes, seed, device)
+    w = system.weights(run.sizes, seed, device)
     if cuda:
         torch.cuda.synchronize()
     phases.mark("weights")
     run.spans = systems.Spans() if trace else None
-    model = systems.build_model(run.config, w, device, run.spans)
+    model = system.build(run.config, run.sizes, w, device, run.spans)
     client = _start_client(run, model.name)
     server = None
     sampler = None
@@ -233,7 +232,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t0_ns: int, device: s
         server = systems.Server(model, device)
         phases.mark("load and server")
         phases.seconds.update({"of which load": server.load_s, "of which core": server.core_s})
-        systems.warm_shapes(run.config, model, run.mix)
+        system.warm(run.config, model, run.mix)
         if cuda:
             torch.cuda.synchronize()
         phases.mark("warm shapes")
@@ -250,7 +249,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t0_ns: int, device: s
         run.setup_s = (time.monotonic_ns() - t0_ns) / 1e9
         phases.mark("ramp")
         run.setup_phases = phases.seconds
-        run.counters["open"] = _counters(run, model, server)
+        run.counters["open"] = system.counters(model, server)
         if trace and cuda:
             try:
                 sampler = devtrace.Sampler(devtrace.Nvml(devtrace.nvml_index()))
@@ -262,7 +261,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t0_ns: int, device: s
             # window; the profiler windows fill the rest
             run.close_ns = run.open_ns + int(QUIET_SHARE * (run.end_ns - run.open_ns))
         _sleep_until(run.close_ns)
-        run.counters["close"] = _counters(run, model, server)
+        run.counters["close"] = system.counters(model, server)
         if sampler is not None:
             sampler.stop()
             run.nvml_samples = sampler.samples
@@ -299,7 +298,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t0_ns: int, device: s
     from reference import linear
 
     linear.full_precision()
-    checks = check.compare(run, w)
+    checks = system.compare(run, w)
     if after is not None:
         after(run, w)
     return run, w, checks

@@ -3,18 +3,20 @@
 ``ServerCore`` books wall ns by stage into each model's statistics
 (``stage_stats`` of ``GET /v2/models/<name>/stats``: ``{stage: {count,
 ns}}``), always on; the harness keeps that document at the window's
-opening and closing (``run.counters["open"]``, ``["close"]``). A program
-without the ledger has no ``stage_stats``: its readers find nothing.
+opening and closing (``run.counters["open"]``, ``["close"]``, as the
+model type's ``counters`` reads it). Counters without ``stage_stats``
+(an engine's, or a program without the ledger): its readers find
+nothing, whatever the system.
 """
 
 
 def mean_ms(run, *stages):
     """The window's ns of ``stages`` together over the bookings of the
     first, in ms: the differences of the closing and the opening
-    documents. None off the encoder, before the window closed, where the
-    program keeps no ledger or books none of these stages, or where none
-    was booked in the window."""
-    if run.system != "text_encoder" or "close" not in run.counters:
+    documents. None before the window closed, where the counters hold no
+    ledger (an engine's counters, or a program without it) or it books
+    none of these stages, or where none was booked in the window."""
+    if "close" not in run.counters:
         return None
     opened = run.counters["open"].get("stage_stats")
     closed = run.counters["close"].get("stage_stats")

@@ -1,21 +1,60 @@
 """The system under test: the port's model for a configuration, served
 in this process by the port's own server.
 
-A configuration's ``serve.system`` names the port's model type that
-serves it (``llm_engine``: :class:`LlmEngineModel`; ``text_encoder``:
-:class:`TextEncoderModel`). The benchmark hands it the weights it made;
-everything else (the engine, its pages, the batcher, the front-end) is
-the port's. In traced runs :class:`Spans` times the model's device calls
-from the outside: the engine's prefill and decode callables (through the
-model's ``device_fn_wrapper`` hook) and the encoder's executions.
+A configuration's ``serve.system`` names its model type, a file of its
+own: ``systems/<system>.py`` (:func:`load`), which defines :data:`NAMES`.
+It draws the weights the benchmark hands the program, builds the port's
+model on them, warms the shapes its traffic reaches, reads the program's
+counters, compares the served answers with the plain reference, and cuts
+the configuration and its traffic to a tiny size for the CPU tests.
+Everything else (the engine, its pages, the batcher, the front-end) is
+the port's, served by :class:`Server`. In traced runs :class:`Spans`
+times the model's device calls from the outside: an engine's prefill
+and decode callables (:meth:`Spans.wrap_engine`) and an encoder's
+executions (:meth:`Spans.wrap_execute`).
 """
 
 import asyncio
+import importlib.util
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List
 
 import numpy as np
+
+BENCH = Path(__file__).resolve().parents[1]
+# what a model type's file defines:
+#   weights(sizes, seed, device): the weights from the seed, on ``device``
+#   build(config, sizes, weights, device, spans): the port's model, not
+#       yet loaded, served under the name of its system
+#   warm(config, model, mix): run once every shape the mix reaches that
+#       the served path does not meet before the window by itself
+#   counters(model, server): the program's counters, kept at the window's
+#       opening and closing (``run.counters``)
+#   compare(run, weights, control): the numbers that decide ``correct``,
+#       each beside its limit (``check.py`` holds the comparisons)
+#   tiny(config, mix): cut the configuration and its mix, in place, to a
+#       size a CPU test runs in seconds, with the limits for float32
+#   INFER_TENSORS: (input, output), the tensors the ``kserve_infer``
+#       route sends and reads
+NAMES = ("weights", "build", "warm", "counters", "compare", "tiny", "INFER_TENSORS")
+
+
+def load(system: str):
+    """The model type ``system``: the module ``systems/<system>.py``."""
+    path = BENCH / "systems" / f"{system}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model type {system!r}: there is no {path}")
+    spec = importlib.util.spec_from_file_location(f"bench_system_{system.replace('.', '_')}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [name for name in NAMES if not hasattr(module, name)]
+    if missing:
+        raise AttributeError(f"{path} does not define {', '.join(missing)}")
+    return module
+
 
 def sizes_of(config: Dict[str, Any]) -> Dict[str, Any]:
     """The configuration's sizes with the derived ones filled in."""
@@ -87,77 +126,6 @@ class Spans:
             return out
 
         model.execute = timed_execute
-
-
-def build_model(config: Dict[str, Any], weights: Dict[str, Any], device: str,
-                spans: Optional[Spans]):
-    """The port's model for ``config``, on ``weights``, served under the
-    name of its system; not yet loaded."""
-    serve = config["serve"]
-    sizes = sizes_of(config)
-    system = serve["system"]
-    if system == "llm_engine":
-        import torch
-
-        from client_tpu_torch.llm.engine import EngineConfig
-        from client_tpu_torch.llm.serving import LlmEngineModel
-        from client_tpu_torch.models import llama
-
-        model_config = llama.LlamaConfig(
-            vocab_size=sizes["vocab_size"], d_model=sizes["hidden_size"],
-            n_layers=sizes["num_hidden_layers"], n_heads=sizes["num_attention_heads"],
-            n_kv_heads=sizes["num_key_value_heads"], d_ff=sizes["intermediate_size"],
-            max_seq_len=serve["max_seq_len"], rope_theta=float(sizes["rope_theta"]),
-            norm_eps=float(sizes["rms_norm_eps"]), dtype=getattr(torch, serve["dtype"]))
-        engine = dict(serve["engine"])
-        engine_config = EngineConfig(max_seq_len=serve["max_seq_len"], **engine)
-        model = LlmEngineModel(name=system, config=model_config, params=weights,
-                               engine_config=engine_config, device=device)
-        if spans is not None:
-            model.device_fn_wrapper = spans.wrap_engine
-        return model
-    if system == "text_encoder":
-        import torch
-
-        from client_tpu_torch.models import bert
-        from client_tpu_torch.models.serving import TextEncoderModel
-
-        model_config = bert.BertConfig(
-            vocab_size=sizes["vocab_size"], d_model=sizes["hidden_size"],
-            n_layers=sizes["num_hidden_layers"], n_heads=sizes["num_attention_heads"],
-            d_ff=sizes["intermediate_size"], max_seq_len=sizes["max_position_embeddings"],
-            pad_token_id=sizes["pad_token_id"], norm_eps=float(sizes["layer_norm_eps"]),
-            dtype=getattr(torch, serve["dtype"]))
-        model = TextEncoderModel(name=system, config=model_config,
-                                 params=weights, device=device)
-        model.max_batch_size = int(serve["max_batch_size"])
-        if spans is not None:
-            spans.wrap_execute(model)
-        return model
-    raise ValueError(f"unknown system {system!r}")
-
-
-def warm_shapes(config: Dict[str, Any], model, mix: Dict[str, Any]) -> None:
-    """Run once every execution shape the mix can reach that the served
-    path does not meet before the window by itself. The encoder's: every
-    row bucket up to the batch limit by every length bucket of the mix's
-    lengths. The engine's warm-up probes and the ramp cover its own."""
-    if config["serve"]["system"] != "text_encoder":
-        return
-    spec = mix["input_tokens"]
-    rows, lengths = [], []
-    r = 1
-    while r <= model.max_batch_size:
-        rows.append(r)
-        r *= 2
-    n = 8
-    while n < spec["max"]:
-        n *= 2
-        if n >= spec["min"]:
-            lengths.append(n)
-    for r in rows:
-        for n in lengths:
-            model.execute({"INPUT_IDS": np.ones([r, n], dtype=np.int32)}, {})
 
 
 class Server:

@@ -58,7 +58,8 @@ def test_reader_finds_nothing_without_the_ledger(name):
     assert read(_run(_document(5, 10, missing), _document(15, 30, missing))) is None
     assert read(_run(_document(5, 10), None)) is None  # the window never closed
     assert read(_run(_document(5, 10), _document(5, 10))) is None  # nothing booked
-    assert read(_run(_document(5, 10), _document(15, 30), system="llm_engine")) is None
+    engine = {"steps": 5, "lane_steps": 40}  # an engine's counters hold no ledger
+    assert read(_run(engine, dict(engine, steps=15), system="llm_engine")) is None
 
 
 def test_a_stage_first_booked_inside_the_window_counts_from_zero():
